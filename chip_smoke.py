@@ -15,7 +15,14 @@ and exits nonzero, printing no result, if any phase fails:
    on that sample; checks that every kernel ran, that fast tracks exact,
    and that the badly mixed parameter is flagged; prints the wall times;
 5. card against CPU: the same calls at 2000 x 32 x 64 on the card and
-   through the plain CPU path must agree.
+   through the plain CPU path must agree;
+6. the estimator path with ``DirectKernelAutocovMethod`` (kernel K5): K5
+   against its plain version and against K1's autocovariance on the split
+   sample; ``mcse`` and the estimator kinds of ``ess`` on the full sample in
+   both rank modes, with the marker (K5 must run in every call) and with
+   ``"auto"`` (K5 must not run), which must agree, with fast tracking exact;
+   then those calls plus the SBM fallback, ``rhat_nested`` and ``bfmi`` at
+   2000 x 32 x 64 on the card against the CPU.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Only PyTorch and numpy are used.
@@ -55,9 +62,11 @@ def ar1(rng, phi: float, shape) -> np.ndarray:
     return x
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms (CUDA events), after a warm-up."""
-    fn()
+def time_ms(fn, reps: int = 5, warmup: bool = True) -> float:
+    """Median device time of ``fn`` in ms (CUDA events), after a warm-up
+    call unless the caller has just made one."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -90,6 +99,54 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[ok] - b[ok]).abs().max()) if ok.any() else 0.0
 
 
+def with_bad_columns(x3: torch.Tensor) -> torch.Tensor:
+    """A copy of the sample with a NaN column (1) and a constant column (2)."""
+    xk = x3.clone()
+    xk[::997, :, 1] = torch.nan
+    xk[:, :, 2] = 0.75
+    return xk
+
+
+def check_agree(tag: str, a, b, rel: float, stops=None, ranks=None) -> float:
+    """``a`` and ``b`` (P,) within ``rel`` relative. Two exceptions:
+
+    - for a quantile MCSE, ``ranks()`` gives each run's ``(ess, l, u)``: a
+      parameter whose interval ranks ``l``, ``u`` differ between the runs
+      reads other order statistics, and is accepted when the ESS values
+      behind the ranks agree within 1e-3 (with equal ranks both runs read
+      the same order statistics, and ``rel`` holds);
+    - a single parameter whose Geyer truncation falls on another lag pair in
+      the two runs; ``stops()`` gives both runs' stop pairs.
+    """
+    a, b = a.double().cpu(), b.double().cpu()
+    dev = (a / b - 1).abs()
+    worst = float(dev.max())
+    print(f"   {tag}: max rel dev {worst:.3e} (bound {rel:.1e})")
+    off = torch.nonzero(~(dev <= rel)).flatten().tolist()
+    if not off:
+        return worst
+    if ranks is not None:
+        (ea, la, ua), (eb, lb, ub) = ranks()
+        for j in off:
+            print(f"   param {j}: {float(a[j]):.6g} vs {float(b[j]):.6g}; ranks "
+                  f"l {int(la[j])} vs {int(lb[j])}, u {int(ua[j])} vs "
+                  f"{int(ub[j])}; ESS {float(ea[j]):.6g} vs {float(eb[j]):.6g}")
+            check(int(la[j]) != int(lb[j]) or int(ua[j]) != int(ub[j]),
+                  f"{tag}: param {j} disagrees with equal interval ranks")
+        off = [j for j in off if not abs(float(ea[j] / eb[j]) - 1) <= 1e-3]
+        if not off:
+            print("   accepted: interval ranks moved by ESS within 1e-3")
+            return worst
+    check(stops is not None and len(off) == 1, f"{tag}: disagree at {off}")
+    sa, sb = stops()
+    j = off[0]
+    print(f"   param {j}: {float(a[j]):.6g} vs {float(b[j]):.6g}; Geyer stop "
+          f"pair {int(sa[j])} vs {int(sb[j])}")
+    check(int(sa[j]) != int(sb[j]), f"{tag}: beyond a single truncation flip")
+    print(f"   accepted: a single Geyer truncation flip (param {j})")
+    return worst
+
+
 def phase_device() -> dict:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -120,9 +177,7 @@ def phase_kernels(x3: torch.Tensor) -> list:
     from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
     from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
 
-    xk = x3.clone()
-    xk[::997, :, 1] = torch.nan  # a NaN column
-    xk[:, :, 2] = 0.75  # a constant column
+    xk = with_bad_columns(x3)
     xf = xk.reshape(-1, PARAMS)
     rows = []
 
@@ -239,20 +294,34 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
     return {"counts": fast_counts, **walls}
 
 
-def _geyer_stop_pairs(x3: torch.Tensor, rank_mode: str, maxlag: int):
+def geyer_stop_pairs(proxy: torch.Tensor, method: str, maxlag: int):
     """Per parameter, the index of the first nonpositive Geyer pair of the
-    bulk ESS: where the truncation falls."""
-    from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import fast_rank_bulk_tail
-    from mcmcdiagnostictools_jl_tpu_torch.ops.moments import fused_chain_stats_autocov
-    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import rank_normalize
+    ESS of ``proxy`` (split in 2) with the autocovariance ``method``
+    (``"kernel"``: K1, ``"direct_kernel"``: K5): where the truncation
+    falls."""
+    from mcmcdiagnostictools_jl_tpu_torch.ops.autocov import mean_autocov_curve
+    from mcmcdiagnostictools_jl_tpu_torch.ops.moments import (
+        chain_stats, fused_chain_stats_autocov)
     from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
 
-    z = fast_rank_bulk_tail(x3)[0] if rank_mode == "fast" else rank_normalize(x3)
-    stats, acov = fused_chain_stats_autocov(split_chains_reshape(z, 2), maxlag)
+    samples = split_chains_reshape(proxy, 2)
+    if method == "kernel":
+        stats, acov = fused_chain_stats_autocov(samples, maxlag)
+    else:
+        stats = chain_stats(samples)
+        acov = mean_autocov_curve(samples - stats.chain_mean[None],
+                                  stats.chain_var, maxlag, method)
     rho = 1.0 - (stats.w[None] - acov) / stats.var_plus[None]
     npairs = (maxlag - 2) // 2
     stop = ~(rho[2:2 + 2 * npairs:2] + rho[3:3 + 2 * npairs:2] > 0)
     return torch.where(stop.any(0), stop.int().argmax(0), npairs).cpu()
+
+
+def bulk_z(x3: torch.Tensor, rank_mode: str) -> torch.Tensor:
+    from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import fast_rank_bulk_tail
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import rank_normalize
+
+    return fast_rank_bulk_tail(x3)[0] if rank_mode == "fast" else rank_normalize(x3)
 
 
 def phase_card_vs_cpu() -> None:
@@ -261,29 +330,222 @@ def phase_card_vs_cpu() -> None:
     rng = np.random.default_rng(SEED + 1)
     x_cpu = torch.from_numpy(ar1(rng, 0.5, (2000, 32, 64)))
     x_gpu = x_cpu.cuda()
+    maxlag = min(250, 2000 // 2 - 4)
     for mode in ("fast", "exact"):
         g = mtt.ess_rhat(x_gpu, kind="rank", rank_mode=mode)
         c = mtt.ess_rhat(x_cpu, kind="rank", rank_mode=mode)
-        ess_rel = (g.ess.cpu() / c.ess - 1).abs()
         rhat_abs = (g.rhat.cpu() - c.rhat).abs()
-        print(f"[5 {mode}] card vs CPU: ESS rel {float(ess_rel.max()):.3e} "
-              f"(bound 1e-3), R-hat abs {float(rhat_abs.max()):.3e} (bound 1e-4)")
+        print(f"[5 {mode}] card vs CPU: R-hat abs {float(rhat_abs.max()):.3e} "
+              "(bound 1e-4)")
         check(bool((rhat_abs <= 1e-4).all()), f"{mode}: R-hat card != CPU")
-        off = torch.nonzero(~(ess_rel <= 1e-3)).flatten().tolist()
-        if not off:
-            continue
-        # the only allowed exception: one parameter whose Geyer truncation
-        # falls on another lag pair on the card than on the CPU
-        maxlag = min(250, 2000 // 2 - 4)
-        sg = _geyer_stop_pairs(x_gpu, mode, maxlag)
-        sc = _geyer_stop_pairs(x_cpu, mode, maxlag)
-        for j in off:
-            print(f"   param {j}: ESS card {float(g.ess[j]):.3f} CPU "
-                  f"{float(c.ess[j]):.3f}; Geyer stop pair card {int(sg[j])} "
-                  f"CPU {int(sc[j])}")
-        check(len(off) == 1 and int(sg[off[0]]) != int(sc[off[0]]),
-              f"{mode}: ESS card != CPU beyond a single truncation flip")
-        print(f"   accepted: a single Geyer truncation flip (param {off[0]})")
+        check_agree(
+            f"[5 {mode}] ESS card vs CPU", g.ess, c.ess, 1e-3,
+            lambda: (geyer_stop_pairs(bulk_z(x_gpu, mode), "kernel", maxlag),
+                     geyer_stop_pairs(bulk_z(x_cpu, mode), "kernel", maxlag)))
+
+# ---- phase 6: the estimator path with DirectKernelAutocovMethod (K5) -------
+
+# fast against exact quantile MCSE, pinned in tests/test_torch_mcse.py:
+# measured at most 1.62e-2 on the CPU at 4000 x 16 x 32 (p = 0.05)
+MCSE_Q_FAST_BOUND = 2.5e-2
+
+
+def phase_direct_autocov(x3: torch.Tensor) -> dict:
+    """K5 against its plain version and against K1's autocovariance on the
+    split sample (5000, 256, 256), at maxlag 64 and 250."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as ma
+    from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
+
+    samples = split_chains_reshape(with_bad_columns(x3), 2)
+    centered = (samples - samples.mean(0)).contiguous()
+    row = {"err": 0.0}
+    for maxlag in (64, 250):
+        k = k5.direct_autocov(centered, maxlag)
+        p = k5.direct_autocov_plain(centered, maxlag)  # also the warm-up
+        torch.cuda.synchronize()
+        scale_var = float(p[0][~torch.isnan(p[0])].max())
+        err = max_abs_err(k, p)
+        mean1, _, _, _, acov1 = ma.moments_autocov(samples, maxlag)
+        err_k1 = max_abs_err(
+            k5.direct_autocov((samples - mean1).contiguous(), maxlag), acov1)
+        ms = time_ms(lambda: k5.direct_autocov(centered, maxlag))
+        plain_ms = time_ms(lambda: k5.direct_autocov_plain(centered, maxlag),
+                           warmup=False)
+        print(f"[6 K5 direct_autocov] maxlag {maxlag}: max abs err {err:.3e} "
+              f"(relative to the largest variance {err / scale_var:.3e}, "
+              f"bound 1e-5); against K1's acov {err_k1:.3e} (relative "
+              f"{err_k1 / scale_var:.3e}); kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms")
+        check(err / scale_var <= 1e-5, "K5 disagrees with its plain version")
+        check(err_k1 / scale_var <= 1e-5, "K5 disagrees with K1's acov")
+        sfx = "" if maxlag == 250 else "_maxlag64"
+        row.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                    "max_abs_err_vs_k1" + sfx: err_k1})
+        row["err"] = max(row["err"], err)
+    return row
+
+
+def estimator_calls():
+    from mcmcdiagnostictools_jl_tpu_torch import Quantile
+
+    return ([("ess", k) for k in ("mean", "std", "median", "mad",
+                                  Quantile(0.99))]
+            + [("mcse", k) for k in ("mean", "std", "median", Quantile(0.05),
+                                     Quantile(0.99))])
+
+
+def call_proxy(x3: torch.Tensor, fn: str, kind, rank_mode: str):
+    """The series whose ESS the call ``fn(x3, kind=kind)`` computes."""
+    from mcmcdiagnostictools_jl_tpu_torch import Quantile
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics.ess_rhat import (
+        _expectand_proxy, _fast_expectand_proxy)
+
+    if isinstance(kind, Quantile):
+        est, q = "quantile", kind.p
+    elif fn == "mcse" and kind == "median":
+        est, q = "quantile", 0.5
+    else:
+        est, q = kind, None
+    if rank_mode == "fast":
+        return _fast_expectand_proxy(est, x3, q, NBINS)
+    return _expectand_proxy(est, x3, q)
+
+
+def mcse_quantile_p(fn: str, kind) -> float | None:
+    """The probability of a quantile MCSE call, None for any other call."""
+    from mcmcdiagnostictools_jl_tpu_torch import Quantile
+
+    if fn != "mcse" or kind in ("mean", "std"):
+        return None
+    return kind.p if isinstance(kind, Quantile) else 0.5
+
+
+def interval_ranks(x3: torch.Tensor, p: float, rank_mode: str, method):
+    """``() -> (ess, l, u)`` on the host: the proxy ESS and the Beta interval
+    ranks that ``mcse(x3, kind=Quantile(p))`` reads its order statistics at."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import (
+        _beta_interval_ranks)
+
+    def run():
+        s = mtt.ess(x3, kind=mtt.Quantile(p), rank_mode=rank_mode,
+                    autocov_method=method)
+        l, u = _beta_interval_ranks(s, p, x3.shape[0] * x3.shape[1])
+        return s.double().cpu(), l.cpu(), u.cpu()
+    return run
+
+
+def phase_estimators(x3: torch.Tensor) -> dict:
+    """``ess`` and ``mcse`` of the estimator kinds at full width, both rank
+    modes, with the K5 marker and with ``"auto"``."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+
+    marker = mtt.DirectKernelAutocovMethod()
+    calls = [(fn, kind, mode) for fn, kind in estimator_calls()
+             for mode in ("exact", "fast")]
+    out = {}
+    kernels.reset_launch_counts()
+    for fn, kind, mode in calls:
+        before = kernels.launch_counts()["K5"]
+        out[fn, kind, mode, "marker"] = getattr(mtt, fn)(
+            x3, kind=kind, rank_mode=mode, autocov_method=marker)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["K5"] > before,
+              f"K5 did not run in {fn}(kind={kind!r}, rank_mode={mode!r}) "
+              "with the marker")
+    marker_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    for fn, kind, mode in calls:
+        out[fn, kind, mode, "auto"] = getattr(mtt, fn)(
+            x3, kind=kind, rank_mode=mode)
+    torch.cuda.synchronize()
+    auto_counts = kernels.launch_counts()
+    print(f"[6 launches] marker calls {marker_counts}; auto calls {auto_counts}")
+    check(auto_counts["K5"] == 0, "K5 ran in an autocov_method='auto' call")
+    for v in out.values():
+        check(v.shape == (PARAMS,) and v.device.type == "cuda",
+              f"bad output shape/device {tuple(v.shape)} {v.device}")
+        check(bool(torch.isfinite(v).all()), "non-finite ESS or MCSE")
+
+    maxlag = 250
+    for fn, kind, mode in calls:
+        tag = f"[6 {fn} {kind!r} {mode}]"
+        proxy = call_proxy(x3, fn, kind, mode)
+        q = mcse_quantile_p(fn, kind)
+        check_agree(
+            f"{tag} marker vs auto", out[fn, kind, mode, "marker"],
+            out[fn, kind, mode, "auto"], 1e-3,
+            lambda: (geyer_stop_pairs(proxy, "direct_kernel", maxlag),
+                     geyer_stop_pairs(proxy, "kernel", maxlag)),
+            None if q is None else lambda: (
+                interval_ranks(x3, q, mode, marker)(),
+                interval_ranks(x3, q, mode, "auto")()))
+    fast_dev = {}
+    for fn, kind in estimator_calls():
+        quantile_mcse = mcse_quantile_p(fn, kind) is not None
+        fast_dev[f"{fn}_{kind}"] = check_agree(
+            f"[6 {fn} {kind!r}] fast vs exact", out[fn, kind, "fast", "marker"],
+            out[fn, kind, "exact", "marker"],
+            MCSE_Q_FAST_BOUND if quantile_mcse else 1e-2,
+            lambda: (geyer_stop_pairs(call_proxy(x3, fn, kind, "fast"),
+                                      "direct_kernel", maxlag),
+                     geyer_stop_pairs(call_proxy(x3, fn, kind, "exact"),
+                                      "direct_kernel", maxlag)))
+
+    Q99 = mtt.Quantile(0.99)
+    walls = {}
+    for name, fn, kw in (
+            ("mcse_mean", mtt.mcse, dict(kind="mean")),
+            ("mcse_q99_exact", mtt.mcse, dict(kind=Q99)),
+            ("mcse_q99_fast", mtt.mcse, dict(kind=Q99, rank_mode="fast")),
+            ("ess_mad_fast", mtt.ess, dict(kind="mad", rank_mode="fast"))):
+        for tag, meth in (("marker", marker), ("auto", "auto")):
+            walls[f"{name}_{tag}_s"] = wall_s(
+                lambda: fn(x3, autocov_method=meth, **kw))
+        print(f"[6 wall] {name}: marker {walls[f'{name}_marker_s']:.4f} s, "
+              f"auto {walls[f'{name}_auto_s']:.4f} s (median of 3)")
+    return {"k5_launches": marker_counts["K5"], "walls": walls,
+            "fast_vs_exact_max_rel_dev": fast_dev}
+
+
+def phase_estimators_card_vs_cpu() -> None:
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    rng = np.random.default_rng(SEED + 2)
+    x_cpu = torch.from_numpy(ar1(rng, 0.5, (2000, 32, 64)))
+    x_gpu = x_cpu.cuda()
+    marker = mtt.DirectKernelAutocovMethod()
+    maxlag = min(250, 2000 // 2 - 4)
+    for fn, kind in estimator_calls():
+        for mode in ("exact", "fast"):
+            g = getattr(mtt, fn)(x_gpu, kind=kind, rank_mode=mode,
+                                 autocov_method=marker)
+            c = getattr(mtt, fn)(x_cpu, kind=kind, rank_mode=mode,
+                                 autocov_method=marker)
+            q = mcse_quantile_p(fn, kind)
+            check_agree(
+                f"[6 {fn} {kind!r} {mode}] card vs CPU", g, c, 1e-3,
+                lambda: tuple(geyer_stop_pairs(call_proxy(x, fn, kind, mode),
+                                               "direct_kernel", maxlag)
+                              for x in (x_gpu, x_cpu)),
+                None if q is None else lambda: tuple(
+                    interval_ranks(x, q, mode, marker)()
+                    for x in (x_gpu, x_cpu)))
+    check_agree("[6 mcse SBM w.mean()] card vs CPU",
+                mtt.mcse(x_gpu, kind=lambda w: w.mean()),
+                mtt.mcse(x_cpu, kind=lambda w: w.mean()), 1e-3)
+    ids = np.arange(32) % 4  # 4 superchains of 8 chains
+    for kind in ("rank", "bulk", "tail", "basic"):
+        d = float((mtt.rhat_nested(x_gpu, ids, kind=kind).cpu()
+                   - mtt.rhat_nested(x_cpu, ids, kind=kind)).abs().max())
+        print(f"   [6 rhat_nested {kind}] card vs CPU: abs {d:.3e} (bound 1e-4)")
+        check(d <= 1e-4, f"rhat_nested {kind}: card != CPU")
+    # float32 sums of 2000 terms in another order: relative 1e-5
+    energy = x_cpu[:, :, 0] * 3.0 + 10.0
+    check_agree("[6 bfmi] card vs CPU", mtt.bfmi(energy.cuda()),
+                mtt.bfmi(energy), 1e-5)
 
 
 def main() -> int:
@@ -306,6 +568,9 @@ def main() -> int:
     rows = phase_kernels(x3)
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
+    rows.append(phase_direct_autocov(x3))
+    est = phase_estimators(x3)
+    phase_estimators_card_vs_cpu()
 
     src = f"{PKG}/csrc/"
     pallas = "mcmcdiagnostictools_jl_tpu/ops/pallas/"
@@ -315,16 +580,23 @@ def main() -> int:
         ("K2 column_minmax", src + "fastrank.cu", pallas + "fastrank_kernel.py:360"),
         ("K3 hist_moments", src + "fastrank.cu", pallas + "fastrank_kernel.py:173"),
         ("K4 rank_lookup", src + "fastrank.cu", pallas + "fastrank_kernel.py:275"),
+        ("K5 direct_autocov", src + "autocov.cu", pallas + "autocov_kernel.py:46"),
     ]
+    # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
+    # calls of phase 6
+    launches = {**e2e["counts"], "K5": est["k5_launches"]}
     kernels_out = []
-    for (name, source, replaces), row, kid in zip(meta, rows, ("K1", "K2", "K3", "K4")):
+    for (name, source, replaces), row, kid in zip(meta, rows,
+                                                  ("K1", "K2", "K3", "K4", "K5")):
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": e2e["counts"][kid],
+                 "replaces": replaces, "launches": launches[kid],
                  "max_abs_err": row.pop("err"), "ms": row.pop("ms"),
                  "plain_ms": row.pop("plain_ms")}
         entry.update(row)
         kernels_out.append(entry)
-    print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"]}))
+    print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
+                      **est["walls"],
+                      "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"]}))
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

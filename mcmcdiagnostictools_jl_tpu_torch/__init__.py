@@ -1,10 +1,11 @@
 """MCMC diagnostics in PyTorch, with hand-written CUDA kernels for Hopper.
 
 The port of ``mcmcdiagnostictools_jl_tpu`` (the JAX package, which stays the
-reference) to PyTorch on an NVIDIA H100. This slice covers the flagship
-``ess`` / ``rhat`` / ``ess_rhat`` with the ``basic``, ``bulk``, ``tail`` and
-``rank`` kinds in both rank modes (exact: ``torch.sort``; fast: histogram
-CDF).
+reference) to PyTorch on an NVIDIA H100. It covers ``ess`` (every kind:
+``basic``, ``bulk``, ``tail``, and the estimators ``mean``, ``std``,
+``median``, ``mad``, ``Quantile(p)``), ``rhat``, ``ess_rhat``, ``mcse``,
+``rhat_nested`` and ``bfmi``, in both rank modes (exact: ``torch.sort``;
+fast: histogram CDF).
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
@@ -14,9 +15,11 @@ a CPU tensor through their plain PyTorch versions; numpy input goes to the
 ``device=`` argument (default: the CPU).
 """
 
+from .diagnostics.bfmi import bfmi
 from .diagnostics.ess_rhat import (
     AutocovMethod,
     BDAAutocovMethod,
+    DirectKernelAutocovMethod,
     ESSRhat,
     FFTAutocovMethod,
     KernelAutocovMethod,
@@ -25,6 +28,8 @@ from .diagnostics.ess_rhat import (
     ess_rhat,
     rhat,
 )
+from .diagnostics.mcse import mcse
+from .diagnostics.rhat_nested import rhat_nested
 
 __version__ = "0.1.0"
 
@@ -32,10 +37,14 @@ __all__ = [
     "ess",
     "ess_rhat",
     "rhat",
+    "mcse",
+    "rhat_nested",
+    "bfmi",
     "AutocovMethod",
     "FFTAutocovMethod",
     "BDAAutocovMethod",
     "KernelAutocovMethod",
+    "DirectKernelAutocovMethod",
     "ESSRhat",
     "Quantile",
 ]

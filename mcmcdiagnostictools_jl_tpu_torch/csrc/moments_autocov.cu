@@ -10,36 +10,24 @@
 //     c_k = sum_{i < niter - k} xc_i * xc_{i+k} / niter,   k = 0..maxlag,
 // the reference's default estimator (src/ess_rhat.jl:161-179).
 //
-// What bounds it on an H100: the lag products, niter * (maxlag + 1) FMAs per
-// series (41 G at 5000 x 32768 series x 251 lags), each fed by one
-// shared-memory load. The TPU kernel held a whole 128-series block in VMEM
-// (2.5 MB at niter 5000); a block here has at most 227 KB of shared memory, so
-// the draw axis is tiled instead:
-// - a block owns 32 neighbouring series (threadIdx.x), so every global load of
-//   a warp is one coalesced 128-byte row segment;
-// - the 8 warps of the block (threadIdx.y) first split the draws for the
-//   moments (pass 1: sum/min/max, pass 2: centered sum of squares, both
-//   reduced across warps in a fixed order), then split the lags: warp g keeps
-//   the lags g, g + 8, g + 16, ... in registers;
-// - each tile stages kTile centered draws (the left factor) and kTile + span
-//   centered draws starting at the block's first lag (the shifted factor) in
-//   shared memory, zero past niter, so every lag product is full length;
-// - each tile's products are summed in registers and then added to the
-//   running sum, which keeps float32 rounding near sqrt(kTile) + niter/kTile
-//   terms instead of niter.
-// Centering uses the mean from pass 1 (not raw-moment shortcuts), as the TPU
-// kernel does, so c_k rounds like the plain version at small variance.
-// Lags beyond one block's span (8 * kJ) go to further blocks in gridDim.y.
+// The moments take two coalesced passes over the block's 32 series (pass 1:
+// sum/min/max, pass 2: centered sum of squares, both split over the 8 warps
+// and reduced across warps in a fixed order); the lag products, which bound
+// the kernel, are the tiled loop of lagloop.cuh (its header says what bounds
+// it and how it tiles the draw axis). Centering uses the mean from pass 1
+// (not raw-moment shortcuts), as the TPU kernel does, so c_k rounds like the
+// plain version at small variance.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "lagloop.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;   // series per block
-constexpr int kGroups = 8;   // warps per block
-constexpr int kTile = 128;   // draws staged per tile
+using mdt::kGroups;
+using mdt::kLanes;
 
 __device__ __forceinline__ float nan_min(float m, float v) {
   return (v != v || v < m) ? v : m;  // once m is NaN it stays NaN
@@ -56,10 +44,7 @@ moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
                        float* __restrict__ var_out, float* __restrict__ min_out,
                        float* __restrict__ max_out,
                        float* __restrict__ acov_out) {
-  constexpr int kSpan = kGroups * kJ;  // lags handled by one block
-  extern __shared__ float smem[];
-  float* a = smem;                     // (kTile, kLanes)
-  float* b = smem + kTile * kLanes;    // (kTile + kSpan, kLanes)
+  extern __shared__ float smem[];     // the lag loop's tiles
   __shared__ float red_sum[kGroups][kLanes];
   __shared__ float red_min[kGroups][kLanes];
   __shared__ float red_max[kGroups][kLanes];
@@ -69,7 +54,6 @@ moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
   const int g = threadIdx.y;
   const int s = blockIdx.x * kLanes + lane;
   const bool live = s < nseries;
-  const int lag0 = blockIdx.y * kSpan;
   const bool writer = blockIdx.y == 0 && g == 0 && live;
 
   // pass 1: sum, min, max
@@ -120,59 +104,21 @@ moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
     var_out[s] = t / (float)(niter - 1);
   }
 
-  // pass 3: lags lag0 + g + kGroups * j, j < kJ
-  float acc[kJ];
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) acc[j] = 0.f;
-  for (int i0 = 0; i0 < niter; i0 += kTile) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int r = g; r < kTile; r += kGroups) {
-      const int i = i0 + r;
-      a[r * kLanes + lane] =
-          (live && i < niter) ? x[(size_t)i * nseries + s] - mean : 0.f;
-    }
-    for (int r = g; r < kTile + kSpan; r += kGroups) {
-      const int i = i0 + lag0 + r;
-      b[r * kLanes + lane] =
-          (live && i < niter) ? x[(size_t)i * nseries + s] - mean : 0.f;
-    }
-    __syncthreads();
-    const int rows = min(kTile, niter - i0);
-    float part[kJ];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) part[j] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float av = a[r * kLanes + lane];
-      const float* brow = b + (r + g) * kLanes + lane;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) part[j] += av * brow[j * kGroups * kLanes];
-    }
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) acc[j] += part[j];
-  }
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int k = lag0 + g + kGroups * j;
-      if (k <= maxlag) acov_out[(size_t)k * nseries + s] = acc[j] / (float)niter;
-    }
-  }
+  // pass 3: the lags of this block
+  mdt::lag_products<kJ>(x, niter, nseries, maxlag, mean, smem, acov_out);
 }
 
 template <int kJ>
 int launch(const float* x, int niter, int nseries, int maxlag, float* mean,
            float* var, float* mn, float* mx, float* acov, cudaStream_t stream) {
-  constexpr int kSpan = kGroups * kJ;
-  const size_t smem = (size_t)(kTile * kLanes + (kTile + kSpan) * kLanes) *
-                      sizeof(float);
+  const size_t smem = mdt::lag_smem_bytes<kJ>();
   cudaError_t err = cudaFuncSetAttribute(
       moments_autocov_kernel<kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kLanes, kGroups);
-  const dim3 grid((nseries + kLanes - 1) / kLanes,
-                  (maxlag + 1 + kSpan - 1) / kSpan);
-  moments_autocov_kernel<kJ><<<grid, block, smem, stream>>>(
+  moments_autocov_kernel<kJ><<<mdt::lag_grid<kJ>(nseries, maxlag), block, smem,
+                               stream>>>(
       x, niter, nseries, maxlag, mean, var, mn, mx, acov);
   return (int)cudaGetLastError();
 }

@@ -9,14 +9,21 @@ the parameter axis. Kinds (reference src/ess_rhat.jl:276-311, 335-349,
   on rank-normalized draws, ``"tail"`` = bulk of draws folded around the
   median, ``"basic"`` = classic split-R-hat;
 - ``ess``: ``"bulk"`` (default), ``"tail"`` (min of the quantile ESS at
-  ``tail_prob/2`` and ``1 - tail_prob/2``), ``"basic"``;
+  ``tail_prob/2`` and ``1 - tail_prob/2``), ``"basic"``, or an estimator:
+  ``"mean"``, ``"median"``, ``"std"``, ``"mad"``, ``Quantile(p)``;
 - ``ess_rhat``: ``"rank"`` (bulk ESS, max(bulk, tail) R-hat), ``"bulk"``,
   ``"tail"``, ``"basic"``.
 
+Estimator-ESS proxies (src/ess_rhat.jl:626-659): mean -> x, median ->
+indicator(x <= median), std -> (x - mean)^2, mad -> the median proxy of the
+folded draws, quantile(p) -> indicator(x <= quantile_p).
+
 ``rank_mode="exact"`` ranks with ``torch.sort``; ``"fast"`` uses the
-histogram CDF (ops/fastrank.py). On a CUDA float32 tensor the fused moments
-+ autocovariance and the fast rank transform run the hand-written kernels
-(kernels/); on a CPU tensor their plain versions.
+histogram CDF (ops/fastrank.py) for the rank transforms and for every
+median/quantile threshold. On a CUDA float32 tensor the fused moments +
+autocovariance (or, with ``DirectKernelAutocovMethod``, the direct
+autocovariance alone) and the fast rank transform run the hand-written
+kernels (kernels/); on a CPU tensor their plain versions.
 
 Numeric contracts: the split-chain remainder-discard rule, the ``(n-1)/n``
 correction, the ``corrected=(nchains>1)`` guard, the ``min(1/tau,
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -47,6 +55,9 @@ from ..ops.fastrank import (
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.moments import chain_stats, fused_chain_stats_autocov
 from ..ops.ranknorm import (
+    batched_median,
+    batched_quantile,
+    fold_around_median,
     folded_rank_normalize,
     rank_normalize,
     rank_normalize_from_sort,
@@ -65,7 +76,9 @@ class ESSRhat(NamedTuple):
 @dataclass(frozen=True)
 class AutocovMethod:
     """Direct biased Geyer autocovariance estimator (reference
-    src/ess_rhat.jl:22-38,161-179)."""
+    src/ess_rhat.jl:22-38,161-179) on the centered split chains, after the
+    moments in PyTorch: kernel K5 on a CUDA tensor, its plain version on a
+    CPU tensor."""
 
     name: str = "direct"
 
@@ -96,9 +109,18 @@ class KernelAutocovMethod:
 
 
 @dataclass(frozen=True)
+class DirectKernelAutocovMethod:
+    """The counterpart of the JAX package's ``PallasAutocovMethod``: another
+    name for ``AutocovMethod``, which already runs kernel K5 on a CUDA
+    tensor."""
+
+    name: str = "direct_kernel"
+
+
+@dataclass(frozen=True)
 class Quantile:
-    """Estimator marker for quantile ESS, the analogue of the reference's
-    ``Base.Fix2(Statistics.quantile, p)``."""
+    """Estimator marker for quantile ESS / quantile MCSE, the analogue of the
+    reference's ``Base.Fix2(Statistics.quantile, p)``."""
 
     p: float
 
@@ -109,9 +131,10 @@ class Quantile:
 
 _SYMBOL_KINDS_ESS = ("bulk", "tail", "basic")
 _ESTIMATOR_KINDS = ("mean", "median", "std", "mad")
+_PROXY_KINDS = _ESTIMATOR_KINDS + ("quantile",)
 _RHAT_KINDS = ("rank", "bulk", "tail", "basic")
 _MARKERS = (AutocovMethod, FFTAutocovMethod, BDAAutocovMethod,
-            KernelAutocovMethod)
+            KernelAutocovMethod, DirectKernelAutocovMethod)
 
 
 def _method_name(autocov_method):
@@ -128,6 +151,46 @@ def _indicator_leq(x3, threshold):
     """Float indicator of ``x <= threshold``, NaN where the threshold is."""
     y = (x3 <= threshold[None, None, :]).to(x3.dtype)
     return torch.where(torch.isnan(threshold)[None, None, :], torch.nan, y)
+
+
+def _expectand_proxy(estimator: str, x3, q: float | None):
+    """The series whose ESS is the estimator's (src/ess_rhat.jl:626-659),
+    thresholds from one sort."""
+    if estimator == "mean":
+        return x3
+    if estimator == "median":
+        return _indicator_leq(x3, batched_median(x3))
+    if estimator == "std":
+        return (x3 - x3.mean((0, 1), keepdim=True)) ** 2
+    if estimator == "mad":
+        folded = fold_around_median(x3)
+        return _indicator_leq(folded, batched_median(folded))
+    if estimator == "quantile":
+        return _indicator_leq(x3, batched_quantile(x3, q))
+    raise ValueError(f"the estimator {estimator!r} is not supported by `ess`")
+
+
+def _fast_expectand_proxy(estimator: str, x3, q: float | None, nbins: int):
+    """The same proxies with every median/quantile threshold read off the
+    histogram CDF (one bin width from the sorted value, which moves only
+    the boundary elements of the 0/1 indicator); mean and std never sort."""
+    if estimator in ("mean", "std"):
+        return _expectand_proxy(estimator, x3, q)
+    d, c, p = x3.shape
+    xf = x3.reshape(d * c, p).contiguous()
+    cdf = build_hist_cdf(xf, nbins)
+    if estimator == "median":
+        return _indicator_leq(x3, hist_quantile(cdf, (0.5,), nbins)[0])
+    if estimator == "quantile":
+        return _indicator_leq(x3, hist_quantile(cdf, (q,), nbins)[0])
+    if estimator == "mad":
+        med = hist_quantile(cdf, (0.5,), nbins)[0]
+        folded = _fold(xf, med)
+        fcdf = _folded_cdf(folded, cdf, med, nbins)
+        med_f = torch.where(cdf.bad, torch.nan,
+                            hist_quantile(fcdf, (0.5,), nbins)[0])
+        return _indicator_leq(folded.reshape(d, c, p), med_f)
+    raise ValueError(f"the estimator {estimator!r} is not supported by `ess`")
 
 
 # First-stage lag budget of the adaptive Geyer walk. The reference's loop
@@ -242,11 +305,13 @@ def _bulk_transform(x3, rank_mode: str, nbins: int):
 
 
 def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
-                       method, relative: bool, tail_prob: float = 0.1,
+                       method, relative: bool, q: float | None = None,
                        param_chunk: int | None = None,
                        rank_mode: str = "exact",
                        rank_nbins: int = DEFAULT_NBINS):
-    """``(ess, rhat)`` of one kind on ``(draws, chains, P)``.
+    """``(ess, rhat)`` of one kind on ``(draws, chains, P)``; for an
+    estimator kind the R-hat is that of its proxy. ``q``: the tail kind's
+    ``tail_prob`` (default 0.1), the quantile kind's probability.
 
     ``param_chunk`` bounds peak memory: parameters go through in slices of
     that size (every step is per-parameter independent, so this is exact).
@@ -257,7 +322,7 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
             _ess_rhat_pipeline(
                 x3[:, :, s:s + param_chunk], kind=kind,
                 split_chains=split_chains, maxlag=maxlag, method=method,
-                relative=relative, tail_prob=tail_prob, rank_mode=rank_mode,
+                relative=relative, q=q, rank_mode=rank_mode,
                 rank_nbins=rank_nbins,
             )
             for s in range(0, nparams, param_chunk)
@@ -272,13 +337,17 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
         return _basic_ess_rhat(_bulk_transform(x3, rank_mode, rank_nbins),
                                **basic)
     if kind == "tail":
-        return _tail_ess_rhat(x3, **basic, tail_prob=tail_prob,
+        return _tail_ess_rhat(x3, **basic, tail_prob=0.1 if q is None else q,
                               rank_mode=rank_mode, nbins=rank_nbins)
     if kind == "rank":
         z_bulk, rhat_tail = _bulk_tail_transforms(x3, rank_mode, rank_nbins,
                                                   split_chains)
         ess_bulk, rhat_bulk = _basic_ess_rhat(z_bulk, **basic)
         return ess_bulk, torch.maximum(rhat_tail, rhat_bulk)
+    if kind in _PROXY_KINDS:
+        proxy = (_fast_expectand_proxy(kind, x3, q, rank_nbins)
+                 if rank_mode == "fast" else _expectand_proxy(kind, x3, q))
+        return _basic_ess_rhat(proxy, **basic)
     raise ValueError(f"unsupported kind {kind!r}")
 
 
@@ -310,29 +379,31 @@ def _check_rank_mode(rank_mode: str):
         )
 
 
+# the short-chain warning points at the caller's first frame outside the
+# package, whichever entry point (ess, ess_rhat, mcse) reached it
+_PKG_DIR = str(Path(__file__).resolve().parent.parent)
+
+
 def _warn_short(niter: int):
     warnings.warn(
         f"number of draws after splitting must be >4 but is {niter}. "
         "ESS cannot be computed.",
-        stacklevel=3,
+        skip_file_prefixes=(_PKG_DIR,),
     )
 
 
-def _ess_kind(kind) -> str:
-    """Validate a public ``ess`` kind; the estimator kinds are the next
-    slice of the port."""
-    if isinstance(kind, Quantile) or kind in _ESTIMATOR_KINDS:
-        raise NotImplementedError(
-            f"estimator kind {kind!r} is not ported yet (ROADMAP.md, queue A: "
-            "estimator kinds and their fast proxies)"
-        )
-    if isinstance(kind, str) and kind in _SYMBOL_KINDS_ESS:
-        return kind
+def _normalize_estimator(kind):
+    """A public ``ess`` kind as ``(pipeline kind, q)``."""
+    if isinstance(kind, Quantile):
+        return "quantile", float(kind.p)
+    if isinstance(kind, str) and (kind in _SYMBOL_KINDS_ESS
+                                  or kind in _ESTIMATOR_KINDS):
+        return kind, None
     raise ValueError(f"the `kind` `{kind!r}` is not supported by `ess`")
 
 
-def _canonical_input(samples, device):
-    x3, pshape = canonicalize(samples, device)
+def _canonical_input(samples, device, min_ndim: int = 1):
+    x3, pshape = canonicalize(samples, device, min_ndim)
     backend.use_kernels(x3)  # a CUDA tensor that is not float32 raises here
     return x3, pshape
 
@@ -346,32 +417,29 @@ def ess(samples, *, kind="bulk", relative: bool = False,
     ``(draws[, chains[, params...]])`` (reference ``ess``,
     src/ess_rhat.jl:215-311).
 
-    ``kind``: ``"bulk"`` (default), ``"tail"`` or ``"basic"``.
-    ``relative=True`` returns ESS / (draws * chains). A Python float for
-    <=2-d input, else a tensor shaped like the parameter dims, on the
-    sample's device. A tensor is computed where it lives; other input
-    (numpy) goes to ``device`` (default: the CPU). ``rank_mode="fast"`` uses
-    the histogram CDF over ``rank_nbins`` bins instead of a sort.
+    ``kind``: ``"bulk"`` (default), ``"tail"``, ``"basic"``, an estimator
+    name (``"mean"``, ``"median"``, ``"std"``, ``"mad"``) or
+    ``Quantile(p)``. ``relative=True`` returns ESS / (draws * chains). A
+    Python float for <=2-d input, else a tensor shaped like the parameter
+    dims, on the sample's device. A tensor is computed where it lives; other
+    input (numpy) goes to ``device`` (default: the CPU).
+    ``rank_mode="fast"`` replaces every sort (rank transforms, median and
+    quantile thresholds) with the histogram CDF over ``rank_nbins`` bins.
+    ``autocov_method``: ``"auto"`` (the fused K1 path), a marker
+    (``DirectKernelAutocovMethod()`` runs K5), a method name or a callable.
     """
     _check_rank_mode(rank_mode)
     x3, pshape = _canonical_input(samples, device)
-    kind = _ess_kind(kind)
-    if kind == "tail" and not 0 < tail_prob < 1:
-        raise ValueError("tail_prob must be in (0, 1)")
-    _check_maxlag(maxlag)
-    niter = x3.shape[0] // split_chains
-    if niter <= 4:
-        _warn_short(niter)
-        return maybe_scalar(torch.full((x3.shape[2],), torch.nan,
-                                       dtype=x3.dtype, device=x3.device),
-                            pshape)
-    ess_vals, _ = _ess_rhat_pipeline(
-        x3, kind=kind, split_chains=split_chains,
-        maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
-        relative=relative, tail_prob=tail_prob, param_chunk=param_chunk,
-        rank_mode=rank_mode, rank_nbins=rank_nbins,
-    )
-    return maybe_scalar(ess_vals, pshape)
+    kind, q = _normalize_estimator(kind)
+    if kind == "tail":
+        if not 0 < tail_prob < 1:
+            raise ValueError("tail_prob must be in (0, 1)")
+        q = tail_prob
+    vals = _ess_array(x3, kind, q, split_chains=split_chains, maxlag=maxlag,
+                      relative=relative, autocov_method=autocov_method,
+                      rank_mode=rank_mode, rank_nbins=rank_nbins,
+                      param_chunk=param_chunk)
+    return maybe_scalar(vals, pshape)
 
 
 def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
@@ -417,8 +485,31 @@ def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
     ess_vals, rhat_vals = _ess_rhat_pipeline(
         x3, kind=kind, split_chains=split_chains,
         maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
-        relative=relative, tail_prob=tail_prob, param_chunk=param_chunk,
+        relative=relative, q=tail_prob, param_chunk=param_chunk,
         rank_mode=rank_mode, rank_nbins=rank_nbins,
     )
     return ESSRhat(maybe_scalar(ess_vals, pshape),
                    maybe_scalar(rhat_vals, pshape))
+
+
+def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,
+               maxlag: int = 250, relative: bool = False,
+               autocov_method="auto", rank_mode: str = "exact",
+               rank_nbins: int = DEFAULT_NBINS,
+               param_chunk: int | None = None):
+    """ESS of one kind on canonical ``(draws, chains, P)``, ``(P,)``: the
+    core of ``ess``, shared with ``mcse``."""
+    _check_rank_mode(rank_mode)
+    _check_maxlag(maxlag)
+    niter = x3.shape[0] // split_chains
+    if niter <= 4:
+        _warn_short(niter)
+        return torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
+                          device=x3.device)
+    ess_vals, _ = _ess_rhat_pipeline(
+        x3, kind=estimator, split_chains=split_chains,
+        maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
+        relative=relative, q=q, param_chunk=param_chunk, rank_mode=rank_mode,
+        rank_nbins=rank_nbins,
+    )
+    return ess_vals

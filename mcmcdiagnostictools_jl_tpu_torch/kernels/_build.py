@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes). The library lands in
-``_build/<hash>/`` inside the package, keyed by a hash of the sources and the
-flags, so an unchanged tree does not rebuild. Nothing here runs at import.
+``_build/<hash>/`` inside the package, keyed by a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so an unchanged tree does
+not rebuild. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libmdt_kernels.so"
 
@@ -37,6 +38,7 @@ _SIGNATURES = {
     "mdt_column_minmax": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "mdt_hist_moments": (_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P),
     "mdt_rank_lookup": (_P, _L, _I, _P, _P, _P, _I, _P, _P),
+    "mdt_direct_autocov": (_P, _I, _I, _I, _P, _P),
 }
 
 
@@ -46,7 +48,7 @@ def _sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -77,20 +79,30 @@ def build() -> tuple[Path, str]:
     if lib.is_file():
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = _sources()
-    # build to a temporary name and rename, so a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        srcs = _sources()
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        # link under a temporary name and rename, so a concurrent loader
+        # never sees a half-written library
+        so = Path(tmp) / _LIB_NAME
+        proc = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(so, lib)
+    return lib, log
 
 
 @functools.cache

@@ -18,6 +18,7 @@ import torch
 
 from .. import backend
 from . import _build
+from .autocov import direct_autocov_plain
 
 
 def moments_autocov_plain(samples: torch.Tensor, maxlag: int):
@@ -34,10 +35,7 @@ def moments_autocov_plain(samples: torch.Tensor, maxlag: int):
     smax = samples.amax(0)
     centered = samples - mean
     var = (centered * centered).sum(0) / (niter - 1)
-    acov = samples.new_zeros((maxlag + 1,) + tuple(samples.shape[1:]))
-    for k in range(min(maxlag + 1, niter)):
-        acov[k] = (centered[: niter - k] * centered[k:]).sum(0) / niter
-    return mean, var, smin, smax, acov
+    return mean, var, smin, smax, direct_autocov_plain(centered, maxlag)
 
 
 def moments_autocov(samples: torch.Tensor, maxlag: int):

@@ -7,8 +7,10 @@ parameter) series at once, from centered ``(niter, C, P)`` series:
 - ``"fft"``: zero-pad to the next ``2^a 3^b >= niter + maxlag``, real FFT,
   ``|.|^2``, inverse; ``acov_k = c_k / c_0 * chain_var * (n-1)/n``
   (reference FFTAutocovMethod, src/ess_rhat.jl:103-118,181-195);
-- ``"direct"``: the biased Geyer estimator ``sum_i x_i x_{i+k} / n``
-  (reference AutocovMethod, src/ess_rhat.jl:161-179);
+- ``"direct"`` (alias ``"direct_kernel"``): the biased Geyer estimator
+  ``sum_i x_i x_{i+k} / n`` (reference AutocovMethod,
+  src/ess_rhat.jl:161-179), through kernel K5 on a CUDA tensor and its plain
+  PyTorch lag loop on a CPU tensor;
 - ``"bda"``: the BDA3 variogram estimator (src/ess_rhat.jl:197-213), from the
   FFT cross term and prefix sums of squares;
 - or a callable ``(centered, chain_var, maxlag) -> (maxlag+1, P)``.
@@ -19,6 +21,8 @@ All of them return ``(maxlag+1, P)``.
 from __future__ import annotations
 
 import torch
+
+from ..kernels.autocov import direct_autocov
 
 
 def next_fft_size(n: int) -> int:
@@ -58,15 +62,11 @@ def _mean_autocov_fft(centered, chain_var, maxlag: int):
 
 
 def _mean_autocov_direct(centered, chain_var, maxlag: int):
-    """Literal biased estimator: mean over chains of
-    ``dot(x[:n-k], x[k:]) / n``."""
+    """Literal biased estimator ``dot(x[:n-k], x[k:]) / n`` through K5, then
+    the mean over chains (kept in PyTorch, as the JAX package keeps it
+    outside its Pallas kernel)."""
     del chain_var
-    niter = centered.shape[0]
-    curve = centered.new_zeros((maxlag + 1, centered.shape[2]))
-    for k in range(min(maxlag + 1, niter)):
-        ck = (centered[: niter - k] * centered[k:]).sum(0) / niter
-        curve[k] = ck.mean(0)
-    return curve
+    return direct_autocov(centered.contiguous(), maxlag).mean(1)
 
 
 def _mean_autocov_bda(centered, chain_var, maxlag: int):
@@ -88,6 +88,7 @@ def _mean_autocov_bda(centered, chain_var, maxlag: int):
 _METHODS = {
     "fft": _mean_autocov_fft,
     "direct": _mean_autocov_direct,
+    "direct_kernel": _mean_autocov_direct,
     "bda": _mean_autocov_bda,
 }
 

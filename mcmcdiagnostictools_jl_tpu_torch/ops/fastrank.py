@@ -105,12 +105,15 @@ def z_from_ranks(rank, n: int, bad):
     return torch.where(bad[None, :], torch.nan, z)
 
 
-def hist_rank_value(cdf: HistCDF, h: float, nbins: int):
+def hist_rank_value(cdf: HistCDF, h, nbins: int):
     """Value at 1-based rank ``h`` — the inverse of the mean-anchored rank
-    map, ``(P,)``, accurate to one bin width."""
+    map, ``(P,)``, accurate to one bin width. ``h`` is a float or a ``(P,)``
+    tensor of per-column ranks (the quantile MCSE inverts a different rank
+    in each column)."""
     cum = cdf.cum
     width = (cdf.hi - cdf.lo) / nbins
-    hv = torch.full(cdf.lo.shape, h, dtype=cum.dtype, device=cum.device)
+    hv = torch.as_tensor(h, dtype=cum.dtype, device=cum.device).expand(
+        cdf.lo.shape)
     # ranks in bin b span [cum[b] + 1/2, cum[b+1] + 1/2]
     k = ((cum + 0.5 <= hv[None, :]).sum(0) - 1).clamp(0, nbins - 1)
     kk = k[None, :]

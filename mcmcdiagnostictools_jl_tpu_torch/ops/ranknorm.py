@@ -23,13 +23,18 @@ def _flatten_sample(x3: torch.Tensor) -> torch.Tensor:
     return x3.reshape(d * c, p)
 
 
+def _has_nan_cols(xf: torch.Tensor) -> torch.Tensor:
+    """``(N, P) -> (P,)`` bool, True where the column holds a NaN."""
+    return torch.isnan(xf).any(0)
+
+
 def sort_with_positions(x3: torch.Tensor):
     """One sort of the flattened sample: ``(xs, order, bad)`` — ascending
     values ``(N, P)`` (NaN last), the original row of each, and the
     ``(P,)`` NaN-poisoned columns."""
     xf = _flatten_sample(x3)
     xs, order = torch.sort(xf, dim=0)
-    return xs, order, torch.isnan(xf).any(0)
+    return xs, order, _has_nan_cols(xf)
 
 
 def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
@@ -103,3 +108,22 @@ def folded_rank_normalize(xs, order, med, shape3) -> torch.Tensor:
     reusing the sort of ``x`` (the tail transform, src/ess_rhat.jl:413)."""
     zf_sorted, forder = folded_rank_values_sorted(xs, order, med)
     return _unsort(zf_sorted, forder).reshape(shape3)
+
+
+def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:
+    """Per-parameter type-7 quantile over the joint (draw, chain) sample,
+    ``(P,)``, NaN where the parameter slice holds a NaN."""
+    xf = _flatten_sample(x3)
+    q = sorted_quantile(torch.sort(xf, dim=0).values, p)
+    return torch.where(_has_nan_cols(xf), torch.nan, q)
+
+
+def batched_median(x3: torch.Tensor) -> torch.Tensor:
+    """Per-parameter median (type-7 quantile at 1/2), ``(P,)``."""
+    return batched_quantile(x3, 0.5)
+
+
+def fold_around_median(x3: torch.Tensor) -> torch.Tensor:
+    """``|x - median|`` per parameter slice (reference
+    ``_fold_around_median``, src/utils.jl:148-158)."""
+    return torch.abs(x3 - batched_median(x3)[None, None, :])

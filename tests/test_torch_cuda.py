@@ -8,9 +8,11 @@ PyTorch is installed:
 
 Tolerances: K2 and K4 round exactly like their plain versions (equal);
 K3's counts are exact and its frac sums are float32 atomics in another order
-(within 1e-4 of the bin count); K1 sums in another float32 order (2e-5 abs
-at unit variance, min/max equal); the whole slice on the card tracks the
-plain CPU path to 1e-3 relative ESS and 1e-4 absolute R-hat.
+(within 1e-4 of the bin count); K1 and K5 sum in another float32 order (2e-5
+abs at unit variance, min/max equal, K5's lags at or beyond niter exactly
+0); the whole slice on the card tracks the plain CPU path to 1e-3 relative
+ESS and MCSE and 1e-4 absolute R-hat (a quantile MCSE may differ beyond
+that only where an ESS within 1e-3 moved an interval rank).
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 import mcmcdiagnostictools_jl_tpu_torch as mtt
+from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import _beta_interval_ranks
+from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
 from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as kfr
 from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as k1
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
@@ -47,6 +51,48 @@ def test_k1_matches_plain(cuda_device, maxlag):  # noqa: F811
     for i, (g, w) in enumerate(zip(got, want)):
         tol = dict(rtol=0, atol=0) if i in (2, 3) else dict(rtol=0, atol=2e-5)
         assert_close(g, w, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("niter,nchains,nparams,maxlag", [
+    (1001, 8, 40, 0), (1001, 8, 40, 10), (1001, 8, 40, 100),
+    (1001, 8, 40, 250), (1001, 8, 40, 300), (300, 3, 7, 303),
+    (7, 5, 3, 12), (1, 2, 3, 4),
+])
+def test_k5_matches_plain(cuda_device, niter, nchains, nparams,  # noqa: F811
+                          maxlag):
+    """Series counts off the 32-series block width, lags past niter (zeros),
+    and a constant series."""
+    x = _ar1(3, (niter, nchains, nparams))
+    x[:, 0, 1] = 0.75
+    xc = t(x - x.mean(0), torch.float32).to(cuda_device)
+    before = k5.direct_autocov.launches
+    got = k5.direct_autocov(xc, maxlag)
+    want = k5.direct_autocov_plain(xc, maxlag)
+    assert k5.direct_autocov.launches == before + 1
+    assert got.shape == (maxlag + 1, nchains, nparams)
+    assert_close(got, want, rtol=0, atol=2e-5)
+    assert torch.equal(got[niter:], torch.zeros_like(got[niter:]))
+
+
+def test_k5_matches_k1_acov(cuda_device):  # noqa: F811
+    """The same estimator: K5 on the series centered with K1's means."""
+    x = t(_ar1(4, (1000, 6, 50)), torch.float32).to(cuda_device)
+    mean, _, _, _, acov = k1.moments_autocov(x, 250)
+    assert_close(k5.direct_autocov((x - mean).contiguous(), 250), acov,
+                 rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("method", [
+    mtt.AutocovMethod(), "direct", mtt.DirectKernelAutocovMethod()])
+def test_direct_autocov_methods_launch_k5(cuda_device, method):  # noqa: F811
+    """Every name of the direct estimator runs K5 on a card tensor, never its
+    plain version."""
+    x = torch.from_numpy(_ar1(7, (600, 8, 6)).astype(np.float32))
+    before = k5.direct_autocov.launches
+    g = mtt.ess(x.to(cuda_device), kind="basic", autocov_method=method)
+    assert k5.direct_autocov.launches > before
+    assert_close(g.cpu(), mtt.ess(x, kind="basic", autocov_method=method),
+                 rtol=1e-3, atol=0)
 
 
 @pytest.mark.parametrize("n,p,nbins", [(50001, 37, 4096), (4096, 7, 256)])
@@ -85,6 +131,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F81
         kfr.hist_moments(x, lo, lo, 100_000)  # does not fit shared memory
     with pytest.raises(NotImplementedError):
         k1.moments_autocov(x[:8].double().reshape(8, 2, 4), 2)
+    with pytest.raises(ValueError):
+        k5.direct_autocov(x.reshape(64, 2, 4).transpose(1, 2), 3)
+    with pytest.raises(NotImplementedError):
+        k5.direct_autocov(x.double().reshape(64, 2, 4), 3)
 
 
 @pytest.mark.parametrize("mode", ["exact", "fast"])
@@ -97,7 +147,67 @@ def test_slice_on_card_matches_cpu(cuda_device, mode):  # noqa: F811
     assert_close(g.rhat.cpu(), c.rhat, rtol=0, atol=1e-4)
 
 
+_CALLS = [
+    ("ess", dict(kind="mean")), ("ess", dict(kind="std")),
+    ("ess", dict(kind="median")), ("ess", dict(kind="mad")),
+    ("ess", dict(kind=mtt.Quantile(0.99))),
+    ("mcse", dict(kind="mean")), ("mcse", dict(kind="std")),
+    ("mcse", dict(kind="median")), ("mcse", dict(kind=mtt.Quantile(0.05))),
+]
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("fn,kw", _CALLS)
+def test_estimators_on_card_match_cpu(cuda_device, fn, kw, mode):  # noqa: F811
+    """Each estimator call with the K5 marker on the card launches K5 and
+    tracks the CPU path."""
+    x = torch.from_numpy(_ar1(5, (2000, 16, 24)).astype(np.float32))
+    marker = mtt.DirectKernelAutocovMethod()
+    before = k5.direct_autocov.launches
+    g = getattr(mtt, fn)(x.to(cuda_device), rank_mode=mode,
+                         autocov_method=marker, **kw)
+    assert k5.direct_autocov.launches > before
+    c = getattr(mtt, fn)(x, rank_mode=mode, autocov_method=marker, **kw)
+    assert g.device.type == "cuda" and g.shape == (24,)
+    off = ~((g.cpu() / c - 1).abs() <= 1e-3)
+    if fn == "mcse" and kw["kind"] not in ("mean", "std") and off.any():
+        # a quantile MCSE reads the order statistics at the Beta interval's
+        # ranks: it may differ only where an ESS within 1e-3 moved a rank
+        p = 0.5 if kw["kind"] == "median" else kw["kind"].p
+        (sg, lg, ug), (sc, lc, uc) = (_interval_ranks(v, p, mode, marker)
+                                      for v in (x.to(cuda_device), x))
+        assert ((lg != lc) | (ug != uc))[off].all()
+        assert_close(sg, sc, rtol=1e-3, atol=0)
+        off &= (lg == lc) & (ug == uc)
+    assert not off.any()
+
+
+def _interval_ranks(x, p, mode, marker):
+    """The proxy ESS and the Beta interval ranks of ``mcse(x,
+    kind=Quantile(p))``, on the host."""
+    s = mtt.ess(x, kind=mtt.Quantile(p), rank_mode=mode, autocov_method=marker)
+    l, u = _beta_interval_ranks(s, p, x.shape[0] * x.shape[1])
+    return s.cpu(), l.cpu(), u.cpu()
+
+
+def test_sbm_nested_bfmi_on_card_match_cpu(cuda_device):  # noqa: F811
+    x = torch.from_numpy(_ar1(6, (400, 8, 5)).astype(np.float32))
+    xg = x.to(cuda_device)
+    assert_close(mtt.mcse(xg, kind=lambda w: w.mean()).cpu(),
+                 mtt.mcse(x, kind=lambda w: w.mean()), rtol=1e-3, atol=0)
+    ids = [0, 0, 1, 1, 2, 2, 3, 3]
+    assert_close(mtt.rhat_nested(xg, ids).cpu(), mtt.rhat_nested(x, ids),
+                 rtol=0, atol=1e-4)
+    e = x[:, :, 0]
+    assert_close(mtt.bfmi(e.to(cuda_device)).cpu(), mtt.bfmi(e),
+                 rtol=1e-5, atol=0)
+
+
 def test_cuda_float64_tensor_raises(cuda_device):  # noqa: F811
     x = torch.zeros((20, 2, 2), dtype=torch.float64, device=cuda_device)
     with pytest.raises(NotImplementedError, match="float32"):
         mtt.ess_rhat(x)
+    for fn in (mtt.mcse, mtt.ess, lambda v: mtt.rhat_nested(v, [0, 1]),
+               lambda v: mtt.bfmi(v[:, :, 0])):
+        with pytest.raises(NotImplementedError, match="float32"):
+            fn(x)
