@@ -22,7 +22,16 @@ and exits nonzero, printing no result, if any phase fails:
    both rank modes, with the marker (K5 must run in every call) and with
    ``"auto"`` (K5 must not run), which must agree, with fast tracking exact;
    then those calls plus the SBM fallback, ``rhat_nested`` and ``bfmi`` at
-   2000 x 32 x 64 on the card against the CPU.
+   2000 x 32 x 64 on the card against the CPU;
+7. K4's fused z mode (``blom_n``) against its plain version on the full
+   sample, then the fast ``ess_rhat`` with ``FUSE_BLOM_Z`` on (the z mode
+   must run for bulk and fold) and off, which must agree; walls in turns;
+8. the classical suite: K5 on the flagship Heidelberger and Geweke masked
+   window stacks (10k draws; 196,608 and 65,536 series) against its plain
+   version; the five functions on BASELINE.md config 3
+   (10k x 8 x 100) and Gelman/Geweke/Heidelberger/Raftery on the full
+   sample, with walls, peak memory and K5's launches (it must run in Geweke
+   and Heidelberger); then card against CPU at 2000 x 8 x 16, N-d and 1-d.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Only PyTorch and numpy are used.
@@ -31,6 +40,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -548,6 +558,256 @@ def phase_estimators_card_vs_cpu() -> None:
                 mtt.bfmi(energy), 1e-5)
 
 
+# ---- phase 7: K4's fused z mode and the FUSE_BLOM_Z route ------------------
+
+# K4's z mode against its plain version, in float32 ULPs of z: both read
+# identical ranks and evaluate the same AS241 polynomial with the same
+# round-to-nearest operations, so they are equal where the kernel's logf and
+# PyTorch's come from one toolkit; a logf of another toolkit version may move
+# z by an ULP or two
+Z_MODE_ULPS = 4
+
+
+def max_ulp_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a - b| in float32 ULPs of ``b`` over entries where neither is
+    NaN (NaN masks must agree). Two float32 values within a factor 2 of each
+    other subtract exactly, and an ULP is a power of 2."""
+    check(torch.equal(torch.isnan(a), torch.isnan(b)), "NaN positions differ")
+    ok = ~torch.isnan(b)
+    w = b[ok].abs()
+    ulp = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+    return float(((a[ok] - b[ok]).abs() / ulp).max()) if ok.any() else 0.0
+
+
+def phase_fused_z(x3: torch.Tensor) -> dict:
+    """K4's z mode at (1.28M, 256) with 4096 bins against its plain version,
+    then the fast ``ess_rhat`` with ``FUSE_BLOM_Z`` off and on."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as fr
+    from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as ofr
+
+    xf = with_bad_columns(x3).reshape(-1, PARAMS)
+    n = xf.shape[0]
+    cdf = ofr.build_hist_cdf(xf, NBINS)
+    cnt = cdf.counts
+    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)])
+    scale = ofr._hist_scale(cdf.lo, cdf.hi, NBINS)
+    args = (xf, cdf.lo, scale, tables, NBINS)
+    z_k = fr.rank_lookup(*args, blom_n=n)
+    z_p = fr.rank_lookup_plain(*args, blom_n=n)
+    err, ulps = max_abs_err(z_k, z_p), max_ulp_err(z_k, z_p)
+    del z_k, z_p
+    ms = time_ms(lambda: fr.rank_lookup(*args, blom_n=n))
+    plain_ms = time_ms(lambda: fr.rank_lookup_plain(*args, blom_n=n))
+    rank_ms = time_ms(lambda: fr.rank_lookup(*args))
+    print(f"[7 K4z rank_lookup z mode] max abs err in z {err:.3e}, max "
+          f"{ulps:g} float32 ULP (bound {Z_MODE_ULPS}); kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; rank mode {rank_ms:.3f} ms")
+    check(ulps <= Z_MODE_ULPS, "K4's z mode disagrees with its plain version")
+
+    def run(fused: bool):
+        old, ofr.FUSE_BLOM_Z = ofr.FUSE_BLOM_Z, fused
+        try:
+            return mtt.ess_rhat(x3, kind="rank", rank_mode="fast")
+        finally:
+            ofr.FUSE_BLOM_Z = old
+
+    kernels.reset_launch_counts()
+    fused = run(True)
+    torch.cuda.synchronize()
+    counts_on = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    unfused = run(False)
+    torch.cuda.synchronize()
+    counts_off = kernels.launch_counts()
+    print(f"[7 launches] FUSE_BLOM_Z on {counts_on}; off {counts_off}")
+    check(counts_on["K4z"] == 2 and counts_on["K4"] == 2,
+          "the fused route did not run K4's z mode for bulk and fold")
+    check(counts_off["K4z"] == 0, "K4's z mode ran with FUSE_BLOM_Z off")
+    for v in (*fused, *unfused):
+        check(v.shape == (PARAMS,) and bool(torch.isfinite(v).all()),
+              "bad ESS or R-hat shape or value")
+    ess_rel = float((fused.ess / unfused.ess - 1).abs().max())
+    rhat_abs = float((fused.rhat - unfused.rhat).abs().max())
+    print(f"[7 fused vs unfused] ESS rel {ess_rel:.3e} (bound 1e-3), R-hat abs "
+          f"{rhat_abs:.3e} (bound 1e-4)")
+    check(ess_rel <= 1e-3 and rhat_abs <= 1e-4, "fused route != unfused")
+    # in turns: off, on, on, off
+    walls = {"off": [], "on": []}
+    for fused_flag in (False, True, True, False):
+        walls["on" if fused_flag else "off"].append(
+            wall_s(lambda: run(fused_flag)))
+    out = {f"wall_fast_fuse_{k}_s": statistics.median(v) for k, v in walls.items()}
+    print(f"[7 wall] fast ess_rhat, FUSE_BLOM_Z off {walls['off']} s, on "
+          f"{walls['on']} s (each a median of 3)")
+    return {"row": dict(err=err, ms=ms, plain_ms=plain_ms, max_ulp=ulps,
+                        rank_mode_ms=rank_ms),
+            "launches": counts_on["K4z"], "walls": out,
+            "fused_vs_unfused": {"ess_rel": ess_rel, "rhat_abs": rhat_abs}}
+
+
+# ---- phase 8: the classical suite ------------------------------------------
+
+CLASSICAL = ("gelmandiag", "gelmandiag_multivariate", "gewekediag",
+             "heideldiag", "rafterydiag")
+
+
+def measure_call(tag: str, fn, x, k5_must_run: bool):
+    """One call with its K5 launches and peak device memory (above what was
+    allocated before it), then the median wall of 3 more."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = fn(x)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    k5 = kernels.launch_counts()["K5"]
+    if k5_must_run:
+        check(k5 >= 1, f"{tag}: K5 did not run")
+    wall = wall_s(lambda: fn(x))
+    print(f"[8 {tag}] wall {wall * 1e3:.2f} ms (median of 3), peak +{peak_gb:.3f} "
+          f"GB, K5 launches {k5}")
+    return res, {"wall_s": wall, "peak_gb": peak_gb, "k5": k5}
+
+
+def check_classical(tag: str, name: str, res, shape) -> None:
+    """Finite values of the expected shapes on the card (the multivariate
+    PSRF: a finite Python float); the samples hold no NaN."""
+    for field, v in zip(res._fields, res):
+        if isinstance(v, float):
+            check(math.isfinite(v), f"{tag} {name}.{field} is not finite")
+            continue
+        check(tuple(v.shape) == shape and v.device.type == "cuda",
+              f"{tag} {name}.{field}: shape {tuple(v.shape)} on {v.device}")
+        check(bool(torch.isfinite(v.double()).all()), f"{tag} {name}.{field} "
+              "not finite")
+
+
+def phase_classical(x3: torch.Tensor, bad_param: int) -> dict:
+    """K5 on the flagship sample's Heidelberger and Geweke window stacks
+    against its plain version, the five classical functions on BASELINE.md
+    config 3 (10k x 8 x 100), and Geweke/Heidelberger/Raftery and the PSRF
+    on the flagship sample."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics import batch
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
+
+    # K5 on the masked (n, 1, W S) stacks that heideldiag (6 windows,
+    # 196,608 series) and gewekediag (2 windows) build from the flagship
+    # sample, at maxlag 250; errors relative to the largest lag-0 sum / n
+    out = {}
+    flat, _ = batch._series_matrix(x3)
+    stop1, start2 = batch._geweke_windows(DRAWS, 0.1, 0.5)
+    for name, windows in (
+            ("heideldiag", batch._heidel_windows(
+                DRAWS, batch._heidel_starts(DRAWS)[0])),
+            ("gewekediag", [(0, stop1), (start2, DRAWS)])):
+        z, _ = batch._masked_window_stack(flat, windows)
+        k = k5.direct_autocov(z, 250)
+        p = k5.direct_autocov_plain(z, 250)
+        torch.cuda.synchronize()
+        err = max_abs_err(k, p) / float(p[0].max())
+        ms = time_ms(lambda: k5.direct_autocov(z, 250), reps=1, warmup=False)
+        plain_ms = time_ms(lambda: k5.direct_autocov_plain(z, 250), reps=1,
+                           warmup=False)
+        print(f"[8 K5 on the {name} stack {tuple(z.shape)}] max abs err "
+              f"relative to the largest variance {err:.3e} (bound 1e-5); "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        check(err <= 1e-5, f"K5 disagrees with its plain version on the "
+              f"{name} window stack")
+        out[f"k5_{name}_stack"] = {"series": z.shape[2], "err_rel_var": err,
+                                   "ms": ms, "plain_ms": plain_ms}
+        del z, k, p
+    rng = np.random.default_rng(SEED + 3)
+    cfg3 = torch.from_numpy(ar1(rng, 0.5, (10_000, 8, 100))).cuda()
+    print("[8 config 3] AR(1) phi=0.5 10000x8x100 f32 on the card")
+    for name in CLASSICAL:
+        res, m = measure_call(f"config3 {name}", getattr(mtt, name), cfg3,
+                              name in ("gewekediag", "heideldiag"))
+        shape = (100,) if name.startswith("gelman") else (8, 100)
+        check_classical("config3", name, res, shape)
+        out[f"config3_{name}"] = m
+    for name in ("gelmandiag", "gewekediag", "heideldiag", "rafterydiag"):
+        res, m = measure_call(f"flagship {name}", getattr(mtt, name), x3,
+                              name in ("gewekediag", "heideldiag"))
+        shape = (PARAMS,) if name.startswith("gelman") else (CHAINS, PARAMS)
+        check_classical("flagship", name, res, shape)
+        if name == "gelmandiag":
+            psrf = res.psrf
+            rest = float(psrf[torch.arange(PARAMS, device="cuda") != bad_param].max())
+            print(f"   PSRF of the shifted parameter {float(psrf[bad_param]):.4f}; "
+                  f"max of the others {rest:.4f}")
+            check(float(psrf[bad_param]) > 1.1 and rest < 1.1,
+                  "badly mixed parameter not flagged by the PSRF")
+        out[f"flagship_{name}"] = m
+    return out
+
+
+def phase_classical_card_vs_cpu() -> None:
+    """Card against CPU at 2000 x 8 x 16 (Raftery with r = 0.01, nmin 937):
+    Geweke z within 1e-3 abs + rel; Heidelberger p-values 1e-4 abs, decisions
+    equal except series at a threshold (printed); Raftery's run lengths
+    equal, its dependence factor within 1 float64 ULP; PSRF 1e-4 relative.
+    1-d input (one series) alike."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    rng = np.random.default_rng(SEED + 4)
+    x_np = ar1(rng, 0.5, (2000, 8, 16)) + np.float32(3.0)
+    x_np[:400, 0, 0] += 2.0  # a transient
+    x_cpu = torch.from_numpy(x_np)
+    x_gpu = x_cpu.cuda()
+
+    def as_t(v):  # a result field (tensor or Python scalar) on the host
+        return torch.as_tensor(v).double().cpu()
+
+    for xg, xc, tag in ((x_gpu, x_cpu, "N-d"),
+                        (x_gpu[:, 0, 0], x_cpu[:, 0, 0], "1-d")):
+        g, c = mtt.gewekediag(xg), mtt.gewekediag(xc)
+        dz = (as_t(g.zscore) - as_t(c.zscore)).abs()
+        bound = 1e-3 + 1e-3 * as_t(c.zscore).abs()
+        print(f"[8 card vs CPU {tag}] Geweke z max abs {float(dz.max()):.3e}")
+        check(bool((dz <= bound).all()), f"{tag} Geweke z: card != CPU")
+
+        g, c = mtt.heideldiag(xg), mtt.heideldiag(xc)
+        dp = (as_t(g.pvalue) - as_t(c.pvalue)).abs()
+        print(f"[8 card vs CPU {tag}] Heidelberger p-value max abs "
+              f"{float(dp.max()):.3e}")
+        check(bool((dp <= 1e-4).all()),
+              f"{tag} Heidelberger p-value: card != CPU")
+        ratio = as_t(c.halfwidth) / as_t(c.mean).abs()
+        near = (((as_t(c.pvalue) - 0.05).abs() <= 1e-4)
+                | ((ratio - 0.1).abs() <= 1e-3))
+        for field in ("burnin", "stationarity", "test"):
+            diff = as_t(getattr(g, field)) != as_t(getattr(c, field))
+            for j in torch.nonzero(diff.reshape(-1)).flatten().tolist():
+                print(f"   {tag} {field} differs at series {j}: p-value "
+                      f"{float(as_t(c.pvalue).reshape(-1)[j]):.6f}, halfwidth "
+                      f"ratio {float(ratio.reshape(-1)[j]):.6f}")
+            check(not bool((diff & ~near).any()),
+                  f"{tag} Heidelberger {field} differs off the thresholds")
+
+        g, c = mtt.rafterydiag(xg, r=0.01), mtt.rafterydiag(xc, r=0.01)
+        for field in g._fields:
+            a, b = as_t(getattr(g, field)), as_t(getattr(c, field))
+            rtol = 2.0 ** -52 if field == "dependencefactor" else 0.0  # 1 ULP
+            check(torch.equal(torch.isnan(a), torch.isnan(b))
+                  and bool((((a - b).abs() <= rtol * b.abs())
+                            | torch.isnan(b)).all()),
+                  f"{tag} Raftery {field}: card != CPU")
+        print(f"[8 card vs CPU {tag}] Raftery run lengths equal, dependence "
+              "factor within 1 ULP")
+    g, c = mtt.gelmandiag_multivariate(x_gpu), mtt.gelmandiag_multivariate(x_cpu)
+    worst = max(float((a.cpu().double() / b.double() - 1).abs().max())
+                for a, b in zip(g[:2], c[:2]))
+    worst = max(worst, abs(g.psrfmultivariate / c.psrfmultivariate - 1))
+    print(f"[8 card vs CPU] PSRF max rel {worst:.3e} (bound 1e-4)")
+    check(worst <= 1e-4, "PSRF: card != CPU")
+
+
 def main() -> int:
     dev = phase_device()
     import mcmcdiagnostictools_jl_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -571,6 +831,12 @@ def main() -> int:
     rows.append(phase_direct_autocov(x3))
     est = phase_estimators(x3)
     phase_estimators_card_vs_cpu()
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matrix products are on; the PSRF needs full float32")
+    fz = phase_fused_z(x3)
+    rows.append(fz["row"])
+    classical = phase_classical(x3, bad_param)
+    phase_classical_card_vs_cpu()
 
     src = f"{PKG}/csrc/"
     pallas = "mcmcdiagnostictools_jl_tpu/ops/pallas/"
@@ -581,13 +847,15 @@ def main() -> int:
         ("K3 hist_moments", src + "fastrank.cu", pallas + "fastrank_kernel.py:173"),
         ("K4 rank_lookup", src + "fastrank.cu", pallas + "fastrank_kernel.py:275"),
         ("K5 direct_autocov", src + "autocov.cu", pallas + "autocov_kernel.py:46"),
+        ("K4z rank_lookup z mode (blom_n)", src + "fastrank.cu",
+         pallas + "fastrank_kernel.py:275"),
     ]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
-    # calls of phase 6
-    launches = {**e2e["counts"], "K5": est["k5_launches"]}
+    # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7
+    launches = {**e2e["counts"], "K5": est["k5_launches"], "K4z": fz["launches"]}
     kernels_out = []
-    for (name, source, replaces), row, kid in zip(meta, rows,
-                                                  ("K1", "K2", "K3", "K4", "K5")):
+    for (name, source, replaces), row, kid in zip(
+            meta, rows, ("K1", "K2", "K3", "K4", "K5", "K4z")):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[kid],
                  "max_abs_err": row.pop("err"), "ms": row.pop("ms"),
@@ -596,7 +864,9 @@ def main() -> int:
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
                       **est["walls"],
-                      "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"]}))
+                      "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"],
+                      **fz["walls"], "fused_vs_unfused": fz["fused_vs_unfused"],
+                      "classical": classical}))
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

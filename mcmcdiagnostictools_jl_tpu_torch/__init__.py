@@ -5,7 +5,10 @@ reference) to PyTorch on an NVIDIA H100. It covers ``ess`` (every kind:
 ``basic``, ``bulk``, ``tail``, and the estimators ``mean``, ``std``,
 ``median``, ``mad``, ``Quantile(p)``), ``rhat``, ``ess_rhat``, ``mcse``,
 ``rhat_nested`` and ``bfmi``, in both rank modes (exact: ``torch.sort``;
-fast: histogram CDF).
+fast: histogram CDF, with ``ops.fastrank.FUSE_BLOM_Z`` selecting kernel K4's
+fused z mode), and the classical suite ``gelmandiag``,
+``gelmandiag_multivariate``, ``gewekediag``, ``heideldiag`` and
+``rafterydiag``.
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
@@ -16,6 +19,14 @@ a CPU tensor through their plain PyTorch versions; numpy input goes to the
 """
 
 from .diagnostics.bfmi import bfmi
+from .diagnostics.gelmandiag import (
+    GelmanMultivariateResult,
+    GelmanResult,
+    gelmandiag,
+    gelmandiag_multivariate,
+)
+from .diagnostics.gewekediag import GewekeResult, gewekediag
+from .diagnostics.heideldiag import HeidelResult, heideldiag
 from .diagnostics.ess_rhat import (
     AutocovMethod,
     BDAAutocovMethod,
@@ -29,6 +40,7 @@ from .diagnostics.ess_rhat import (
     rhat,
 )
 from .diagnostics.mcse import mcse
+from .diagnostics.rafterydiag import RafteryResult, rafterydiag
 from .diagnostics.rhat_nested import rhat_nested
 
 __version__ = "0.1.0"
@@ -40,6 +52,11 @@ __all__ = [
     "mcse",
     "rhat_nested",
     "bfmi",
+    "gelmandiag",
+    "gelmandiag_multivariate",
+    "gewekediag",
+    "heideldiag",
+    "rafterydiag",
     "AutocovMethod",
     "FFTAutocovMethod",
     "BDAAutocovMethod",
@@ -47,4 +64,9 @@ __all__ = [
     "DirectKernelAutocovMethod",
     "ESSRhat",
     "Quantile",
+    "GelmanResult",
+    "GelmanMultivariateResult",
+    "GewekeResult",
+    "HeidelResult",
+    "RafteryResult",
 ]

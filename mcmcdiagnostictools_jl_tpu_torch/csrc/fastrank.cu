@@ -29,18 +29,24 @@
 //    can index outside shared memory. The ragged last row chunk is bounded
 //    by the loop itself.
 //
-// K4 rank lookup (replaces `pallas_rank_lookup`, `_lookup_kernel`, without
-//    the optional fused Blom/AS241 mode, which the main path does not run).
-//    Per element, in original order:
-//        rank = C[b] + clip(frac * cnt[b] + off[b], 0, cnt[b]) + 1/2.
-//    The TPU contracted a coarse one-hot against the tables on the MXU and
-//    selected the fine digit on the VPU, because per-element gathers were
-//    slow there. Here the three tables are packed per column as float4
-//    (c_lo, cnt, off, 0): 64 KB a column, 16.8 MB for 256 columns, resident
-//    in the 50 MB L2, so each element costs one 16-byte gather. Bound by the
-//    sample's read and the ranks' write plus those gathers. Elementwise
-//    arithmetic uses explicit round-to-nearest intrinsics (no FMA
-//    contraction), so the kernel rounds like its plain PyTorch version.
+// K4 rank lookup (replaces `pallas_rank_lookup`, `_lookup_kernel`, both
+//    modes). Per element, in original order:
+//        rank = C[b] + clip(frac * cnt[b] + off[b], 0, cnt[b]) + 1/2,
+//    and with blom_scale > 0 (the z mode, `blom_n`) the rank-normal value
+//        z = ppnd7((rank - 3/8) * blom_scale),  blom_scale = 1 / (n + 1/4),
+//    AS241's single-precision inverse normal CDF (`ppnd7`, same coefficients
+//    and branches as fastrank_kernel.py:70-105). The TPU contracted a coarse
+//    one-hot against the tables on the MXU and selected the fine digit on the
+//    VPU, because per-element gathers were slow there. Here the three tables
+//    are packed per column as float4 (c_lo, cnt, off, 0): 64 KB a column,
+//    16.8 MB for 256 columns, resident in the 50 MB L2, so each element
+//    costs one 16-byte gather. Bound by the sample's read and the output's
+//    write plus those gathers; the z mode adds ~30 flops, a logf and a
+//    sqrtf an element in the tails, and saves the separate Blom + ndtri pass
+//    (one more read and write of the sample). Elementwise arithmetic uses
+//    explicit round-to-nearest intrinsics (no FMA contraction) and the
+//    accurate logf (no fast-math intrinsic), so the kernel rounds like its
+//    plain PyTorch version.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -193,11 +199,52 @@ hist_kernel(const float* __restrict__ x, long long n, int p,
 
 // ---- K4 -------------------------------------------------------------------
 
+// Horner's rule, highest coefficient first: ((c[N-1] r + c[N-2]) r + ...) + c[0].
+template <int N>
+__device__ __forceinline__ float horner(float r, const float (&c)[N]) {
+  float acc = c[N - 1];
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) acc = __fadd_rn(__fmul_rn(acc, r), c[i]);
+  return acc;
+}
+
+// AS241 PPND7 (Wichura 1988): the inverse standard normal CDF in single
+// precision, ~1.5e-7 relative; branch for branch the JAX `ppnd7`.
+__device__ __forceinline__ float ppnd7(float p) {
+  constexpr float A[4] = {3.3871327179e0f, 5.0434271938e1f, 1.5929113202e2f,
+                          5.9109374720e1f};
+  constexpr float B[4] = {1.0f, 1.7895169469e1f, 7.8757757664e1f,
+                          6.7187563600e1f};
+  constexpr float C[4] = {1.4234372777e0f, 2.7568153900e0f, 1.3067284816e0f,
+                          1.7023821103e-1f};
+  constexpr float D[3] = {1.0f, 7.3700164250e-1f, 1.2021132975e-1f};
+  constexpr float E[4] = {6.6579051150e0f, 3.0812263860e0f, 4.2868294337e-1f,
+                          1.7337203997e-2f};
+  constexpr float F[3] = {1.0f, 2.4197894225e-1f, 1.2258202635e-2f};
+  if (p != p) return p;  // fminf/fmaxf below would drop a NaN
+  const float q = __fsub_rn(p, 0.5f);
+  if (fabsf(q) <= 0.425f) {
+    const float r = __fsub_rn(0.180625f, __fmul_rn(q, q));
+    return __fdiv_rn(__fmul_rn(q, horner(r, A)), horner(r, B));
+  }
+  const float pt = fminf(p, __fsub_rn(1.0f, p));
+  const float r = __fsqrt_rn(-logf(fmaxf(pt, 1e-38f)));
+  float x;
+  if (r <= 5.0f) {
+    const float rr = __fsub_rn(r, 1.6f);
+    x = __fdiv_rn(horner(rr, C), horner(rr, D));
+  } else {
+    const float rr = __fsub_rn(r, 5.0f);
+    x = __fdiv_rn(horner(rr, E), horner(rr, F));
+  }
+  return q < 0.f ? -x : x;  // q != 0 in the tails
+}
+
 __global__ void rank_lookup_kernel(const float* __restrict__ x, long long n,
                                    int p, const float* __restrict__ lo,
                                    const float* __restrict__ scale,
                                    const float4* __restrict__ tab, int nbins,
-                                   float* __restrict__ out) {
+                                   float blom_scale, float* __restrict__ out) {
   const long long total = n * p;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
@@ -208,7 +255,10 @@ __global__ void rank_lookup_kernel(const float* __restrict__ x, long long n,
     const float4 t = __ldg(&tab[(size_t)c * nbins + b]);
     float g = __fadd_rn(__fmul_rn(frac, t.y), t.z);
     g = fminf(fmaxf(g, 0.f), t.y);
-    out[idx] = __fadd_rn(__fadd_rn(t.x, g), 0.5f);
+    const float rank = __fadd_rn(__fadd_rn(t.x, g), 0.5f);
+    out[idx] = blom_scale > 0.f
+                   ? ppnd7(__fmul_rn(__fsub_rn(rank, 0.375f), blom_scale))
+                   : rank;
   }
 }
 
@@ -251,17 +301,18 @@ extern "C" int mdt_hist_moments(const float* x, long long n, int p,
 }
 
 // x: (n, p); lo, scale: (p,); tab: (p, nbins) float4 (c_lo, cnt, off, 0).
-// out: (n, p) ranks.
+// out: (n, p) ranks, or z values when blom_scale > 0 (0 means ranks).
 extern "C" int mdt_rank_lookup(const float* x, long long n, int p,
                                const float* lo, const float* scale,
-                               const void* tab, int nbins, float* out,
-                               void* stream) {
+                               const void* tab, int nbins, float blom_scale,
+                               float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long total = n * p;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
   rank_lookup_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      x, n, p, lo, scale, reinterpret_cast<const float4*>(tab), nbins, out);
+      x, n, p, lo, scale, reinterpret_cast<const float4*>(tab), nbins,
+      blom_scale, out);
   return (int)cudaGetLastError();
 }

@@ -31,13 +31,14 @@ _LIB_NAME = "libmdt_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" entry points (all return
 # cudaGetLastError() as int)
 _SIGNATURES = {
     "mdt_moments_autocov": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "mdt_column_minmax": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "mdt_hist_moments": (_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P),
-    "mdt_rank_lookup": (_P, _L, _I, _P, _P, _P, _I, _P, _P),
+    "mdt_rank_lookup": (_P, _L, _I, _P, _P, _P, _I, _F, _P, _P),
     "mdt_direct_autocov": (_P, _I, _I, _I, _P, _P),
 }
 

@@ -2,8 +2,9 @@
 
 - K2 ``column_minmax`` replaces ``pallas_column_minmax``,
 - K3 ``hist_moments`` replaces ``pallas_hist_moments``,
-- K4 ``rank_lookup`` replaces ``pallas_rank_lookup`` (ranks only; its fused
-  Blom/AS241 mode is off the main path and not ported),
+- K4 ``rank_lookup`` replaces ``pallas_rank_lookup`` in both of its modes:
+  mean-anchored ranks, and with ``blom_n`` the fused Blom + AS241 ``ppnd7``
+  z values (the ``FUSE_BLOM_Z`` route of ``ops/fastrank.py``),
 
 all in ``mcmcdiagnostictools_jl_tpu/ops/pallas/fastrank_kernel.py``. The
 CUDA source is ``csrc/fastrank.cu``; its header says what bounds each kernel
@@ -160,29 +161,79 @@ hist_moments.launches = 0
 
 # ---- K4 --------------------------------------------------------------------
 
+# AS241 PPND7 (Wichura 1988) rational coefficients, lowest order first: the
+# JAX package's ``fastrank_kernel._PPND7_*``, and ``csrc/fastrank.cu``'s.
+_PPND7_A = (3.3871327179e0, 5.0434271938e1, 1.5929113202e2, 5.9109374720e1)
+_PPND7_B = (1.0, 1.7895169469e1, 7.8757757664e1, 6.7187563600e1)
+_PPND7_C = (1.4234372777e0, 2.7568153900e0, 1.3067284816e0, 1.7023821103e-1)
+_PPND7_D = (1.0, 7.3700164250e-1, 1.2021132975e-1)
+_PPND7_E = (6.6579051150e0, 3.0812263860e0, 4.2868294337e-1, 1.7337203997e-2)
+_PPND7_F = (1.0, 2.4197894225e-1, 1.2258202635e-2)
+
+
+def _horner(r: torch.Tensor, coeffs) -> torch.Tensor:
+    acc = torch.full_like(r, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        acc = acc * r + c
+    return acc
+
+
+def ppnd7(p: torch.Tensor) -> torch.Tensor:
+    """Inverse standard normal CDF, AS241's single-precision branch (~1.5e-7
+    relative), in ``p``'s dtype: the plain version of K4's z mode, operation
+    for operation the JAX package's ``ppnd7``."""
+    q = p - 0.5
+    central = q.abs() <= 0.425
+    r_c = 0.180625 - q * q
+    x_c = q * _horner(r_c, _PPND7_A) / _horner(r_c, _PPND7_B)
+    # tails: r = sqrt(-log(min(p, 1 - p)))
+    pt = torch.where(central, 0.25, torch.minimum(p, 1.0 - p))
+    r_t = torch.sqrt(-torch.log(pt.clamp(min=1e-38)))
+    x_near = _horner(r_t - 1.6, _PPND7_C) / _horner(r_t - 1.6, _PPND7_D)
+    x_far = _horner(r_t - 5.0, _PPND7_E) / _horner(r_t - 5.0, _PPND7_F)
+    x_t = torch.sign(q) * torch.where(r_t <= 5.0, x_near, x_far)
+    return torch.where(central, x_c, x_t)
+
+
+def _blom_scale(blom_n: int | None) -> float:
+    """``1 / (blom_n + 1/4)`` as a Python float (rounded to float32 where it
+    meets float32 values), 0 for the rank mode."""
+    if blom_n is None:
+        return 0.0
+    if blom_n < 1:
+        raise ValueError(f"blom_n must be a positive element count, got {blom_n}")
+    return 1.0 / (blom_n + 0.25)
+
 
 def rank_lookup_plain(xf: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
-                      tables: torch.Tensor, nbins: int):
+                      tables: torch.Tensor, nbins: int,
+                      blom_n: int | None = None):
     """Mean-anchored rank of every element, in original order:
     ``C[b] + clip(frac * cnt[b] + off[b], 0, cnt[b]) + 1/2`` from the
-    ``(3, nbins, P)`` tables ``[C, cnt, off]``."""
+    ``(3, nbins, P)`` tables ``[C, cnt, off]``. With ``blom_n`` (the
+    element count ``n``), the rank-normal value ``ppnd7((rank - 3/8) /
+    (n + 1/4))`` instead."""
+    blom_scale = _blom_scale(blom_n)
     b, frac = bins_from_scale(xf, lo, scale, nbins)
     tables = tables.to(torch.float32)
     c_lo, cnt_b, off_b = (tables[w].gather(0, b) for w in range(3))
     g = torch.minimum((frac * cnt_b + off_b).clamp(min=0.0), cnt_b)
-    return c_lo + g + 0.5
+    rank = c_lo + g + 0.5
+    return rank if blom_n is None else ppnd7((rank - 0.375) * blom_scale)
 
 
 def rank_lookup(xf: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
-                tables: torch.Tensor, nbins: int):
-    """K4; same output as ``rank_lookup_plain`` (float32 on the card)."""
+                tables: torch.Tensor, nbins: int, blom_n: int | None = None):
+    """K4; same output as ``rank_lookup_plain`` (float32 on the card).
+    ``launches`` counts every launch, ``z_launches`` those in the z mode."""
     if not backend.use_kernels(xf):
-        return rank_lookup_plain(xf, lo, scale, tables, nbins)
+        return rank_lookup_plain(xf, lo, scale, tables, nbins, blom_n)
     n, p = _check_flat(xf, "rank_lookup")
     _check_vec(lo, p, xf, "lo")
     _check_vec(scale, p, xf, "scale")
     if tables.shape != (3, nbins, p) or tables.device != xf.device:
         raise ValueError(f"tables must be (3, {nbins}, {p}) on {xf.device}")
+    blom_scale = _blom_scale(blom_n)
     lib = _build.library()
     dev = xf.device
     with torch.cuda.device(dev):
@@ -192,12 +243,15 @@ def rank_lookup(xf: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
         out = torch.empty((n, p), dtype=torch.float32, device=dev)
         code = lib.mdt_rank_lookup(
             xf.data_ptr(), n, p, lo.data_ptr(), scale.data_ptr(),
-            tab.data_ptr(), nbins, out.data_ptr(),
+            tab.data_ptr(), nbins, blom_scale, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(code, "mdt_rank_lookup")
     rank_lookup.launches += 1
+    if blom_n is not None:
+        rank_lookup.z_launches += 1
     return out
 
 
 rank_lookup.launches = 0
+rank_lookup.z_launches = 0

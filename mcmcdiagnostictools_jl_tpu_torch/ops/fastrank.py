@@ -19,6 +19,12 @@ On the card the three steps are the hand-written kernels; on the CPU their
 plain versions (``kernels/fastrank.py``). The small per-column work (prefix
 sums, the Blom transform, quantile inversion) is plain PyTorch on both, as
 the JAX package keeps it outside Pallas.
+
+``FUSE_BLOM_Z`` (default off, the JAX package's default) moves the Blom
+transform and the inverse normal CDF into step 4: K4's z mode emits z
+directly with AS241's ``ppnd7`` (about 1.5e-7 relative; ``torch.special.
+ndtri`` otherwise), which saves one full read and write of the sample. The
+route is the same on the CPU (plain version) and on the card (kernel).
 """
 
 from __future__ import annotations
@@ -35,9 +41,13 @@ from ..kernels.fastrank import (
 )
 
 DEFAULT_NBINS = 4096
+# Fuse Blom + ppnd7 into kernel K4 (the JAX package's flag, same default:
+# its TPU measurement found the fused kernel slower; the H100 figures are in
+# PERF.md)
+FUSE_BLOM_Z = False
 
 __all__ = [
-    "DEFAULT_NBINS", "HistCDF", "build_hist_cdf", "column_minmax",
+    "DEFAULT_NBINS", "FUSE_BLOM_Z", "HistCDF", "build_hist_cdf", "column_minmax",
     "fast_rank_bulk_tail", "fast_rank_normalize", "fast_rank_normalize_flat",
     "hist_quantile", "hist_rank_value", "interpolated_ranks", "z_from_ranks",
 ]
@@ -88,21 +98,41 @@ def build_hist_cdf(xf: torch.Tensor, nbins: int = DEFAULT_NBINS,
     return HistCDF(cum, fm, lo, hi, xf.shape[0], bad)
 
 
+def _lookup(xf: torch.Tensor, cdf: HistCDF, nbins: int,
+            blom_n: int | None = None):
+    """K4 on the CDF's tables: ranks, or z values with ``blom_n``."""
+    cnt = cdf.counts
+    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], dim=0)
+    return rank_lookup(xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tables,
+                       nbins, blom_n).to(xf.dtype)
+
+
 def interpolated_ranks(xf: torch.Tensor, cdf: HistCDF, nbins: int):
     """Per-element mean-anchored rank in ``[1/2, n + 1/2]``, original order.
     Degenerate (constant) columns get the exact tied rank ``(n+1)/2``."""
-    cnt = cdf.counts
-    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], dim=0)
-    rank = rank_lookup(xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tables,
-                       nbins).to(xf.dtype)
     degenerate = (cdf.hi <= cdf.lo)[None, :]
-    return torch.where(degenerate, (cdf.n + 1) * 0.5, rank)
+    return torch.where(degenerate, (cdf.n + 1) * 0.5, _lookup(xf, cdf, nbins))
+
+
+def _blom(rank, n: int):
+    return (rank - 0.375) / (n + 0.25)
 
 
 def z_from_ranks(rank, n: int, bad):
     """Blom alpha=3/8 + inverse normal CDF, NaN-poisoned columns masked."""
-    z = torch.special.ndtri((rank - 0.375) / (n + 0.25))
+    z = torch.special.ndtri(_blom(rank, n))
     return torch.where(bad[None, :], torch.nan, z)
+
+
+def _fused_z(xf: torch.Tensor, cdf: HistCDF, nbins: int):
+    """The ``FUSE_BLOM_Z`` route: z straight from K4's z mode; degenerate
+    columns get the z of the tied rank ``(n+1)/2`` and NaN-poisoned columns
+    NaN, both after the kernel (JAX ``ops/fastrank.py:408-411``)."""
+    z = _lookup(xf, cdf, nbins, blom_n=cdf.n)
+    z_deg = torch.special.ndtri(torch.tensor(_blom((cdf.n + 1) * 0.5, cdf.n),
+                                             dtype=torch.float64))
+    z = torch.where((cdf.hi <= cdf.lo)[None, :], float(z_deg), z)
+    return torch.where(cdf.bad[None, :], torch.nan, z)
 
 
 def hist_rank_value(cdf: HistCDF, h, nbins: int):
@@ -140,10 +170,13 @@ def hist_quantile(cdf: HistCDF, ps, nbins: int):
 def fast_rank_normalize_flat(xf: torch.Tensor, nbins: int = DEFAULT_NBINS,
                              cdf: HistCDF | None = None):
     """Histogram rank-normal transform of a flat ``(N, P)`` sample, in
-    place: ``(z, cdf)`` with ``z`` in original row order."""
+    place: ``(z, cdf)`` with ``z`` in original row order. With
+    ``FUSE_BLOM_Z`` set, K4 emits z itself (``ppnd7``)."""
     xf = xf.contiguous()
     if cdf is None:
         cdf = build_hist_cdf(xf, nbins)
+    if FUSE_BLOM_Z:
+        return _fused_z(xf, cdf, nbins), cdf
     rank = interpolated_ranks(xf, cdf, nbins)
     return z_from_ranks(rank, cdf.n, cdf.bad), cdf
 

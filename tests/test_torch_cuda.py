@@ -7,13 +7,25 @@ PyTorch is installed:
     python -m pytest -o addopts="" --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K2 and K4 round exactly like their plain versions (equal);
+K4's z mode adds AS241's ``ppnd7`` on identical ranks with the same
+round-to-nearest operations (within 4 float32 ULP of z: equal where the
+kernel's ``logf`` and PyTorch's come from one toolkit, an ULP or two apart
+where they do not);
 K3's counts are exact and its frac sums are float32 atomics in another order
 (within 1e-4 of the bin count); K1 and K5 sum in another float32 order (2e-5
 abs at unit variance, min/max equal, K5's lags at or beyond niter exactly
 0); the whole slice on the card tracks the plain CPU path to 1e-3 relative
 ESS and MCSE and 1e-4 absolute R-hat (a quantile MCSE may differ beyond
-that only where an ESS within 1e-3 moved an interval rank).
+that only where an ESS within 1e-3 moved an interval rank); the classical
+suite on the card tracks the CPU to 1e-3 (Geweke z, abs + rel), 1e-4
+(Heidelberger p-values, abs; decisions equal), 1e-4 relative (PSRF), and
+Raftery's run lengths exactly (the dependence factor within 1 float64
+ULP). Float32 matrix products run in full float32:
+``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default), and
+the Gelman test checks that it is.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -24,6 +36,7 @@ from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import _beta_interval_ran
 from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
 from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as kfr
 from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as k1
+from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as fr
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
 from torch_parity import assert_close, cuda_device, t  # noqa: F401  (fixture)
 
@@ -120,6 +133,107 @@ def test_fast_kernels_match_plain(cuda_device, n, p, nbins):  # noqa: F811
                        kfr.rank_lookup_plain(x, lo, scale, tables, nbins))
 
 
+@pytest.mark.parametrize("n,p,nbins", [(50001, 37, 4096), (4096, 7, 256),
+                                       (1000, 1, 64)])
+def test_k4_z_mode_matches_plain(cuda_device, n, p, nbins):  # noqa: F811
+    """Series and row counts off any block size; ties, a constant column."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((n, p)).astype(np.float32)
+    if p > 2:
+        x[:, 1] = np.round(x[:, 1] * 2) / 2
+        x[:, 2] = 1.25
+    x = t(x).to(cuda_device)
+    cdf = fr.build_hist_cdf(x, nbins)
+    cnt = cdf.counts
+    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)])
+    scale = _hist_scale(cdf.lo, cdf.hi, nbins)
+    before = (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches)
+    got = kfr.rank_lookup(x, cdf.lo, scale, tables, nbins, blom_n=n)
+    assert (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = kfr.rank_lookup_plain(x, cdf.lo, scale, tables, nbins, blom_n=n)
+    assert _max_ulp(got, want) <= 4
+    ranks = kfr.rank_lookup(x, cdf.lo, scale, tables, nbins)
+    assert kfr.rank_lookup.z_launches == before[1] + 1  # rank mode: not counted
+    assert _max_ulp(got, kfr.ppnd7((ranks - 0.375) * (1.0 / (n + 0.25)))) <= 4
+
+
+def _max_ulp(got, want):
+    """Largest ``|got - want|`` in float32 ULPs of ``want``; the NaN masks
+    must agree."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    w = want[ok].abs()
+    ulp = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+    return float(((got[ok].double() - want[ok].double()).abs()
+                  / ulp.double()).max())
+
+
+def test_fused_route_launches_z_mode(cuda_device, monkeypatch):  # noqa: F811
+    """With FUSE_BLOM_Z the fast rank kind runs K4's z mode (bulk and fold)
+    on the card, and tracks the unfused route and the CPU's fused route."""
+    x = torch.from_numpy(_ar1(9, (2000, 16, 24)).astype(np.float32))
+    xg = x.to(cuda_device)
+    unfused = mtt.ess_rhat(xg, rank_mode="fast")
+    monkeypatch.setattr(fr, "FUSE_BLOM_Z", True)
+    before = kfr.rank_lookup.z_launches
+    fused = mtt.ess_rhat(xg, rank_mode="fast")
+    assert kfr.rank_lookup.z_launches == before + 2
+    assert_close(fused.ess.cpu(), unfused.ess.cpu(), rtol=1e-3, atol=0)
+    assert_close(fused.rhat.cpu(), unfused.rhat.cpu(), rtol=0, atol=1e-4)
+    cpu = mtt.ess_rhat(x, rank_mode="fast")
+    assert_close(fused.ess.cpu(), cpu.ess, rtol=1e-3, atol=0)
+    assert_close(fused.rhat.cpu(), cpu.rhat, rtol=0, atol=1e-4)
+
+
+def _classical_sample():
+    x = _ar1(10, (2000, 8, 16)).astype(np.float32)
+    x[:400, 0, 0] += 2.0  # a transient
+    return torch.from_numpy(x + 3.0)  # halfwidth ratios ~0.03, off eps = 0.1
+
+
+@pytest.mark.parametrize("fn", ["gewekediag", "heideldiag"])
+def test_windowed_mcse_launches_k5(cuda_device, fn):  # noqa: F811
+    x = _classical_sample()
+    before = k5.direct_autocov.launches
+    g = getattr(mtt, fn)(x.to(cuda_device))
+    assert k5.direct_autocov.launches == before + 1  # one stack, every window
+    c = getattr(mtt, fn)(x)
+    for name, gv, cv in zip(g._fields, g, c):
+        assert gv.device.type == "cuda" and gv.shape == (8, 16), name
+    if fn == "gewekediag":
+        assert_close(g.zscore.cpu(), c.zscore, rtol=1e-3, atol=1e-3)
+        return
+    assert_close(g.pvalue.cpu(), c.pvalue, rtol=0, atol=1e-4)
+    # decisions equal, except for a series whose float32 value sits at a
+    # threshold (p-value within 1e-4 of alpha, halfwidth ratio within 1e-3
+    # of eps); none in this sample
+    near = ((c.pvalue - 0.05).abs() <= 1e-4) | (
+        (c.halfwidth / c.mean.abs() - 0.1).abs() <= 1e-3)
+    assert not near.any()
+    for name in ("burnin", "stationarity", "test"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert_close(g.mean.cpu(), c.mean, rtol=1e-5, atol=1e-6)
+    assert_close(g.halfwidth.cpu(), c.halfwidth, rtol=1e-3, atol=0)
+
+
+def test_gelman_raftery_on_card_match_cpu(cuda_device):  # noqa: F811
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    x = _classical_sample()
+    xg = x.to(cuda_device)
+    g, c = mtt.gelmandiag_multivariate(xg), mtt.gelmandiag_multivariate(x)
+    assert g.psrf.device.type == "cuda"
+    for gv, cv in zip(g[:2], c[:2]):
+        assert_close(gv.cpu(), cv, rtol=1e-4, atol=0)
+    assert_close(g.psrfmultivariate, c.psrfmultivariate, rtol=1e-4, atol=0)
+    # r = 0.01: nmin 937 draws, below the sample's 2000
+    g, c = mtt.rafterydiag(xg, r=0.01), mtt.rafterydiag(x, r=0.01)
+    for name, gv, cv in zip(g._fields, g, c):
+        assert gv.device.type == "cuda", name
+        rtol = 2.0 ** -52 if name == "dependencefactor" else 0  # 1 ULP
+        assert_close(gv.cpu(), cv, rtol=rtol, atol=0, equal_nan=True)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F811
     x = torch.zeros((64, 8), device=cuda_device)
     with pytest.raises(ValueError):
@@ -208,6 +322,9 @@ def test_cuda_float64_tensor_raises(cuda_device):  # noqa: F811
     with pytest.raises(NotImplementedError, match="float32"):
         mtt.ess_rhat(x)
     for fn in (mtt.mcse, mtt.ess, lambda v: mtt.rhat_nested(v, [0, 1]),
-               lambda v: mtt.bfmi(v[:, :, 0])):
+               lambda v: mtt.bfmi(v[:, :, 0]), mtt.gelmandiag,
+               mtt.gelmandiag_multivariate, mtt.gewekediag, mtt.heideldiag,
+               mtt.rafterydiag, lambda v: mtt.gewekediag(v[:, 0, 0]),
+               lambda v: mtt.heideldiag(v[:, 0, 0])):
         with pytest.raises(NotImplementedError, match="float32"):
             fn(x)
