@@ -31,10 +31,27 @@ and exits nonzero, printing no result, if any phase fails:
    version; the five functions on BASELINE.md config 3
    (10k x 8 x 100) and Gelman/Geweke/Heidelberger/Raftery on the full
    sample, with walls, peak memory and K5's launches (it must run in Geweke
-   and Heidelberger); then card against CPU at 2000 x 8 x 16, N-d and 1-d.
+   and Heidelberger); then card against CPU at 2000 x 8 x 16, N-d and 1-d;
+9. the lag-loop study (kernel K6) through ``benchmarks.micro_lagloop`` at
+   (5000, 16384) and at K5's shape (5000, 65536), maxlag 250: variants A and B
+   against the plain version and against each other, with B's registers and
+   spills from the build;
+10. the sort study through ``benchmarks.sort_microbench`` at 1,048,576 x 128
+    keys and payload: K7 at three (pods, stride) settings and K8 at two, equal
+    to the plain version, with their share of the memory rate; K9 at pods of
+    16,384 and 32,768 rows against its plain version, beside ``torch.sort``;
+11. out of core: BASELINE.md config 4 (10k x 128 x 1000 float32, 5.12 GB) on
+    the host through ``ess_rhat_streaming`` in chunks of 256 parameters: K1-K4
+    must run in every chunk, the first 256 parameters must equal the resident
+    call of phase 4, peak device memory must stay bounded whatever the number
+    of chunks; prints the wall beside the sums of gather, copy and compute;
+    then the exact rank mode in chunks of 64 against phase 4's exact result.
 
-The second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Only PyTorch and numpy are used.
+The line before the last two is the card's name and power limit, the
+second-to-last line the kernels' JSON record (each with its time, its plain
+version's, its bound and, where one PyTorch call computes the same, that
+call's), the last line ``{"ok": true, "device": {...}}``. Only PyTorch and
+numpy are used.
 """
 
 from __future__ import annotations
@@ -53,6 +70,25 @@ DRAWS, CHAINS, PARAMS = 10_000, 128, 256
 NBINS = 4096
 SEED = 20261016
 PKG = "mcmcdiagnostictools_jl_tpu_torch"
+# H100 SXM data sheet: device memory rate, and the float32 rate outside the
+# tensor cores (an FMA counts as two operations)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 66.9e12
+
+
+def roofline(nbytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes that must
+    move over the memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lag_bound(niter: int, nseries: int, maxlag: int) -> dict:
+    """Bound of the lag products (K1, K5, K6): the series read once, the lags
+    written once, niter * (maxlag + 1) FMAs a series."""
+    return roofline(4.0 * nseries * (niter + maxlag + 1),
+                 2.0 * niter * (maxlag + 1) * nseries)
 
 
 class SmokeFailure(RuntimeError):
@@ -72,22 +108,14 @@ def ar1(rng, phi: float, shape) -> np.ndarray:
     return x
 
 
-def time_ms(fn, reps: int = 5, warmup: bool = True) -> float:
+def time_ms(fn, reps: int = 5, warmup: bool = True, setup=None) -> float:
     """Median device time of ``fn`` in ms (CUDA events), after a warm-up
-    call unless the caller has just made one."""
-    if warmup:
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    call unless the caller has just made one. ``setup`` makes the arguments
+    of each call (fresh copies for a function that works in place) outside
+    the timed window."""
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import time_ms as timer
+
+    return timer(fn, setup=setup, reps=reps, warmup=warmup)
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -168,7 +196,9 @@ def phase_device() -> dict:
     return {"smi": smi, "name": name}
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Builds the kernels; returns the compiler's output (empty when the
+    library was there already)."""
     from mcmcdiagnostictools_jl_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -179,9 +209,13 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("   ", line.strip())
+    return log
 
 
 def phase_kernels(x3: torch.Tensor) -> list:
+    """K1-K4 against their plain versions; each row carries its bound (K1:
+    the lag products' operations; K2-K4: the sample read once, K4's output
+    written once, the tables)."""
     from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as fr
     from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as ma
     from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
@@ -199,14 +233,21 @@ def phase_kernels(x3: torch.Tensor) -> list:
         check(checked <= bound, f"{kid} disagrees with its plain version")
         rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, **(extra or {})))
 
+    n = xf.shape[0]
+    sample_bytes = 4.0 * n * PARAMS
+
     # K2: exact (min/max/any select existing values)
     k, p = fr.column_minmax(xf), fr.column_minmax_plain(xf)
     torch.cuda.synchronize()
     check(torch.equal(k[2], p[2]), "K2 bad flags differ")
     err = max(max_abs_err(a, b) for a, b in zip(k[:2], p[:2]))
+    # the library call for K2's function on input without NaN
+    x2 = x3.reshape(-1, PARAMS)
     report("K2 column_minmax", err, err, 0.0, "exact:",
            time_ms(lambda: fr.column_minmax(xf)),
-           time_ms(lambda: fr.column_minmax_plain(xf)))
+           time_ms(lambda: fr.column_minmax_plain(xf)),
+           {**roofline(sample_bytes),
+            "library_ms": time_ms(lambda: torch.aminmax(x2, dim=0))})
     lo, hi, _ = k
     scale = _hist_scale(lo, hi, NBINS)
 
@@ -221,7 +262,8 @@ def phase_kernels(x3: torch.Tensor) -> list:
     report("K3 hist_moments", max_abs_err(s1, s1_p), fm_err, 1e-4,
            "counts equal; error of s1/cnt",
            time_ms(lambda: fr.hist_moments(xf, lo, scale, NBINS)),
-           time_ms(lambda: fr.hist_moments_plain(xf, lo, scale, NBINS)))
+           time_ms(lambda: fr.hist_moments_plain(xf, lo, scale, NBINS)),
+           roofline(sample_bytes + 8.0 * NBINS * PARAMS))
 
     # K4 on K3's tables: both round identically; bound one float32 ulp of a
     # rank near n = 1.28M (0.125)
@@ -232,7 +274,8 @@ def phase_kernels(x3: torch.Tensor) -> list:
                       fr.rank_lookup_plain(xf, lo, scale, tables, NBINS))
     report("K4 rank_lookup", err, err, 0.125, "one f32 ulp at rank 1.28M:",
            time_ms(lambda: fr.rank_lookup(xf, lo, scale, tables, NBINS)),
-           time_ms(lambda: fr.rank_lookup_plain(xf, lo, scale, tables, NBINS)))
+           time_ms(lambda: fr.rank_lookup_plain(xf, lo, scale, tables, NBINS)),
+           roofline(2 * sample_bytes + 12.0 * NBINS * PARAMS))
 
     # K1 on the split sample (5000, 256, 256): moments and autocovariance in
     # another float32 summation order; errors relative to the series
@@ -256,7 +299,10 @@ def phase_kernels(x3: torch.Tensor) -> list:
     err = max(k1[64][0], k1[250][0])
     report("K1 moments_autocov", err, err / scale_var, 1e-5,
            "relative to the largest variance:", k1[250][1], k1[250][2],
-           {"ms_maxlag64": k1[64][1], "plain_ms_maxlag64": k1[64][2]})
+           {"ms_maxlag64": k1[64][1], "plain_ms_maxlag64": k1[64][2],
+            **lag_bound(samples.shape[0], samples.shape[1] * PARAMS, 250),
+            "bound_ms_maxlag64": lag_bound(
+                samples.shape[0], samples.shape[1] * PARAMS, 64)["bound_ms"]})
     # rows in K2, K3, K4, K1 order -> K1..K4
     return [rows[3], rows[0], rows[1], rows[2]]
 
@@ -301,7 +347,7 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
     }
     print(f"[4 wall] fast {walls['fast_s']:.4f} s, exact {walls['exact_s']:.4f} s "
           f"(median of 3, {DRAWS}x{CHAINS}x{PARAMS} f32)")
-    return {"counts": fast_counts, **walls}
+    return {"counts": fast_counts, "fast": fast, "exact": exact, **walls}
 
 
 def geyer_stop_pairs(proxy: torch.Tensor, method: str, maxlag: int):
@@ -393,6 +439,10 @@ def phase_direct_autocov(x3: torch.Tensor) -> dict:
         row.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                     "max_abs_err_vs_k1" + sfx: err_k1})
         row["err"] = max(row["err"], err)
+    series = samples.shape[1] * PARAMS
+    row.update(lag_bound(samples.shape[0], series, 250))
+    row["bound_ms_maxlag64"] = lag_bound(samples.shape[0], series,
+                                         64)["bound_ms"]
     return row
 
 
@@ -642,7 +692,8 @@ def phase_fused_z(x3: torch.Tensor) -> dict:
     print(f"[7 wall] fast ess_rhat, FUSE_BLOM_Z off {walls['off']} s, on "
           f"{walls['on']} s (each a median of 3)")
     return {"row": dict(err=err, ms=ms, plain_ms=plain_ms, max_ulp=ulps,
-                        rank_mode_ms=rank_ms),
+                        rank_mode_ms=rank_ms,
+                        **roofline(8.0 * n * PARAMS + 12.0 * NBINS * PARAMS)),
             "launches": counts_on["K4z"], "walls": out,
             "fused_vs_unfused": {"ess_rel": ess_rel, "rhat_abs": rhat_abs}}
 
@@ -808,11 +859,301 @@ def phase_classical_card_vs_cpu() -> None:
     check(worst <= 1e-4, "PSRF: card != CPU")
 
 
+# ---- phases 9 and 10: the kernel studies ------------------------------------
+
+# float32 sums of 5000 products in another order, relative to the largest
+# lag-0 sum (K5's bound in phases 6 and 8)
+LAG_REL_BOUND = 1e-5
+# 32-bit operations a second outside the tensor cores (the float32 rate
+# counts an FMA twice)
+ALU_OPS = F32_FLOPS / 2
+
+
+def ptxas_lines(build_log: str, kernel: str) -> str:
+    """Registers and spills that ptxas reported for ``kernel``; the library
+    is built in the same run unless a build directory was left behind."""
+    lines, keep = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        elif keep and ("registers" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return "; ".join(lines) if lines else "not available (cached build)"
+
+
+def phase_lagloop(build_log: str) -> dict:
+    """K6 through ``benchmarks.micro_lagloop``: variants A and B at the
+    study's size and at K5's flagship shape, each against the plain version
+    and against each other."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop as ml
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as ls
+
+    regs_b = ptxas_lines(build_log, "lagloop_b_kernelILi32E")
+    print(f"[9 K6b build] {regs_b}")
+    rows = {v: {"err": 0.0} for v in ls.VARIANTS}
+    launches = dict.fromkeys(ls.VARIANTS, 0)
+    # the study's own size, then the split flagship sample's 65,536 series
+    for series, sfx in ((ml.SERIES, ""), (2 * CHAINS * PARAMS, "_65536")):
+        x = ml.make_input(SEED + 6, series=series)
+        kernels.reset_launch_counts()
+        outs, ms = {}, {}
+        for v in ls.VARIANTS:
+            outs[v], t = ml.run(v, x)
+            ms[v] = t["ms"]
+        counts = kernels.launch_counts()
+        plain = ls.lag_products_plain(x, ml.MAXLAG)
+        torch.cuda.synchronize()
+        plain_ms = time_ms(lambda: ls.lag_products_plain(x, ml.MAXLAG),
+                           reps=1, warmup=False)
+        scale = float(plain[0].max())
+        ab = max_abs_err(outs["a"], outs["b"]) / scale
+        bnd = lag_bound(ml.NITER, series, ml.MAXLAG)
+        for v in ls.VARIANTS:
+            check(outs[v].shape == (ml.MAXLAG + 1, series), "K6: bad shape")
+            err = max_abs_err(outs[v], plain)
+            print(f"[9 K6{v} lag_products ({ml.NITER}, {series}), maxlag "
+                  f"{ml.MAXLAG}] max abs err {err:.3e}, relative to the "
+                  f"largest c_0 {err / scale:.3e} (bound {LAG_REL_BOUND:.0e}); "
+                  f"kernel {ms[v]:.3f} ms, plain {plain_ms:.1f} ms, bound "
+                  f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}): "
+                  f"{bnd['bound_ms'] / ms[v]:.1%} of the float32 peak")
+            check(err / scale <= LAG_REL_BOUND,
+                  f"K6{v} disagrees with its plain version")
+            rows[v]["err"] = max(rows[v]["err"], err)
+            rows[v].update({"ms" + sfx: ms[v], "plain_ms" + sfx: plain_ms,
+                            "bound_ms" + sfx: bnd["bound_ms"]})
+            launches[v] += counts["K6" + v]
+            check(counts["K6" + v] >= 1, f"K6{v} did not launch")
+        rows["a"]["bound_by"] = rows["b"]["bound_by"] = bnd["bound_by"]
+        print(f"   A against B: {ab:.3e} of the largest c_0 (bound "
+              f"{LAG_REL_BOUND:.0e}); B is {ms['a'] / ms['b']:.2f}x A")
+        check(ab <= LAG_REL_BOUND, "K6's variants disagree")
+        del x, outs, plain
+    rows["b"]["ptxas"] = regs_b
+    return {"rows": rows, "launches": launches}
+
+
+def phase_sort_study() -> dict:
+    """K7, K8 and K9 through ``benchmarks.sort_microbench`` at 512 tiles of
+    2048 rows x 128 columns (1.07 GB of keys and payload)."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import sort_microbench as sm
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as ss
+
+    ntiles, seed = 512, SEED + 7
+    keys, payload = sm.make_arrays(ntiles, seed)
+    moved = 2 * keys.numel() * 8  # both arrays read once and written once
+    pass_bound = roofline(moved)
+    want = ss.pass_plain(keys, payload, 16, 1)
+    plain_ms = time_ms(lambda: ss.pass_plain(keys, payload, 16, 1))
+
+    def add_(k, p):
+        k.add_(1.0)
+        p.add_(1)
+
+    library_ms = time_ms(add_, setup=lambda: (keys.clone(), payload.clone()))
+    print(f"[10 data] {keys.shape[0]} x {keys.shape[1]} float32 keys (uniform, "
+          f"seed {seed}) + int32 payload, {keys.numel() * 8 / 1e9:.2f} GB; one "
+          f"pass moves {moved / 1e9:.2f} GB, bound {pass_bound['bound_ms']:.3f} "
+          f"ms; plain (keys + 1, payload + 1) {plain_ms:.3f} ms, add_ in place "
+          f"{library_ms:.3f} ms")
+    out = {}
+    kernels.reset_launch_counts()
+    runs = [("K7", f"pods {k} stride {s}", lambda k=k, s=s:
+             sm.bench_dma_pass(ntiles, k, s, seed=seed))
+            for k, s in ((16, 1), (16, 16), (8, 64))]
+    runs += [("K8", f"pods {k}", lambda k=k:
+              sm.bench_dma_contig(ntiles, k, seed=seed)) for k in (16, 4)]
+    for kid, setting, run in runs:
+        (k_out, p_out), t = run()
+        torch.cuda.synchronize()
+        same = torch.equal(k_out, want[0]) and torch.equal(p_out, want[1])
+        print(f"[10 {kid} {setting}] equal to the plain version: {same}; "
+              f"{t['ms']:.3f} ms, {t['gbps']:.0f} GB/s, "
+              f"{t['gbps'] * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s")
+        check(same, f"{kid} ({setting}) differs from its plain version")
+        row = out.setdefault(kid, dict(err=0.0, ms=t["ms"], plain_ms=plain_ms,
+                                       library_ms=library_ms, **pass_bound,
+                                       settings={}))
+        row["settings"][setting] = {"ms": t["ms"], "gbps": t["gbps"]}
+        del k_out, p_out
+    counts = kernels.launch_counts()
+    del want
+
+    # K9: operations = 5 a compare-exchange (a compare, four selects)
+    kernels.reset_launch_counts()
+    for pod_tiles, sfx in ((8, ""), (16, "_pod32768")):
+        pod_rows = pod_tiles * sm.TILE
+        (k_out, p_out), t = sm.bench_phase_a(ntiles, pod_tiles, seed=seed)
+        t0 = time.perf_counter()
+        k_plain, p_plain = ss.bitonic_pod_sort_plain(keys, payload, pod_rows)
+        torch.cuda.synchronize()
+        plain_k9_ms = (time.perf_counter() - t0) * 1e3
+        keys_same = torch.equal(k_out, k_plain)
+        payload_same = torch.equal(p_out, p_plain)
+        consistent = torch.equal(keys.reshape(-1)[p_out.long()], k_out)
+        del k_plain, p_plain
+        (k_lib, _), t_lib = sm.bench_sort(ntiles, pod_tiles, seed=seed)
+        pods = (-1, 2, pod_rows, keys.shape[1])
+        lib_same = torch.equal(k_out.reshape(pods)[:, 0],
+                               k_lib.reshape(pods)[:, 0])
+        ops = 5.0 * t["stages"] * keys.numel() / 2
+        bnd = {"bound_ms": max(moved / HBM_BYTES_PER_S, ops / ALU_OPS) * 1e3,
+               "bound_by": ("bytes" if moved / HBM_BYTES_PER_S >= ops / ALU_OPS
+                            else "operations")}
+        print(f"[10 K9 pods of {pod_rows} rows, {t['stages']} stages] keys "
+              f"equal to the plain network: {keys_same}, payload equal: "
+              f"{payload_same}, payload consistent with the keys: "
+              f"{consistent}, ascending pods equal to torch.sort: {lib_same}; "
+              f"kernel {t['ms']:.3f} ms, plain {plain_k9_ms:.1f} ms (one call), "
+              f"torch.sort + gather {t_lib['ms']:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
+        check(keys_same and payload_same and consistent and lib_same,
+              f"K9 (pods of {pod_rows}) is wrong")
+        row = out.setdefault("K9", dict(err=0.0, **bnd))
+        row.update({"ms" + sfx: t["ms"], "plain_ms" + sfx: plain_k9_ms,
+                    "library_ms" + sfx: t_lib["ms"],
+                    "bound_ms" + sfx: bnd["bound_ms"]})
+        del k_out, p_out, k_lib
+    counts.update({"K9": kernels.launch_counts()["K9"]})
+    for kid in ("K7", "K8", "K9"):
+        check(counts[kid] >= 1, f"{kid} did not launch")
+    return {"rows": out,
+            "launches": {kid: counts[kid] for kid in ("K7", "K8", "K9")}}
+
+
+# ---- phase 11: out of core ---------------------------------------------------
+
+CONFIG4_PARAMS = 1000
+# peak device memory of the resident fast call above its sample (PERF.md,
+# where the time goes): what one chunk's pipeline may take
+PIPELINE_PEAK_GB = 6.72
+
+
+def config4_host_sample(x3: torch.Tensor) -> torch.Tensor:
+    """BASELINE.md config 4 on the host, (10k, 128, 1000) float32: the first
+    256 parameters are the resident sample; each further block of 256 (the
+    last: 232) is that sample rolled along the draws by a seeded shift and
+    scaled by a seeded factor, so every block keeps the shifted chains of its
+    first parameter."""
+    rng = np.random.default_rng(SEED + 5)
+    xh = x3.cpu()
+    host = torch.empty((DRAWS, CHAINS, CONFIG4_PARAMS), dtype=torch.float32)
+    host[:, :, :PARAMS] = xh
+    for lo in range(PARAMS, CONFIG4_PARAMS, PARAMS):
+        w = min(PARAMS, CONFIG4_PARAMS - lo)
+        shift = int(rng.integers(500, DRAWS - 500))
+        scale = float(rng.uniform(0.5, 2.0))
+        host[:DRAWS - shift, :, lo:lo + w] = xh[shift:, :, :w]
+        host[DRAWS - shift:, :, lo:lo + w] = xh[:shift, :, :w]
+        host[:, :, lo:lo + w] *= scale
+    return host
+
+
+def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    host = config4_host_sample(x3).numpy()
+    print(f"[11 data] config 4 on the host: {host.shape} float32, "
+          f"{host.nbytes / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s (the "
+          "resident sample and three rolled, scaled copies of it)")
+    chunk_gb = DRAWS * CHAINS * PARAMS * 4 / 1e9
+    t0 = time.perf_counter()
+    np.ascontiguousarray(host[:, :, :PARAMS])
+    naive_s = time.perf_counter() - t0
+    print(f"[11 gather] np.ascontiguousarray of one chunk ({chunk_gb:.2f} GB, "
+          f"a strided slice) on one core: {naive_s:.3f} s")
+
+    def run(source):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res, stats = mtt.ess_rhat_streaming(source, param_chunk=PARAMS,
+                                            return_stats=True)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return res, stats, kernels.launch_counts(), peak
+
+    _, stats2, _, peak2 = run(host[:, :, :2 * PARAMS])
+    cold_wall = None
+    for _ in range(2):  # the first run of this size also pins its buffers
+        res, stats, counts, peak = run(host)
+        cold_wall = stats.wall_s if cold_wall is None else cold_wall
+    n = stats.n_chunks
+    print(f"[11 launches] {n} chunks: {counts}")
+    check(n == 4, f"expected 4 chunks, got {n}")
+    check(counts["K1"] >= n and counts["K2"] == n and counts["K3"] == 2 * n
+          and counts["K4"] == 2 * n, "K1-K4 did not launch in every chunk")
+    for v in res:
+        check(v.shape == (CONFIG4_PARAMS,) and v.device.type == "cuda",
+              f"bad output shape/device {tuple(v.shape)} {v.device}")
+        check(bool(torch.isfinite(v).all()), "non-finite ESS or R-hat")
+    # the same kernels on the same columns: only K3's float atomics (another
+    # order every run) and reductions tiled for another width differ
+    ess_rel = float((res.ess[:PARAMS] / resident_fast.ess - 1).abs().max())
+    rhat_abs = float((res.rhat[:PARAMS] - resident_fast.rhat).abs().max())
+    print(f"[11 streamed vs resident, first {PARAMS} parameters] ESS rel "
+          f"{ess_rel:.3e} (bound 1e-5), R-hat abs {rhat_abs:.3e} (bound 1e-6)")
+    check(ess_rel <= 1e-5 and rhat_abs <= 1e-6, "streamed != resident")
+    flagged = [float(res.rhat[j]) for j in range(0, CONFIG4_PARAMS, PARAMS)]
+    rest = res.rhat.clone()
+    rest[::PARAMS] = 0
+    print(f"[11 mixing] R-hat of each block's shifted parameter {flagged}; "
+          f"max of the others {float(rest.max()):.4f}")
+    check(min(flagged) > 1.1 and float(rest.max()) < 1.1,
+          "badly mixed parameters not flagged")
+    limit = 3 * chunk_gb + PIPELINE_PEAK_GB
+    print(f"[11 memory] peak +{peak:.3f} GB with 4 chunks, +{peak2:.3f} GB "
+          f"with 2 (limit {limit:.2f} GB: three chunks + the pipeline's "
+          f"{PIPELINE_PEAK_GB} GB)")
+    check(peak <= limit, "peak device memory above three chunks + pipeline")
+    check(peak <= peak2 + 0.1, "peak device memory grows with the chunks")
+    sums = {k: sum(getattr(stats, k)) for k in
+            ("fetch_s", "h2d_s", "compute_s", "wait_s")}
+    ratio = stats.wall_s / max(sums["fetch_s"], sums["h2d_s"],
+                               sums["compute_s"])
+    print(f"[11 wall] {stats.wall_s:.3f} s (first run {cold_wall:.3f} s; 2 "
+          f"chunks {stats2.wall_s:.3f} s); sums: gather {sums['fetch_s']:.3f}, "
+          f"copy {sums['h2d_s']:.3f} ({host.nbytes / 1e9 / sums['h2d_s']:.1f} "
+          f"GB/s), compute {sums['compute_s']:.3f}, host blocked "
+          f"{sums['wait_s']:.3f} s; wall / largest sum = {ratio:.2f}, wall / "
+          f"all three = "
+          f"{stats.wall_s / (sums['fetch_s'] + sums['h2d_s'] + sums['compute_s']):.2f}")
+    print(f"   per chunk: gather {[round(v, 3) for v in stats.fetch_s]}, copy "
+          f"{[round(v, 3) for v in stats.h2d_s]}, compute "
+          f"{[round(v, 3) for v in stats.compute_s]}")
+
+    kernels.reset_launch_counts()
+    exact = mtt.ess_rhat_streaming(host[:, :, :PARAMS], rank_mode="exact",
+                                   param_chunk=64)
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["K1"] >= 4, "K1 did not run in every chunk")
+    ess_rel_x = float((exact.ess / resident_exact.ess - 1).abs().max())
+    rhat_abs_x = float((exact.rhat - resident_exact.rhat).abs().max())
+    print(f"[11 exact mode, chunks of 64, vs resident] ESS rel {ess_rel_x:.3e} "
+          f"(bound 1e-5), R-hat abs {rhat_abs_x:.3e} (bound 1e-6)")
+    check(ess_rel_x <= 1e-5 and rhat_abs_x <= 1e-6,
+          "streamed exact mode != resident")
+    return {"wall_s": stats.wall_s, "first_run_wall_s": cold_wall,
+            "wall_2_chunks_s": stats2.wall_s, **{"sum_" + k: v
+                                                 for k, v in sums.items()},
+            "wall_over_largest_sum": ratio, "peak_gb": peak,
+            "peak_2_chunks_gb": peak2, "naive_gather_one_chunk_s": naive_s,
+            "launches": counts,
+            "streamed_vs_resident": {"ess_rel": ess_rel, "rhat_abs": rhat_abs,
+                                     "exact_ess_rel": ess_rel_x,
+                                     "exact_rhat_abs": rhat_abs_x}}
+
+
 def main() -> int:
     dev = phase_device()
     import mcmcdiagnostictools_jl_tpu_torch  # noqa: F401  (fails outside the repo)
 
-    phase_build()
+    build_log = phase_build()
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     x_np = ar1(rng, 0.5, (DRAWS, CHAINS, PARAMS))
@@ -837,6 +1178,9 @@ def main() -> int:
     rows.append(fz["row"])
     classical = phase_classical(x3, bad_param)
     phase_classical_card_vs_cpu()
+    lag = phase_lagloop(build_log)
+    sort = phase_sort_study()
+    streaming = phase_streaming(x3, e2e.pop("fast"), e2e.pop("exact"))
 
     src = f"{PKG}/csrc/"
     pallas = "mcmcdiagnostictools_jl_tpu/ops/pallas/"
@@ -849,24 +1193,42 @@ def main() -> int:
         ("K5 direct_autocov", src + "autocov.cu", pallas + "autocov_kernel.py:46"),
         ("K4z rank_lookup z mode (blom_n)", src + "fastrank.cu",
          pallas + "fastrank_kernel.py:275"),
+        ("K6a lag_products variant a", src + "lagloop_study.cu",
+         "benchmarks/micro_lagloop.py:72"),
+        ("K6b lag_products variant b", src + "lagloop_study.cu",
+         "benchmarks/micro_lagloop.py:72"),
+        ("K7 pass_strided", src + "sort_study.cu",
+         "benchmarks/sort_microbench.py:110"),
+        ("K8 pass_contig", src + "sort_study.cu",
+         "benchmarks/sort_microbench.py:171"),
+        ("K9 bitonic_pod_sort", src + "sort_study.cu",
+         "benchmarks/sort_microbench.py:307"),
     ]
+    rows += [lag["rows"]["a"], lag["rows"]["b"]]
+    rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
-    # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7
-    launches = {**e2e["counts"], "K5": est["k5_launches"], "K4z": fz["launches"]}
+    # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
+    # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
+    # phase 10 (K1-K4 in the streamed run: "streaming" in the line above)
+    launches = {**e2e["counts"], "K5": est["k5_launches"],
+                "K4z": fz["launches"], "K6a": lag["launches"]["a"],
+                "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []
-    for (name, source, replaces), row, kid in zip(
-            meta, rows, ("K1", "K2", "K3", "K4", "K5", "K4z")):
+    for (name, source, replaces), row in zip(meta, rows):
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[kid],
+                 "replaces": replaces, "launches": launches[name.split()[0]],
                  "max_abs_err": row.pop("err"), "ms": row.pop("ms"),
-                 "plain_ms": row.pop("plain_ms")}
+                 "plain_ms": row.pop("plain_ms"),
+                 "bound_ms": row.pop("bound_ms"),
+                 "bound_by": row.pop("bound_by"),
+                 "library_ms": row.pop("library_ms", None)}
         entry.update(row)
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
                       **est["walls"],
                       "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"],
                       **fz["walls"], "fused_vs_unfused": fz["fused_vs_unfused"],
-                      "classical": classical}))
+                      "classical": classical, "streaming": streaming}))
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ reference) to PyTorch on an NVIDIA H100. It covers ``ess`` (every kind:
 fast: histogram CDF, with ``ops.fastrank.FUSE_BLOM_Z`` selecting kernel K4's
 fused z mode), and the classical suite ``gelmandiag``,
 ``gelmandiag_multivariate``, ``gewekediag``, ``heideldiag`` and
-``rafterydiag``.
+``rafterydiag``, and the out-of-core executor ``stream_param_chunks`` /
+``ess_rhat_streaming`` for a host sample larger than device memory. The
+kernel studies (lag-loop formulations, sort passes and the pod sort) live in
+``benchmarks/``.
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
@@ -42,6 +45,7 @@ from .diagnostics.ess_rhat import (
 from .diagnostics.mcse import mcse
 from .diagnostics.rafterydiag import RafteryResult, rafterydiag
 from .diagnostics.rhat_nested import rhat_nested
+from .streaming import StreamStats, ess_rhat_streaming, stream_param_chunks
 
 __version__ = "0.1.0"
 
@@ -57,6 +61,9 @@ __all__ = [
     "gewekediag",
     "heideldiag",
     "rafterydiag",
+    "ess_rhat_streaming",
+    "stream_param_chunks",
+    "StreamStats",
     "AutocovMethod",
     "FFTAutocovMethod",
     "BDAAutocovMethod",

@@ -9,7 +9,9 @@ in ``ops/fastrank.py``). Here a tensor's own device decides, once:
 - a CUDA tensor of any other dtype raises ``NotImplementedError``: no float64
   path for the card is ported yet (ROADMAP.md, queue A).
 
-There is no silent route from a CUDA tensor to a plain version.
+There is no silent route from a CUDA tensor to a plain version. Entry points
+that take host data and no tensor (the out-of-core executor, the kernel
+studies) run on the card unless the caller names a device: ``resolve_device``.
 """
 
 from __future__ import annotations
@@ -31,3 +33,18 @@ def use_kernels(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise NotImplementedError(f"unsupported device {x.device}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` with its index filled in, or the current card when none is
+    named; raises where there is no card rather than running on the host."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "this entry point runs on the card by default and there is "
+                "none; pass device='cpu' to run on the host")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -1,0 +1,42 @@
+"""Kernel studies of the port: microbenchmarks that run on the card.
+
+- ``micro_lagloop``: two formulations of the lag loop of K1/K5 (kernel K6);
+- ``sort_microbench``: the traffic of one sort pass (K7, K8) and the bitonic
+  sort of a pod (K9) beside the library sort.
+
+Each entry point takes an explicit ``device`` (default: the card; it raises
+if there is none), makes its data from an explicit seed with numpy, times
+with CUDA events, and returns its outputs with a small dict of times.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+
+def time_ms(fn, *, setup=None, reps: int = 5, warmup: bool = True) -> float:
+    """Median time of ``fn(*setup())`` in ms over ``reps`` calls after a
+    warm-up, from CUDA events around ``fn`` alone: ``setup`` (fresh inputs
+    for a function that works in place) runs outside the timed window."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing needs the card: CUDA events, no host clock")
+
+    def args():
+        return () if setup is None else setup()
+
+    if warmup:
+        fn(*args())
+    times = []
+    for _ in range(reps):
+        a = args()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*a)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)

@@ -1,5 +1,6 @@
-// The tiled lag loop shared by kernels K1 (moments_autocov.cu) and K5
-// (autocov.cu): the biased direct autocovariance of centered series,
+// The tiled lag loop shared by kernels K1 (moments_autocov.cu), K5
+// (autocov.cu) and K6's variant A (lagloop_study.cu), and its register-blocked
+// form, K6's variant B: the biased direct autocovariance of centered series,
 //     c_k = sum_{i < niter - k} xc_i * xc_{i+k} / niter,   k = 0..maxlag,
 // with xc = x - mean for one block of kLanes series.
 //
@@ -104,6 +105,88 @@ inline dim3 lag_grid(int nseries, int maxlag) {
   constexpr int kSpan = kGroups * kJ;
   return dim3((nseries + kLanes - 1) / kLanes,
               (maxlag + 1 + kSpan - 1) / kSpan);
+}
+
+// The register-blocked form of the same loop (kernel K6's variant B,
+// lagloop_study.cu; K1 and K5 call lag_products above). Same tiles, same
+// block of 32 series x 8 warps, same result. What differs is which lags a
+// warp owns and where the shifted factor lives:
+// - warp g owns the kR CONSECUTIVE lags lag0 + g * kR + j, j < kR, so at draw
+//   r it needs b[r + g * kR + j] for all j: a window of kR neighbouring rows
+//   that slides by one row a draw;
+// - the window stays in registers. A draw costs two shared-memory loads (its
+//   left factor and the one row that enters the window) for kR FMAs, against
+//   one load an FMA above;
+// - the draw loop is unrolled by kR, so that the slot the new row replaces,
+//   (r mod kR), and every slot an FMA reads, ((r + j) mod kR), are constants:
+//   a window indexed by a runtime value would live in local memory;
+// - sums go tile by tile as above (part[] in registers, then acc[]), so
+//   float32 rounding is the same scheme as lag_products'.
+// Rows past the tile's live rows are zero in `a`, so the loop runs whole
+// groups of kR draws. kTile must be a multiple of kR.
+template <int kR>
+__device__ __forceinline__ void lag_products_blocked(
+    const float* __restrict__ x, int niter, int nseries, int maxlag,
+    float mean, float* smem, float* __restrict__ acov_out) {
+  static_assert(kTile % kR == 0, "the draw loop unrolls by the window length");
+  constexpr int kSpan = kGroups * kR;  // lags handled by one block
+  float* a = smem;                     // (kTile, kLanes)
+  float* b = smem + kTile * kLanes;    // (kTile + kSpan, kLanes)
+  const int lane = threadIdx.x;
+  const int g = threadIdx.y;
+  const int s = blockIdx.x * kLanes + lane;
+  const bool live = s < nseries;
+  const int lag0 = blockIdx.y * kSpan;
+
+  float acc[kR];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) acc[j] = 0.f;
+  for (int i0 = 0; i0 < niter; i0 += kTile) {
+    __syncthreads();  // the previous tile has been consumed
+    for (int r = g; r < kTile; r += kGroups) {
+      const int i = i0 + r;
+      a[r * kLanes + lane] =
+          (live && i < niter) ? x[(size_t)i * nseries + s] - mean : 0.f;
+    }
+    for (int r = g; r < kTile + kSpan; r += kGroups) {
+      const int i = i0 + lag0 + r;
+      b[r * kLanes + lane] =
+          (live && i < niter) ? x[(size_t)i * nseries + s] - mean : 0.f;
+    }
+    __syncthreads();
+    const int rows = min(kTile, niter - i0);
+    // this warp's window starts at row g * kR of b
+    const float* bw = b + (g * kR) * kLanes + lane;
+    float part[kR], w[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      part[j] = 0.f;
+      w[j] = bw[j * kLanes];
+    }
+    for (int r0 = 0; r0 < rows; r0 += kR) {
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+        const float av = a[(r0 + u) * kLanes + lane];
+        // slot (u + j) % kR holds row r0 + u + j of the window
+#pragma unroll
+        for (int j = 0; j < kR; ++j) part[j] += av * w[(u + j) % kR];
+        // row r0 + u leaves the window, row r0 + u + kR enters its slot
+        // (at most row kTile + kR - 1 of the window: inside b)
+        w[u] = bw[(r0 + u + kR) * kLanes];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j) acc[j] += part[j];
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int k = lag0 + g * kR + j;
+      if (k <= maxlag)
+        acov_out[(size_t)k * nseries + s] = k < niter ? acc[j] / (float)niter
+                                                      : 0.f;
+    }
+  }
 }
 
 }  // namespace mdt

@@ -7,15 +7,19 @@
 | K3 | ``fastrank.hist_moments`` | ``ops/pallas/fastrank_kernel.py::pallas_hist_moments`` |
 | K4 | ``fastrank.rank_lookup`` | ``ops/pallas/fastrank_kernel.py::pallas_rank_lookup`` |
 | K5 | ``autocov.direct_autocov`` | ``ops/pallas/autocov_kernel.py::pallas_autocov`` |
+| K6a, K6b | ``lagloop_study.lag_products`` (``variant="a"`` / ``"b"``) | ``benchmarks/micro_lagloop.py::_run`` (``_kernel_a`` / ``_kernel_b``) |
+| K7 | ``sort_study.pass_strided`` | ``benchmarks/sort_microbench.py::bench_dma_pass`` |
+| K8 | ``sort_study.pass_contig`` | ``benchmarks/sort_microbench.py::bench_dma_contig`` |
+| K9 | ``sort_study.bitonic_pod_sort`` | ``benchmarks/sort_microbench.py::bench_phase_a`` |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
 the kernels; K4 also counts its z-mode launches (``blom_n``) on their own,
-reported as ``"K4z"``. Importing this package builds nothing; the first
+reported as ``"K4z"``, and K6 counts each variant on its own. Importing this package builds nothing; the first
 launch does.
 """
 
-from . import autocov, fastrank, moments_autocov
+from . import autocov, fastrank, lagloop_study, moments_autocov, sort_study
 
 # name -> (wrapper, counter attribute)
 COUNTERS = {
@@ -25,6 +29,11 @@ COUNTERS = {
     "K4": (fastrank.rank_lookup, "launches"),
     "K4z": (fastrank.rank_lookup, "z_launches"),
     "K5": (autocov.direct_autocov, "launches"),
+    "K6a": (lagloop_study.lag_products, "a_launches"),
+    "K6b": (lagloop_study.lag_products, "b_launches"),
+    "K7": (sort_study.pass_strided, "launches"),
+    "K8": (sort_study.pass_contig, "launches"),
+    "K9": (sort_study.bitonic_pod_sort, "launches"),
 }
 
 

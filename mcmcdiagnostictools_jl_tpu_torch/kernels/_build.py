@@ -40,6 +40,11 @@ _SIGNATURES = {
     "mdt_hist_moments": (_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P),
     "mdt_rank_lookup": (_P, _L, _I, _P, _P, _P, _I, _F, _P, _P),
     "mdt_direct_autocov": (_P, _I, _I, _I, _P, _P),
+    "mdt_lagloop_a": (_P, _I, _I, _I, _P, _P),
+    "mdt_lagloop_b": (_P, _I, _I, _I, _P, _P),
+    "mdt_sort_pass_strided": (_P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "mdt_sort_pass_contig": (_P, _P, _L, _I, _I, _I, _P),
+    "mdt_bitonic_pod_sort": (_P, _P, _L, _I, _I, _P),
 }
 
 

@@ -14,7 +14,11 @@ where they do not);
 K3's counts are exact and its frac sums are float32 atomics in another order
 (within 1e-4 of the bin count); K1 and K5 sum in another float32 order (2e-5
 abs at unit variance, min/max equal, K5's lags at or beyond niter exactly
-0); the whole slice on the card tracks the plain CPU path to 1e-3 relative
+0); K6's two variants sum in the same tile-by-tile order as K5 (2e-5 abs at
+unit variance against the plain version and against each other); K7, K8 and
+K9 equal their plain versions (K9 on distinct keys); a streamed call runs the
+same kernels on the same columns as the resident one (ESS 1e-5 relative,
+R-hat 1e-6: K3's float atomics and the reductions' tiling differ); the whole slice on the card tracks the plain CPU path to 1e-3 relative
 ESS and MCSE and 1e-4 absolute R-hat (a quantile MCSE may differ beyond
 that only where an ESS within 1e-3 moved an interval rank); the classical
 suite on the card tracks the CPU to 1e-3 (Geweke z, abs + rel), 1e-4
@@ -32,10 +36,14 @@ import pytest
 import torch
 
 import mcmcdiagnostictools_jl_tpu_torch as mtt
+from mcmcdiagnostictools_jl_tpu_torch import kernels
 from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import _beta_interval_ranks
 from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
+from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop, sort_microbench
 from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as kfr
+from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as k6
 from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as k1
+from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as k789
 from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as fr
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
 from torch_parity import assert_close, cuda_device, t  # noqa: F401  (fixture)
@@ -328,3 +336,189 @@ def test_cuda_float64_tensor_raises(cuda_device):  # noqa: F811
                lambda v: mtt.heideldiag(v[:, 0, 0])):
         with pytest.raises(NotImplementedError, match="float32"):
             fn(x)
+
+
+# ---- the kernel studies (K6-K9) and the out-of-core path ---------------------
+
+@pytest.mark.parametrize("variant", ["a", "b"])
+@pytest.mark.parametrize("niter,series,maxlag", [
+    (1001, 320, 0), (1001, 320, 10), (1001, 320, 63), (1000, 70, 64),
+    (1001, 320, 100), (1000, 33, 250), (300, 37, 303), (7, 5, 12), (1, 6, 4),
+    (129, 31, 130),
+])
+def test_k6_matches_plain(cuda_device, variant, niter, series,  # noqa: F811
+                          maxlag):
+    """Every window length of variant B (8, 16, 32) and lag count of A,
+    series counts off the 32-series block, draws off the tile and off the
+    window length, lags past niter (zeros); the series are not centered."""
+    x = t(_ar1(11, (niter, series)) + 0.5, torch.float32).to(cuda_device)
+    before = dict(kernels.launch_counts())
+    got = k6.lag_products(x, maxlag, variant)
+    want = k6.lag_products_plain(x, maxlag)
+    after = kernels.launch_counts()
+    other = "b" if variant == "a" else "a"
+    assert after["K6" + variant] == before["K6" + variant] + 1
+    assert after["K6" + other] == before["K6" + other]
+    assert got.shape == (maxlag + 1, series)
+    assert_close(got, want, rtol=0, atol=2e-5)
+    assert torch.equal(got[niter:], torch.zeros_like(got[niter:]))
+    assert_close(got, k6.lag_products(x, maxlag, other), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("rows,cols,tile,pods,stride,seg", [
+    (64, 8, 8, 2, 2, None), (64, 8, 8, 2, 1, 2), (64, 8, 8, 8, 1, 1),
+    (96, 12, 8, 3, 2, 4), (96, 132, 8, 2, 3, 8), (16384, 128, 2048, 2, 2, None),
+    (16384, 128, 2048, 4, 1, 32), (8192, 128, 2048, 1, 4, 64),
+])
+def test_k7_k8_match_plain(cuda_device, rows, cols, tile, pods,  # noqa: F811
+                           stride, seg):
+    """In place, equal to the plain version, for column counts off 128,
+    segment lengths given and chosen, and blocks up to 128 KB."""
+    rng = np.random.default_rng(12)
+    keys = torch.from_numpy(rng.random((rows, cols), dtype=np.float32))
+    keys = keys.to(cuda_device)
+    payload = torch.arange(rows * cols, dtype=torch.int32,
+                           device=cuda_device).reshape(rows, cols)
+    want_k, want_p = k789.pass_plain(keys, payload, pods, stride, tile)
+    before = kernels.launch_counts()
+    k, p = keys.clone(), payload.clone()
+    assert k789.pass_strided(k, p, pods, stride, tile_rows=tile,
+                             seg_rows=seg)[0] is k
+    assert torch.equal(k, want_k) and torch.equal(p, want_p)
+    k, p = keys.clone(), payload.clone()
+    k789.pass_contig(k, p, pods * stride, tile_rows=tile, seg_rows=(
+        seg if seg is None or pods * stride * seg * cols * 8 <= 227 * 1024
+        else 1))
+    assert torch.equal(k, want_k) and torch.equal(p, want_p)
+    after = kernels.launch_counts()
+    assert (after["K7"], after["K8"]) == (before["K7"] + 1, before["K8"] + 1)
+
+
+@pytest.mark.parametrize("rows,cols,pod_rows", [
+    (64, 8, 2), (64, 8, 16), (64, 12, 64), (4096, 4, 2048), (8192, 20, 4096),
+    (16384, 8, 8192), (32768, 8, 16384), (65536, 4, 32768),
+])
+def test_k9_matches_plain(cuda_device, rows, cols, pod_rows):  # noqa: F811
+    """Pods below, at and above the 2048-row chunk (wide steps through
+    device memory), column counts off the 8-column block."""
+    g = torch.Generator().manual_seed(13)
+    keys = torch.randperm(rows * cols, generator=g).float().reshape(rows, cols)
+    keys = keys.to(cuda_device)
+    payload = torch.arange(rows * cols, dtype=torch.int32,
+                           device=cuda_device).reshape(rows, cols)
+    want_k, want_p = k789.bitonic_pod_sort_plain(keys, payload, pod_rows)
+    before = kernels.launch_counts()["K9"]
+    k, p = k789.bitonic_pod_sort(keys.clone(), payload.clone(), pod_rows)
+    assert kernels.launch_counts()["K9"] == before + 1
+    assert torch.equal(k, want_k) and torch.equal(p, want_p)
+    assert torch.equal(keys.reshape(-1)[p.long()], k)
+    pods = k.reshape(-1, pod_rows, cols)
+    up = torch.sort(keys.reshape(-1, pod_rows, cols), dim=1).values
+    assert torch.equal(pods[0::2], up[0::2])
+    assert torch.equal(pods[1::2], up[1::2].flip(1))
+
+
+def test_study_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F811
+    k = torch.zeros((64, 6), device=cuda_device)
+    p = torch.zeros((64, 6), dtype=torch.int32, device=cuda_device)
+    for call in (lambda: k789.pass_strided(k, p, 2, 1, tile_rows=8),
+                 lambda: k789.pass_contig(k, p, 2, tile_rows=8),
+                 lambda: k789.bitonic_pod_sort(k, p, 8)):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            call()
+    k = torch.zeros((64, 8), device=cuda_device)
+    p = torch.zeros((64, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        k789.bitonic_pod_sort(k.t().contiguous().t(), p, 8)
+    with pytest.raises(ValueError, match="seg_rows"):
+        k789.pass_strided(k, p, 2, 1, tile_rows=8, seg_rows=3)
+    big = torch.zeros((2048, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        k789.pass_contig(big, big.int(), 1, seg_rows=512)
+    with pytest.raises(NotImplementedError):
+        k789.pass_contig(k.double(), p, 2, tile_rows=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.lag_products(k.t(), 3)
+    with pytest.raises(NotImplementedError):
+        k6.lag_products(k.double(), 3)
+
+
+def test_study_entry_points_run_on_the_card(cuda_device):  # noqa: F811
+    """The benchmarks' functions return outputs and times."""
+    x = micro_lagloop.make_input(1, niter=200, series=64, device=cuda_device)
+    out, times = micro_lagloop.run("b", x, maxlag=20, reps=2)
+    assert out.shape == (21, 64) and times["ms"] > 0
+    keys, payload = sort_microbench.make_arrays(4, seed=2, device=cuda_device)
+    (k, p), times = sort_microbench.bench_dma_pass(
+        4, 2, 2, seed=2, device=cuda_device, reps=2)
+    assert torch.equal(k, keys + 1) and torch.equal(p, payload + 1)
+    assert times["ms"] > 0 and times["gbps"] > 0
+    (k, p), _ = sort_microbench.bench_dma_contig(
+        4, 2, seed=2, device=cuda_device, reps=2)
+    assert torch.equal(k, keys + 1) and torch.equal(p, payload + 1)
+    (k, p), times = sort_microbench.bench_phase_a(
+        4, 2, seed=2, device=cuda_device, reps=2)
+    assert times["stages"] == 78  # 12 * 13 / 2 for pods of 4096 rows
+    assert torch.equal(keys.reshape(-1)[p.long()], k)
+    (ks, ps), _ = sort_microbench.bench_sort(4, 2, seed=2, device=cuda_device,
+                                             reps=2)
+    assert torch.equal(k[:4096], ks[:4096])
+    assert torch.equal(keys.reshape(-1)[ps.long()], ks)
+
+
+@pytest.mark.parametrize("mode,chunk", [("fast", 16), ("exact", 16),
+                                        ("fast", 64), ("fast", 7)])
+def test_streamed_matches_resident(cuda_device, mode, chunk):  # noqa: F811
+    """One chunk, even chunks and a ragged last chunk, from a host array."""
+    x = _ar1(14, (2000, 16, 40)).astype(np.float32)
+    resident = mtt.ess_rhat(torch.from_numpy(x).to(cuda_device),
+                            rank_mode=mode)
+    before = kernels.launch_counts()
+    got, stats = mtt.ess_rhat_streaming(x, param_chunk=chunk, rank_mode=mode,
+                                        return_stats=True)
+    after = kernels.launch_counts()
+    n = -(-40 // chunk)
+    assert stats.n_chunks == n and after["K1"] >= before["K1"] + n
+    if mode == "fast":
+        assert after["K2"] == before["K2"] + n
+        assert after["K3"] == before["K3"] + 2 * n
+        assert after["K4"] == before["K4"] + 2 * n
+    assert got.ess.device.type == "cuda" and got.ess.shape == (40,)
+    assert_close(got.ess, resident.ess, rtol=1e-5, atol=0)
+    assert_close(got.rhat, resident.rhat, rtol=0, atol=1e-6)
+    for name in ("fetch_s", "wait_s", "h2d_s", "compute_s"):
+        assert len(getattr(stats, name)) == n
+    assert min(stats.h2d_s) > 0 and min(stats.compute_s) > 0
+
+
+def test_streaming_sources_on_the_card(cuda_device, tmp_path):  # noqa: F811
+    """A callable, a read-only memmap and a float64 array (cast on the way
+    to the staging buffer) give what the array gives; other streams keep
+    working beside the copy stream."""
+    x = _ar1(15, (1000, 8, 21)).astype(np.float32)
+    want = mtt.ess_rhat_streaming(x, param_chunk=8)
+    reads = []
+
+    def source(start, size):
+        reads.append((start, size))
+        return x[:, :, start:start + size]
+
+    got = mtt.ess_rhat_streaming(source, nparams=21, param_chunk=8)
+    assert reads == [(0, 1), (0, 8), (8, 8), (16, 5)]
+    assert_close(got.ess, want.ess, rtol=1e-5, atol=0)
+    f = tmp_path / "chains.dat"
+    m = np.memmap(f, dtype=np.float32, mode="w+", shape=x.shape)
+    m[:] = x
+    m.flush()
+    ro = np.memmap(f, dtype=np.float32, mode="r", shape=x.shape)
+    assert_close(mtt.ess_rhat_streaming(ro, param_chunk=8).ess, want.ess,
+                 rtol=1e-5, atol=0)
+    assert_close(mtt.ess_rhat_streaming(x.astype(np.float64),
+                                        param_chunk=8).ess, want.ess,
+                 rtol=1e-5, atol=0)
+    with pytest.raises(NotImplementedError, match="float32"):
+        mtt.ess_rhat_streaming(x, dtype=torch.float64)
+    with pytest.raises(ValueError, match="host sample"):
+        mtt.ess_rhat_streaming(torch.from_numpy(x).to(cuda_device))
+    out = mtt.stream_param_chunks(lambda c: c[0, 0], x, param_chunk=4)
+    assert torch.equal(out.cpu(), torch.from_numpy(x[0, 0]))
