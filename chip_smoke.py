@@ -11,15 +11,19 @@ and exits nonzero, printing no result, if any phase fails:
 3. per kernel: K1-K4 against their plain PyTorch versions on the card, at
    the main path's shapes (10k draws x 128 chains x 256 params, float32),
    with a NaN column and a constant column; prints error, bound and times;
+   then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
+   64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
+   counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
    on that sample; checks that every kernel ran, that fast tracks exact,
    and that the badly mixed parameter is flagged; prints the wall times;
 5. card against CPU: the same calls at 2000 x 32 x 64 on the card and
    through the plain CPU path must agree;
 6. the estimator path with ``DirectKernelAutocovMethod`` (kernel K5): K5
-   against its plain version and against K1's autocovariance on the split
-   sample; ``mcse`` and the estimator kinds of ``ess`` on the full sample in
-   both rank modes, with the marker (K5 must run in every call) and with
+   against its plain version, against K1's autocovariance and (with K1)
+   against K6's variant A on the split sample: equal bit for bit where the
+   tile is 128 draws; ``mcse`` and the estimator kinds of ``ess`` on the full
+   sample in both rank modes, with the marker (K5 must run in every call) and with
    ``"auto"`` (K5 must not run), which must agree, with fast tracking exact;
    then those calls plus the SBM fallback, ``rhat_nested`` and ``bfmi`` at
    2000 x 32 x 64 on the card against the CPU;
@@ -34,12 +38,14 @@ and exits nonzero, printing no result, if any phase fails:
    and Heidelberger); then card against CPU at 2000 x 8 x 16, N-d and 1-d;
 9. the lag-loop study (kernel K6) through ``benchmarks.micro_lagloop`` at
    (5000, 16384) and at K5's shape (5000, 65536), maxlag 250: variants A and B
-   against the plain version and against each other, with B's registers and
-   spills from the build;
+   against the plain version and against each other, with the registers and
+   spills of B (the loop K1 and K5 run) from the build;
 10. the sort study through ``benchmarks.sort_microbench`` at 1,048,576 x 128
     keys and payload: K7 at three (pods, stride) settings and K8 at two, equal
     to the plain version, with their share of the memory rate; K9 at pods of
-    16,384 and 32,768 rows against its plain version, beside ``torch.sort``;
+    16,384 and 32,768 rows against its plain version, beside ``torch.sort``,
+    then at a pod smaller than a chunk and a column count off the 8-column
+    block, with the chunk kernel's registers and spills from the build;
 11. out of core: BASELINE.md config 4 (10k x 128 x 1000 float32, 5.12 GB) on
     the host through ``ess_rhat_streaming`` in chunks of 256 parameters: K1-K4
     must run in every chunk, the first 256 parameters must equal the resident
@@ -307,6 +313,54 @@ def phase_kernels(x3: torch.Tensor) -> list:
     return [rows[3], rows[0], rows[1], rows[2]]
 
 
+# K1 and K5 in float32 sums of another order than their plain versions,
+# relative to the largest lag-0 value (phases 3, 6, 8 and 9)
+LAG_REL_BOUND = 1e-5
+
+
+def phase_lag_shapes() -> None:
+    """K1 and K5 against their plain versions where the lag loop's tiling
+    shows: lag counts on both sides of a block's span (68, 128, 256 lags),
+    1001 draws (no multiple of a tile of 128 or 136), 259 series (no
+    multiple of 4: 4-byte copies) and 148 (of 4, not of 32), and more lags
+    than draws."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as ma
+
+    rng = np.random.default_rng(SEED + 8)
+    worst = 0.0
+    for niter, nchains, nparams, lags in (
+            (1001, 7, 37, (0, 64, 65, 250, 255, 256, 300)),
+            (1001, 4, 37, (64, 250, 300)),
+            (300, 3, 7, (303,)), (7, 5, 3, (12,))):
+        x = torch.from_numpy(
+            ar1(rng, 0.5, (niter, nchains, nparams)) + np.float32(0.5)).cuda()
+        for maxlag in lags:
+            k = ma.moments_autocov(x, maxlag)
+            p = ma.moments_autocov_plain(x, maxlag)
+            centered = (x - p[0]).contiguous()
+            k5_out = k5.direct_autocov(centered, maxlag)
+            k5_plain = k5.direct_autocov_plain(centered, maxlag)
+            torch.cuda.synchronize()
+            scale = float(p[4][0].max())
+            err1 = max(max_abs_err(a, b) for a, b in zip(k, p)) / scale
+            err5 = max_abs_err(k5_out, k5_plain) / scale
+            check(max_abs_err(k[2], p[2]) == 0 and max_abs_err(k[3], p[3]) == 0,
+                  "K1 min/max differ")
+            check(k[4].shape == (maxlag + 1, nchains, nparams)
+                  and k5_out.shape == k[4].shape, "bad autocovariance shape")
+            for out in (k[4], k5_out):
+                check(not bool(out[niter:].any()),
+                      "lags at or beyond niter are not 0")
+            check(err1 <= LAG_REL_BOUND and err5 <= LAG_REL_BOUND,
+                  f"K1 ({err1:.2e}) or K5 ({err5:.2e}) off its plain version "
+                  f"at {(niter, nchains, nparams)}, maxlag {maxlag}")
+            worst = max(worst, err1, err5)
+    print(f"[3 K1/K5 shapes] 12 shapes across spans, tiles and series blocks: "
+          f"max err relative to the largest c_0 {worst:.3e} (bound "
+          f"{LAG_REL_BOUND:.0e})")
+
+
 def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
     import mcmcdiagnostictools_jl_tpu_torch as mtt
     from mcmcdiagnostictools_jl_tpu_torch import kernels
@@ -408,8 +462,13 @@ MCSE_Q_FAST_BOUND = 2.5e-2
 
 def phase_direct_autocov(x3: torch.Tensor) -> dict:
     """K5 against its plain version and against K1's autocovariance on the
-    split sample (5000, 256, 256), at maxlag 64 and 250."""
+    split sample (5000, 256, 256), at maxlag 64 and 250; then K5 and K1
+    against K6's variant A, the first form of the loop, on the same centered
+    series: equal bit for bit where the production loop's tile is variant
+    A's 128 draws (the same products added in the same order), else within
+    ``LAG_REL_BOUND`` of the largest variance."""
     from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as ls
     from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as ma
     from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
 
@@ -423,8 +482,24 @@ def phase_direct_autocov(x3: torch.Tensor) -> dict:
         scale_var = float(p[0][~torch.isnan(p[0])].max())
         err = max_abs_err(k, p)
         mean1, _, _, _, acov1 = ma.moments_autocov(samples, maxlag)
-        err_k1 = max_abs_err(
-            k5.direct_autocov((samples - mean1).contiguous(), maxlag), acov1)
+        centered1 = (samples - mean1).contiguous()
+        err_k1 = max_abs_err(k5.direct_autocov(centered1, maxlag), acov1)
+        niter = samples.shape[0]
+        err_a = max(
+            max_abs_err(ls.lag_products(c.reshape(niter, -1), maxlag, "a"),
+                        out.reshape(maxlag + 1, -1))
+            for c, out in ((centered, k), (centered1, acov1)))
+        del centered1
+        # up to 68 lags the loop runs 4 warps x 17 lags on tiles of 136 draws
+        tile = 136 if maxlag + 1 <= 68 else 128
+        print(f"[6 K5 and K1 against K6a] maxlag {maxlag} (tile {tile}): max "
+              f"abs diff {err_a:.3e}"
+              + (" (must be 0)" if tile == 128 else
+                 f", relative {err_a / scale_var:.3e} (bound "
+                 f"{LAG_REL_BOUND:.0e})"))
+        check(err_a == 0.0 if tile == 128
+              else err_a / scale_var <= LAG_REL_BOUND,
+              "K5 or K1 disagrees with the first form of the lag loop")
         ms = time_ms(lambda: k5.direct_autocov(centered, maxlag))
         plain_ms = time_ms(lambda: k5.direct_autocov_plain(centered, maxlag),
                            warmup=False)
@@ -433,11 +508,13 @@ def phase_direct_autocov(x3: torch.Tensor) -> dict:
               f"bound 1e-5); against K1's acov {err_k1:.3e} (relative "
               f"{err_k1 / scale_var:.3e}); kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms")
-        check(err / scale_var <= 1e-5, "K5 disagrees with its plain version")
-        check(err_k1 / scale_var <= 1e-5, "K5 disagrees with K1's acov")
+        check(err / scale_var <= LAG_REL_BOUND,
+              "K5 disagrees with its plain version")
+        check(err_k1 / scale_var <= LAG_REL_BOUND, "K5 disagrees with K1's acov")
         sfx = "" if maxlag == 250 else "_maxlag64"
         row.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
-                    "max_abs_err_vs_k1" + sfx: err_k1})
+                    "max_abs_err_vs_k1" + sfx: err_k1,
+                    "max_abs_err_vs_k6a" + sfx: err_a})
         row["err"] = max(row["err"], err)
     series = samples.shape[1] * PARAMS
     row.update(lag_bound(samples.shape[0], series, 250))
@@ -765,13 +842,17 @@ def phase_classical(x3: torch.Tensor, bad_param: int) -> dict:
         ms = time_ms(lambda: k5.direct_autocov(z, 250), reps=1, warmup=False)
         plain_ms = time_ms(lambda: k5.direct_autocov_plain(z, 250), reps=1,
                            warmup=False)
+        bnd = lag_bound(z.shape[0], z.shape[2], 250)
         print(f"[8 K5 on the {name} stack {tuple(z.shape)}] max abs err "
               f"relative to the largest variance {err:.3e} (bound 1e-5); "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}): "
+              f"{bnd['bound_ms'] / ms:.1%} of the float32 peak")
         check(err <= 1e-5, f"K5 disagrees with its plain version on the "
               f"{name} window stack")
         out[f"k5_{name}_stack"] = {"series": z.shape[2], "err_rel_var": err,
-                                   "ms": ms, "plain_ms": plain_ms}
+                                   "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bnd["bound_ms"]}
         del z, k, p
     rng = np.random.default_rng(SEED + 3)
     cfg3 = torch.from_numpy(ar1(rng, 0.5, (10_000, 8, 100))).cuda()
@@ -861,9 +942,6 @@ def phase_classical_card_vs_cpu() -> None:
 
 # ---- phases 9 and 10: the kernel studies ------------------------------------
 
-# float32 sums of 5000 products in another order, relative to the largest
-# lag-0 sum (K5's bound in phases 6 and 8)
-LAG_REL_BOUND = 1e-5
 # 32-bit operations a second outside the tensor cores (the float32 rate
 # counts an FMA twice)
 ALU_OPS = F32_FLOPS / 2
@@ -882,9 +960,10 @@ def ptxas_lines(build_log: str, kernel: str) -> str:
 
 
 def phase_lagloop(build_log: str) -> dict:
-    """K6 through ``benchmarks.micro_lagloop``: variants A and B at the
-    study's size and at K5's flagship shape, each against the plain version
-    and against each other."""
+    """K6 through ``benchmarks.micro_lagloop``: variant A (the first form of
+    the lag loop) and variant B (the loop K1 and K5 run) at the study's size
+    and at K5's flagship shape, each against the plain version and against
+    each other."""
     from mcmcdiagnostictools_jl_tpu_torch import kernels
     from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop as ml
     from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as ls
@@ -934,9 +1013,10 @@ def phase_lagloop(build_log: str) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-def phase_sort_study() -> dict:
+def phase_sort_study(build_log: str) -> dict:
     """K7, K8 and K9 through ``benchmarks.sort_microbench`` at 512 tiles of
-    2048 rows x 128 columns (1.07 GB of keys and payload)."""
+    2048 rows x 128 columns (1.07 GB of keys and payload); K9 also at pods
+    smaller than a chunk and column counts off the 8-column block."""
     from mcmcdiagnostictools_jl_tpu_torch import kernels
     from mcmcdiagnostictools_jl_tpu_torch.benchmarks import sort_microbench as sm
     from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as ss
@@ -982,6 +1062,27 @@ def phase_sort_study() -> dict:
     del want
 
     # K9: operations = 5 a compare-exchange (a compare, four selects)
+    regs_k9 = ptxas_lines(build_log, "sort_chunk_kernel")
+    print(f"[10 K9 build] chunk kernel: {regs_k9}; wide pass of 5 strides: "
+          f"{ptxas_lines(build_log, 'sort_wide_kernelILi5E')}")
+    gen = torch.Generator().manual_seed(seed)
+    for rows, cols, pod_rows in ((96, 12, 32), (48, 4, 8), (1536, 20, 512),
+                                 (8192, 12, 4096)):
+        k = torch.randperm(rows * cols, generator=gen).float().reshape(
+            rows, cols).cuda()
+        p = torch.arange(rows * cols, dtype=torch.int32,
+                         device="cuda").reshape(rows, cols)
+        k_plain, p_plain = ss.bitonic_pod_sort_plain(k, p, pod_rows)
+        k_lib = torch.sort(k.reshape(-1, pod_rows, cols), dim=1).values
+        ss.bitonic_pod_sort(k, p, pod_rows)
+        torch.cuda.synchronize()
+        pods = k.reshape(-1, pod_rows, cols)
+        same = (torch.equal(k, k_plain) and torch.equal(p, p_plain)
+                and torch.equal(pods[0::2], k_lib[0::2])
+                and torch.equal(pods[1::2], k_lib[1::2].flip(1)))
+        print(f"[10 K9 {rows} x {cols}, pods of {pod_rows}] keys and payload "
+              f"equal to the plain network and to torch.sort: {same}")
+        check(same, f"K9 ({rows} x {cols}, pods of {pod_rows}) is wrong")
     kernels.reset_launch_counts()
     for pod_tiles, sfx in ((8, ""), (16, "_pod32768")):
         pod_rows = pod_tiles * sm.TILE
@@ -1011,7 +1112,7 @@ def phase_sort_study() -> dict:
               f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']})")
         check(keys_same and payload_same and consistent and lib_same,
               f"K9 (pods of {pod_rows}) is wrong")
-        row = out.setdefault("K9", dict(err=0.0, **bnd))
+        row = out.setdefault("K9", dict(err=0.0, ptxas=regs_k9, **bnd))
         row.update({"ms" + sfx: t["ms"], "plain_ms" + sfx: plain_k9_ms,
                     "library_ms" + sfx: t_lib["ms"],
                     "bound_ms" + sfx: bnd["bound_ms"]})
@@ -1151,22 +1252,20 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
 
 def main() -> int:
     dev = phase_device()
-    import mcmcdiagnostictools_jl_tpu_torch  # noqa: F401  (fails outside the repo)
+    # (fails outside the repo)
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import profile_calls
 
     build_log = phase_build()
-    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    x_np = ar1(rng, 0.5, (DRAWS, CHAINS, PARAMS))
     bad_param = 0
-    # an eighth of the chains of one parameter sit 4 sd off: the rank-based
+    # an eighth of the chains of parameter 0 sit 4 sd off: the rank-based
     # R-hat of 128 chains cannot be pushed past 1.1 by one chain alone
-    x_np[:, : CHAINS // 8, bad_param] += 4.0
-    x3 = torch.from_numpy(x_np).cuda()
-    del x_np
+    x3 = profile_calls.make_sample(SEED, (DRAWS, CHAINS, PARAMS), device="cuda")
     print(f"[data] AR(1) phi=0.5 {DRAWS}x{CHAINS}x{PARAMS} f32 on the card "
           f"({x3.numel() * 4 / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
 
     rows = phase_kernels(x3)
+    phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
     rows.append(phase_direct_autocov(x3))
@@ -1179,7 +1278,7 @@ def main() -> int:
     classical = phase_classical(x3, bad_param)
     phase_classical_card_vs_cpu()
     lag = phase_lagloop(build_log)
-    sort = phase_sort_study()
+    sort = phase_sort_study(build_log)
     streaming = phase_streaming(x3, e2e.pop("fast"), e2e.pop("exact"))
 
     src = f"{PKG}/csrc/"

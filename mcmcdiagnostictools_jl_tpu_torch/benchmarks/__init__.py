@@ -2,7 +2,9 @@
 
 - ``micro_lagloop``: two formulations of the lag loop of K1/K5 (kernel K6);
 - ``sort_microbench``: the traffic of one sort pass (K7, K8) and the bitonic
-  sort of a pod (K9) beside the library sort.
+  sort of a pod (K9) beside the library sort;
+- ``profile_calls``: where the device time of the port's flagship calls goes
+  (``torch.profiler``, by kernel).
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -1,13 +1,14 @@
 """Microbenchmark: two formulations of the lag loop (kernel K6).
 
 The counterpart of the JAX-era ``benchmarks/micro_lagloop.py``. The direct
-autocovariance kernels K1 and K5 spend their time in the lag products, and
-their loop makes one shared-memory load per FMA. Measured here, on the same
-input:
+autocovariance kernels K1 and K5 spend their time in the lag products.
+Measured here, on the same input:
 
-A. that loop as it is (``variant="a"``);
-B. its register-blocked form (``variant="b"``): a warp owns consecutive lags
-   and keeps the sliding window of the shifted factor in registers.
+A. the first form of their loop (``variant="a"``): one shared-memory load
+   per FMA, tiles staged between two barriers;
+B. the loop they run (``variant="b"``): a warp owns consecutive lags and
+   keeps the sliding window of the shifted factor in registers, and every
+   draw is staged once, ahead of use.
 
 Run on a machine with the card: ``python -m
 mcmcdiagnostictools_jl_tpu_torch.benchmarks.micro_lagloop``.
@@ -24,8 +25,8 @@ from . import time_ms
 
 NITER, MAXLAG = 5000, 250
 SERIES = 256 * 64  # one parameter chunk of 64 after the split of 128 chains
-LABELS = {"a": "A one shared-memory load per FMA (the loop of K1/K5)",
-          "b": "B consecutive lags, sliding window in registers"}
+LABELS = {"a": "A one shared-memory load per FMA (the first form)",
+          "b": "B consecutive lags, window in registers (the loop of K1/K5)"}
 
 
 def make_input(seed: int = 0, niter: int = NITER, series: int = SERIES,

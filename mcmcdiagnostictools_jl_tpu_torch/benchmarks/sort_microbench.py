@@ -12,12 +12,14 @@ The counterpart of the JAX-era ``benchmarks/sort_microbench.py``. On ``(N,
    (K9), checked against ``np.sort`` on the first two pods.
 
 ``profile_phase_a`` splits one K9 call and one library sort into their
-device kernels with ``torch.profiler``.
+device kernels with ``torch.profiler``; ``ablate_chunk_launch`` times K9's
+chunk launches with their steps, their re-deals or both taken out, to show
+which part of a launch costs what.
 
 The kernels work in place, so every timed call gets fresh clones, made
 outside the timed window. Run on a machine with the card: ``python -m
 mcmcdiagnostictools_jl_tpu_torch.benchmarks.sort_microbench [all|sort|dma|
-contig|phasea|profile]``.
+contig|phasea|profile|ablate]``.
 """
 
 from __future__ import annotations
@@ -166,6 +168,46 @@ def profile_phase_a(ntiles: int, pod_tiles: int, *, seed: int = 0,
     return out
 
 
+# What an ablation takes out of ``sort_chunk_kernel`` (the results are then
+# wrong; only the time is read): macros of csrc/sort_study.cu
+ABLATIONS = {
+    "whole": (),
+    "no steps": ("MDT_SORT_NO_STEPS",),
+    "no re-deals (one deal)": ("MDT_SORT_NO_REDEALS",),
+    "neither (load, one deal, store)": ("MDT_SORT_NO_STEPS",
+                                        "MDT_SORT_NO_REDEALS"),
+}
+
+
+def ablate_chunk_launch(ntiles: int, pod_tiles: int = 8, *, seed: int = 0,
+                        lanes: int = LANES, device=None, reps: int = 5) -> dict:
+    """Median ms of K9's first chunk launch (every stage up to the chunk)
+    and of a later one (one stage's strides below the chunk), for the kernel
+    as it is and with parts taken out: ``{ablation: (first_ms, later_ms)}``.
+    Each variant is a build of the kernels with its macros defined, beside
+    the package's own library."""
+    from ..kernels import _build
+
+    keys, payload = make_arrays(ntiles, seed, lanes, device)
+    pod_rows = pod_tiles * TILE
+    chunk_rows = sort_study.sort_chunk_rows(pod_rows)
+    chunks = [launch for launch in sort_study.sort_plan(pod_rows)
+              if launch["kind"] == "chunk"]
+    out = {}
+    for name, defines in ABLATIONS.items():
+        lib = _build.library(defines)
+        out[name] = tuple(
+            time_ms(lambda k, p: sort_study.run_launch(
+                lib, launch, k, p, chunk_rows,
+                torch.cuda.current_stream(k.device).cuda_stream),
+                setup=lambda: (keys.clone(), payload.clone()), reps=reps)
+            for launch in (chunks[0], chunks[-1]))
+        print(f"ablate {name}: chunk launch of {len(chunks[0]['steps'])} steps "
+              f"{out[name][0]:.3f} ms, of {len(chunks[-1]['steps'])} steps "
+              f"{out[name][1]:.3f} ms", flush=True)
+    return out
+
+
 def main(which: str = "all", ntiles: int = 512) -> None:
     # pods must tile evenly: ntiles % (pod_tiles * stride_tiles) == 0
     if which in ("all", "sort"):
@@ -182,6 +224,8 @@ def main(which: str = "all", ntiles: int = 512) -> None:
         bench_phase_a(ntiles, pod_tiles=16)
     if which == "profile":
         profile_phase_a(ntiles, pod_tiles=8)
+    if which == "ablate":
+        ablate_chunk_launch(ntiles, pod_tiles=8)
 
 
 if __name__ == "__main__":

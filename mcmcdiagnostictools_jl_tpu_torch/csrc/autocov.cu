@@ -11,10 +11,11 @@
 // the mean over chains, with 0 for lags at or beyond niter (what the TPU
 // kernel's zero padding gives).
 //
-// It is K1's lag loop without K1's two moment passes: lagloop.cuh, with a
-// centering mean of 0, says what bounds it on an H100 (one shared-memory load
-// per lag FMA) and how it tiles the draw axis, which the TPU kernel held in
-// VMEM whole.
+// It is K1's lag loop without K1's moment pass and without centering:
+// lagloop.cuh says what bounds it on an H100 (the FMA dispatch rate, once the
+// operands come from registers and the staging runs ahead of use) and how the
+// production loop lag_products_ring tiles the draw axis, which the TPU kernel
+// held in VMEM whole.
 
 #include <cuda_runtime.h>
 
@@ -22,28 +23,32 @@
 
 namespace {
 
-using mdt::kGroups;
 using mdt::kLanes;
 
-template <int kJ>
-__global__ void __launch_bounds__(kLanes * kGroups)
+template <int kR, int kWarps, int kT>
+__global__ void MDT_RING_BOUNDS(kWarps)
 direct_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
-                      int maxlag, float* __restrict__ acov_out) {
-  extern __shared__ float smem[];
-  mdt::lag_products<kJ>(x, niter, nseries, maxlag, 0.f, smem, acov_out);
+                      int maxlag, int vec, float* __restrict__ acov_out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(16) float s_zero[kLanes];  // the centering means: 0
+  if (threadIdx.y == 0) s_zero[threadIdx.x] = 0.f;
+  mdt::lag_products_ring<kR, kWarps, kT, false>(x, niter, nseries, maxlag,
+                                                s_zero, vec != 0, smem,
+                                                acov_out);
 }
 
-template <int kJ>
+template <int kR, int kWarps, int kT>
 int launch(const float* x, int niter, int nseries, int maxlag, float* acov,
            cudaStream_t stream) {
-  const size_t smem = mdt::lag_smem_bytes<kJ>();
+  const dim3 grid = mdt::ring_grid<kR, kWarps>(nseries, maxlag);
+  const size_t smem = mdt::ring_smem_bytes<kR, kWarps, kT>(grid.y > 1);
   cudaError_t err = cudaFuncSetAttribute(
-      direct_autocov_kernel<kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      direct_autocov_kernel<kR, kWarps, kT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kLanes, kGroups);
-  direct_autocov_kernel<kJ><<<mdt::lag_grid<kJ>(nseries, maxlag), block, smem,
-                              stream>>>(x, niter, nseries, maxlag, acov);
+  direct_autocov_kernel<kR, kWarps, kT>
+      <<<grid, dim3(kLanes, kWarps), smem, stream>>>(
+          x, niter, nseries, maxlag, mdt::rows_aligned16(x, nseries), acov);
   return (int)cudaGetLastError();
 }
 
@@ -54,9 +59,8 @@ int launch(const float* x, int niter, int nseries, int maxlag, float* acov,
 extern "C" int mdt_direct_autocov(const float* x, int niter, int nseries,
                                   int maxlag, float* acov, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (maxlag + 1 <= kGroups * 9)
-    return launch<9>(x, niter, nseries, maxlag, acov, st);
-  if (maxlag + 1 <= kGroups * 16)
-    return launch<16>(x, niter, nseries, maxlag, acov, st);
-  return launch<32>(x, niter, nseries, maxlag, acov, st);
+#define MDT_RING_CASE(kR, kWarps, kT) \
+  return launch<kR, kWarps, kT>(x, niter, nseries, maxlag, acov, st);
+  MDT_RING_DISPATCH(maxlag, MDT_RING_CASE)
+#undef MDT_RING_CASE
 }

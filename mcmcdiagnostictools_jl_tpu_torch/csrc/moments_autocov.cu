@@ -10,13 +10,20 @@
 //     c_k = sum_{i < niter - k} xc_i * xc_{i+k} / niter,   k = 0..maxlag,
 // the reference's default estimator (src/ess_rhat.jl:161-179).
 //
-// The moments take two coalesced passes over the block's 32 series (pass 1:
-// sum/min/max, pass 2: centered sum of squares, both split over the 8 warps
-// and reduced across warps in a fixed order); the lag products, which bound
-// the kernel, are the tiled loop of lagloop.cuh (its header says what bounds
-// it and how it tiles the draw axis). Centering uses the mean from pass 1
-// (not raw-moment shortcuts), as the TPU kernel does, so c_k rounds like the
-// plain version at small variance.
+// What bounds it on an H100: the lag products (lagloop.cuh says how, and what
+// the production loop lag_products_ring does about it). Around them:
+// - one coalesced pass over the block's 32 series for sum, min and max (they
+//   must be known before anything is centered), split over the block's warps
+//   with eight loads a thread in flight and reduced across warps in a fixed
+//   order;
+// - the centered sum of squares is NOT a pass of its own: it is the lag-0 sum
+//   of the lag loop, which warp 0 of the first lag span holds in a register,
+//   so var = c_0 * niter / (niter - 1) from the same additions;
+// - centering uses the mean from the pass (not raw-moment shortcuts), as the
+//   TPU kernel does, so c_k rounds like the plain version at small variance.
+// A launch with more than one lag span (maxlag + 1 > warps x window)
+// recomputes the sums in every span's block (each needs the mean); only the
+// first span writes the moments.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -26,7 +33,6 @@
 
 namespace {
 
-using mdt::kGroups;
 using mdt::kLanes;
 
 __device__ __forceinline__ float nan_min(float m, float v) {
@@ -37,18 +43,18 @@ __device__ __forceinline__ float nan_max(float m, float v) {
   return (v != v || v > m) ? v : m;
 }
 
-template <int kJ>
-__global__ void __launch_bounds__(kLanes * kGroups)
+template <int kR, int kWarps, int kT>
+__global__ void MDT_RING_BOUNDS(kWarps)
 moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
-                       int maxlag, float* __restrict__ mean_out,
+                       int maxlag, int vec, float* __restrict__ mean_out,
                        float* __restrict__ var_out, float* __restrict__ min_out,
                        float* __restrict__ max_out,
                        float* __restrict__ acov_out) {
-  extern __shared__ float smem[];     // the lag loop's tiles
-  __shared__ float red_sum[kGroups][kLanes];
-  __shared__ float red_min[kGroups][kLanes];
-  __shared__ float red_max[kGroups][kLanes];
-  __shared__ float s_mean[kLanes];
+  extern __shared__ __align__(16) float smem[];  // the lag loop's rings
+  __shared__ float red_sum[kWarps][kLanes];
+  __shared__ float red_min[kWarps][kLanes];
+  __shared__ float red_max[kWarps][kLanes];
+  __shared__ __align__(16) float s_mean[kLanes];
 
   const int lane = threadIdx.x;
   const int g = threadIdx.y;
@@ -56,10 +62,11 @@ moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
   const bool live = s < nseries;
   const bool writer = blockIdx.y == 0 && g == 0 && live;
 
-  // pass 1: sum, min, max
+  // sum, min, max: rows g, g + kWarps, ...
   float sum = 0.f, mn = INFINITY, mx = -INFINITY;
   if (live) {
-    for (int i = g; i < niter; i += kGroups) {
+#pragma unroll 8
+    for (int i = g; i < niter; i += kWarps) {
       const float v = x[(size_t)i * nseries + s];
       sum += v;
       mn = nan_min(mn, v);
@@ -72,54 +79,39 @@ moments_autocov_kernel(const float* __restrict__ x, int niter, int nseries,
   __syncthreads();
   if (g == 0) {
     float t = red_sum[0][lane], m0 = red_min[0][lane], m1 = red_max[0][lane];
-    for (int q = 1; q < kGroups; ++q) {
+    for (int q = 1; q < kWarps; ++q) {
       t += red_sum[q][lane];
       m0 = nan_min(m0, red_min[q][lane]);
       m1 = nan_max(m1, red_max[q][lane]);
     }
     const float mean = t / (float)niter;
-    s_mean[lane] = mean;
+    s_mean[lane] = live ? mean : 0.f;
     if (writer) {
       mean_out[s] = mean;
       min_out[s] = m0;
       max_out[s] = m1;
     }
   }
-  __syncthreads();
-  const float mean = s_mean[lane];
 
-  // pass 2: centered sum of squares
-  float ss = 0.f;
-  if (live) {
-    for (int i = g; i < niter; i += kGroups) {
-      const float d = x[(size_t)i * nseries + s] - mean;
-      ss += d * d;
-    }
-  }
-  red_sum[g][lane] = ss;
-  __syncthreads();
-  if (writer) {
-    float t = red_sum[0][lane];
-    for (int q = 1; q < kGroups; ++q) t += red_sum[q][lane];
-    var_out[s] = t / (float)(niter - 1);
-  }
-
-  // pass 3: the lags of this block
-  mdt::lag_products<kJ>(x, niter, nseries, maxlag, mean, smem, acov_out);
+  // the lags of this block (the loop begins with a barrier: s_mean)
+  const float ss = mdt::lag_products_ring<kR, kWarps, kT, true>(
+      x, niter, nseries, maxlag, s_mean, vec != 0, smem, acov_out);
+  if (writer) var_out[s] = ss / (float)(niter - 1);
 }
 
-template <int kJ>
+template <int kR, int kWarps, int kT>
 int launch(const float* x, int niter, int nseries, int maxlag, float* mean,
            float* var, float* mn, float* mx, float* acov, cudaStream_t stream) {
-  const size_t smem = mdt::lag_smem_bytes<kJ>();
+  const dim3 grid = mdt::ring_grid<kR, kWarps>(nseries, maxlag);
+  const size_t smem = mdt::ring_smem_bytes<kR, kWarps, kT>(grid.y > 1);
   cudaError_t err = cudaFuncSetAttribute(
-      moments_autocov_kernel<kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      moments_autocov_kernel<kR, kWarps, kT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kLanes, kGroups);
-  moments_autocov_kernel<kJ><<<mdt::lag_grid<kJ>(nseries, maxlag), block, smem,
-                               stream>>>(
-      x, niter, nseries, maxlag, mean, var, mn, mx, acov);
+  const dim3 block(kLanes, kWarps);
+  moments_autocov_kernel<kR, kWarps, kT><<<grid, block, smem, stream>>>(
+      x, niter, nseries, maxlag, mdt::rows_aligned16(x, nseries), mean, var,
+      mn, mx, acov);
   return (int)cudaGetLastError();
 }
 
@@ -132,9 +124,9 @@ extern "C" int mdt_moments_autocov(const float* x, int niter, int nseries,
                                    float* mn, float* mx, float* acov,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (maxlag + 1 <= kGroups * 9)
-    return launch<9>(x, niter, nseries, maxlag, mean, var, mn, mx, acov, st);
-  if (maxlag + 1 <= kGroups * 16)
-    return launch<16>(x, niter, nseries, maxlag, mean, var, mn, mx, acov, st);
-  return launch<32>(x, niter, nseries, maxlag, mean, var, mn, mx, acov, st);
+#define MDT_RING_CASE(kR, kWarps, kT)                                     \
+  return launch<kR, kWarps, kT>(x, niter, nseries, maxlag, mean, var, mn, \
+                                mx, acov, st);
+  MDT_RING_DISPATCH(maxlag, MDT_RING_CASE)
+#undef MDT_RING_CASE
 }

@@ -26,19 +26,43 @@
 // pod's direction is its index's parity (the network over the global row
 // index, cut off at stage pod_rows). The TPU held a whole pod x 128 columns in
 // VMEM. Here one column of 16,384 rows with its payload is 128 KB, and a lone
-// column is a 512-byte-strided read, so the pod is split: a block sorts a
-// chunk of up to 2048 rows x 8 columns (32-byte row pieces, 128 KB) in shared
-// memory, which covers every compare-exchange with a stride below the chunk,
-// and the wider strides run one launch each through device memory, coalesced
-// along the columns. At pod_rows 16,384 that is 4 chunk launches and 6 wide
-// steps, at 32,768 5 and 10: 10 or 15 passes of 2.15 GB. What bounds it on an
-// H100 (PERF.md has the times) is first the compare-exchange steps in shared
-// memory, four loads and up to four stores a pair and a block-wide barrier a
-// step, 105 or 120 of them; then the chunk launches' 32-byte row pieces,
-// which reach half the rate of a full-row pass; the wide steps come last (a
-// piece that swaps nothing is not written back). Keeping the last strides of
-// every stage in registers and more columns a block are the next steps. NaN
-// keys are outside the contract, as on the TPU (`lo > hi`).
+// column is a 512-byte-strided read, so the pod is split: a block owns a
+// chunk of up to 1024 rows x 8 columns (64 KB with the payload), which
+// covers every compare-exchange with a stride below the chunk, and the wider
+// strides run through device memory. What bounds it on an H100 is the number
+// of passes through device memory (2.15 GB each at 1,048,576 x 128) and,
+// inside a chunk, the instructions of the steps and of the exchanges between
+// threads (55 of the 105 or 120 steps belong to the first chunk launch). The
+// design:
+// - a thread of a chunk block keeps 16 rows of one column, keys and payload,
+//   in registers: the rows that differ in 4 neighbouring bits [lo, lo + 4) of
+//   the row index. Every step whose stride is one of those bits is a
+//   compare-exchange between two registers of one thread: no shared memory,
+//   no barrier;
+// - when the next step's stride is outside the window, the block re-deals:
+//   every thread writes its cells to their places in the chunk's
+//   shared-memory image, ONE barrier, and reads the cells of the new window
+//   (a cell is read and later written only by the thread that holds it, so
+//   nothing else needs ordering). The stages 2..1024 take 15 windows for 55
+//   steps, a later stage 3 for 10;
+// - rows are swizzled in the image (row_fold below), so that the 32 threads
+//   of a warp hit 32 banks whichever window is in work, and a cell's place is
+//   its thread's place XOR a constant of the cell, read from a table;
+// - a chunk is loaded with 16-byte cp.async copies, all in flight at once,
+//   and stored in 16-byte pieces, the column group running fastest over the
+//   grid so that blocks in flight together touch neighbouring 32-byte pieces.
+//   Two blocks share an SM (64 KB, 512 threads, 64 registers each), so one's
+//   loads and stores run under the other's steps: a chunk of 2048 rows saves
+//   a pass through device memory at 16,384-row pods but leaves one block an
+//   SM, whose loads, steps and stores then add up (measured slower);
+// - a wide pass takes up to 5 strides at once: a thread loads the 32 rows
+//   that those strides pair (one column, a warp 32 neighbouring columns: 128
+//   bytes a row), runs the steps in registers and writes them back. Pods of
+//   16,384 rows take 5 chunk launches and 4 wide passes, 32,768 rows 6 and 5.
+// Which launch and which window takes which (stage, stride) is decided in
+// Python (`kernels/sort_study.py`, `sort_plan`), tested there, and handed to
+// the chunk kernel as a list of steps. NaN keys are outside the contract, as
+// on the TPU (`lo > hi`).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -132,102 +156,215 @@ int launch_pass(float* keys, int* payload, int ncols, int nseg, int seg_rows,
 
 // ---- K9 --------------------------------------------------------------------
 
-constexpr int kSortCols = 8;        // columns a chunk block sorts
-constexpr int kSortThreads = 1024;
+constexpr int kSortCols = 8;     // columns a chunk block sorts
+constexpr int kCellBits = 4;     // a thread holds 2^4 rows of one column
+constexpr int kCells = 1 << kCellBits;
+constexpr int kMaxChunkRows = 1024;
+constexpr int kMaxWindows = 7;      // window starts 0..6 (10 row bits)
+constexpr int kMaxChunkSteps = 64;  // 55 for the stages 2..1024
+// the image: keys at byte 0, payload at this byte, whatever the chunk's size,
+// so that a cell's payload is its key's address plus a constant
+constexpr int kPayloadAt = kMaxChunkRows * kSortCols * 4;
+
+// The steps of one chunk launch, in order: step i is the compare-exchange of
+// stage 2^stage_log[i] with stride 2^bit[i], run with the register window
+// [lo[i], lo[i] + 4). cell_at[lo][c]: byte offset in the image of chunk row
+// c << lo, column 0 (the launcher fills it in).
+struct ChunkSteps {
+  int n;
+  int cell_at[kMaxWindows][kCells];
+  unsigned char stage_log[kMaxChunkSteps];
+  unsigned char bit[kMaxChunkSteps];
+  unsigned char lo[kMaxChunkSteps];
+};
 
 // Compare-exchange of rows lo < hi of one column: the TPU kernel's rule,
 // swap = (key_lo > key_hi) != descending.
-__device__ __forceinline__ bool must_swap(float k_lo, float k_hi, bool desc) {
-  return (k_lo > k_hi) != desc;
+__device__ __forceinline__ void cmpx(float& k_lo, float& k_hi, int& p_lo,
+                                     int& p_hi, bool desc) {
+  const bool swap = (k_lo > k_hi) != desc;
+  const float nk_lo = swap ? k_hi : k_lo, nk_hi = swap ? k_lo : k_hi;
+  const int np_lo = swap ? p_hi : p_lo, np_hi = swap ? p_lo : p_hi;
+  k_lo = nk_lo; k_hi = nk_hi;
+  p_lo = np_lo; p_hi = np_hi;
+}
+
+// A row's place in the shared-memory image of a chunk is row ^
+// row_fold(row): its two low bits XOR its bits 4 and 5. A warp's threads
+// differ in the column (8 banks) and in the two lowest row bits outside the
+// window [lo, lo + 4): bits 4 and 5 when lo is 0, bits 0 and 5 when lo is 1,
+// bits 0 and 1 from lo = 2 on; either way their places differ in the two low
+// bits, so they hit 32 banks. The fold is linear over XOR, so the place of
+// base | (c << lo) is the place of base XOR the place of c << lo.
+__host__ __device__ __forceinline__ unsigned row_fold(unsigned row) {
+  return (row >> 4) & 3u;
+}
+
+// One step on the cells of a thread: cells c and c | 2^kBit are rows
+// 2^(lo + kBit) apart. The direction is bit `dir_bit` of the cell index where
+// the stage lies inside the window (dir_bit >= 0; only the stages 2, 4 and 8
+// in the window [0, 4) do), else `desc` for every cell.
+template <int kBit>
+__device__ __forceinline__ void step_in_registers(float (&k)[kCells],
+                                                  int (&p)[kCells], bool desc,
+                                                  int dir_bit) {
+  if (dir_bit < 0) {
+#pragma unroll
+    for (int c = 0; c < kCells; ++c) {
+      if (c & (1 << kBit)) continue;
+      cmpx(k[c], k[c | (1 << kBit)], p[c], p[c | (1 << kBit)], desc);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCells; ++c) {
+      if (c & (1 << kBit)) continue;
+      cmpx(k[c], k[c | (1 << kBit)], p[c], p[c | (1 << kBit)],
+           ((c >> dir_bit) & 1) != 0);
+    }
+  }
 }
 
 // One block: rows [chunk * chunk_rows, +chunk_rows) x columns [group *
-// kSortCols, +kSortCols) in shared memory, the column group running fastest
-// over blockIdx.x, so that blocks in flight together read neighbouring
-// 32-byte pieces of the same rows; every compare-exchange of the
-// stages stage_lo..stage_hi whose stride is below chunk_rows (for a stage
-// beyond the chunk the wider strides have run through device memory before).
-// The direction of a pair is bit `stage` of its global row.
-__global__ void __launch_bounds__(kSortThreads)
+// kSortCols, +kSortCols), the column group running fastest over blockIdx.x;
+// chunk_rows / 2 threads (16 to 1024 rows, 8 to 512 threads; 64 KB of shared
+// memory and at most 64 registers a thread, so two blocks share an SM and
+// one's loads and stores run under the other's steps). Rows at or past
+// nrows and columns at or past ncols are neither loaded nor stored; the
+// cells that stand for them hold whatever shared memory held and meet only
+// each other (pods are whole).
+__global__ void __launch_bounds__(kMaxChunkRows / 2, 2)
 sort_chunk_kernel(float* __restrict__ keys, int* __restrict__ payload,
-                  int ncols, int chunk_rows, int stage_lo, int stage_hi) {
-  extern __shared__ float sort_smem[];
-  float* ks = sort_smem;                                     // (chunk, 8)
-  int* ps = reinterpret_cast<int*>(sort_smem + chunk_rows * kSortCols);
+                  long long nrows, int ncols, int chunk_rows,
+                  const ChunkSteps steps) {
+  extern __shared__ float4 sort_smem[];
+  char* image = reinterpret_cast<char*>(sort_smem);
+  constexpr int kPieces = kSortCols / 4;  // 16-byte pieces a row
   const int groups = (ncols + kSortCols - 1) / kSortCols;
-  const size_t row0 = (size_t)(blockIdx.x / groups) * chunk_rows;
+  const long long row0 = (long long)(blockIdx.x / groups) * chunk_rows;
   const int col0 = (blockIdx.x % groups) * kSortCols;
-  const int cells = chunk_rows * kSortCols;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
 
-  for (int v = threadIdx.x; v < cells; v += kSortThreads) {
-    const int r = v / kSortCols, c = col0 + v % kSortCols;
-    if (c < ncols) {
-      ks[v] = keys[(row0 + r) * ncols + c];
-      ps[v] = payload[(row0 + r) * ncols + c];
+  // the chunk's image, in 16-byte pieces
+  for (int v = tid; v < chunk_rows * kPieces; v += nthreads) {
+    const unsigned r = v / kPieces;
+    const int h = (v % kPieces) * 4;
+    if (row0 + r < nrows && col0 + h < ncols) {
+      const size_t at = (size_t)(row0 + r) * ncols + col0 + h;
+      char* to = image + ((r ^ row_fold(r)) * kSortCols + h) * 4;
+      cp_async16(to, keys + at);
+      cp_async16(to + kPayloadAt, payload + at);
     }
   }
-  __syncthreads();
-  const int pairs = cells / 2;
-  for (int stage = stage_lo; stage <= stage_hi; stage *= 2) {
-    // strides are powers of two: shifts, not divisions, find a pair's rows
-    for (int ls = 31 - __clz(min(stage, chunk_rows)) - 1; ls >= 0; --ls) {
-      const int stride = 1 << ls;
-      for (int v = threadIdx.x; v < pairs; v += kSortThreads) {
-        const int c = v % kSortCols, q = v / kSortCols;  // pair q of column c
-        const int r = ((q >> ls) << (ls + 1)) | (q & (stride - 1));
-        const int lo = r * kSortCols + c, hi = lo + stride * kSortCols;
-        const bool desc = ((row0 + r) & (size_t)stage) != 0;
-        const float k_lo = ks[lo], k_hi = ks[hi];
-        if (col0 + c < ncols && must_swap(k_lo, k_hi, desc)) {
-          ks[lo] = k_hi;
-          ks[hi] = k_lo;
-          const int p_lo = ps[lo];
-          ps[lo] = ps[hi];
-          ps[hi] = p_lo;
+  cp_async_wait_all();
+
+  const int col = tid % kSortCols;
+  const unsigned rest = tid / kSortCols;  // the row bits outside the window
+  float k[kCells];
+  int p[kCells];
+  int lo = -1;
+  unsigned base = 0;  // chunk row of cell 0
+  char* cell0 = image;  // its key in the image
+  for (int i = 0; i < steps.n; ++i) {
+    const int new_lo = steps.lo[i];
+#ifdef MDT_SORT_NO_REDEALS  // timing study: one deal, wrong results
+    if (lo < 0) {
+#else
+    if (new_lo != lo) {
+#endif
+      if (lo >= 0) {
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          char* at = image + ((unsigned)(cell0 - image) ^ steps.cell_at[lo][c]);
+          *reinterpret_cast<float*>(at) = k[c];
+          *reinterpret_cast<int*>(at + kPayloadAt) = p[c];
         }
       }
-      __syncthreads();
+      __syncthreads();  // every cell is in the image
+      lo = new_lo;
+      base = ((rest >> lo) << (lo + kCellBits)) | (rest & ((1u << lo) - 1u));
+      cell0 = image + ((base ^ row_fold(base)) * kSortCols + col) * 4;
+#pragma unroll
+      for (int c = 0; c < kCells; ++c) {
+        const char* at =
+            image + ((unsigned)(cell0 - image) ^ steps.cell_at[lo][c]);
+        k[c] = *reinterpret_cast<const float*>(at);
+        p[c] = *reinterpret_cast<const int*>(at + kPayloadAt);
+      }
     }
+    const int stage_log = steps.stage_log[i];
+    const bool desc = ((((unsigned)row0 | base) >> stage_log) & 1u) != 0;
+    const int dir_bit = stage_log < lo + kCellBits ? stage_log - lo : -1;
+#ifdef MDT_SORT_NO_STEPS  // timing study: no compare-exchange, wrong results
+    if (desc && dir_bit == 77) k[0] = 0.f;  // never true; keeps both computed
+#else
+    switch (steps.bit[i] - lo) {
+      case 0: step_in_registers<0>(k, p, desc, dir_bit); break;
+      case 1: step_in_registers<1>(k, p, desc, dir_bit); break;
+      case 2: step_in_registers<2>(k, p, desc, dir_bit); break;
+      default: step_in_registers<3>(k, p, desc, dir_bit); break;
+    }
+#endif
   }
-  for (int v = threadIdx.x; v < cells; v += kSortThreads) {
-    const int r = v / kSortCols, c = col0 + v % kSortCols;
-    if (c < ncols) {
-      keys[(row0 + r) * ncols + c] = ks[v];
-      payload[(row0 + r) * ncols + c] = ps[v];
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    char* at = image + ((unsigned)(cell0 - image) ^ steps.cell_at[lo][c]);
+    *reinterpret_cast<float*>(at) = k[c];
+    *reinterpret_cast<int*>(at + kPayloadAt) = p[c];
+  }
+  __syncthreads();
+  for (int v = tid; v < chunk_rows * kPieces; v += nthreads) {
+    const unsigned r = v / kPieces;
+    const int h = (v % kPieces) * 4;
+    if (row0 + r < nrows && col0 + h < ncols) {
+      const size_t at = (size_t)(row0 + r) * ncols + col0 + h;
+      const char* from = image + ((r ^ row_fold(r)) * kSortCols + h) * 4;
+      *reinterpret_cast<float4*>(keys + at) =
+          *reinterpret_cast<const float4*>(from);
+      *reinterpret_cast<int4*>(payload + at) =
+          *reinterpret_cast<const int4*>(from + kPayloadAt);
     }
   }
 }
 
-// One compare-exchange step of stride 2^log_stride (in rows) of stage `stage`
-// through device memory: a thread takes one 16-byte piece of a row pair.
+// One pass through device memory for the kBits strides 2^(bit_lo + kBits -
+// 1), ..., 2^bit_lo of stage `stage` (all below the stage): a thread takes the
+// 2^kBits rows of one column that those strides pair, neighbouring threads
+// neighbouring columns. The direction is one bit above the window: the same
+// for all of a thread's rows.
+template <int kBits>
 __global__ void __launch_bounds__(256)
-sort_wide_step_kernel(float* __restrict__ keys, int* __restrict__ payload,
-                      size_t npairs, int row_vecs, int log_stride, int stage) {
+sort_wide_kernel(float* __restrict__ keys, int* __restrict__ payload,
+                 size_t ngroups, int ncols, int bit_lo, size_t stage) {
+  constexpr int kRows = 1 << kBits;
   const size_t v = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= npairs * row_vecs) return;
-  const size_t q = v / row_vecs;
-  const int w = (int)(v - q * row_vecs);
-  const size_t stride = (size_t)1 << log_stride;
-  const size_t r = ((q >> log_stride) << (log_stride + 1)) | (q & (stride - 1));
-  const bool desc = (r & (size_t)stage) != 0;
-  float4* k_lo = reinterpret_cast<float4*>(keys) + r * row_vecs + w;
-  float4* k_hi = k_lo + stride * row_vecs;
-  int4* p_lo = reinterpret_cast<int4*>(payload) + r * row_vecs + w;
-  int4* p_hi = p_lo + stride * row_vecs;
-  float4 a = *k_lo, b = *k_hi;
-  int4 pa = *p_lo, pb = *p_hi;
-  bool any = false;
-#define MDT_CMPX(f)                      \
-  if (must_swap(a.f, b.f, desc)) {       \
-    const float tk = a.f; a.f = b.f; b.f = tk; \
-    const int tp = pa.f; pa.f = pb.f; pb.f = tp; \
-    any = true;                          \
+  if (v >= ngroups * ncols) return;
+  const size_t q = v / ncols;
+  const int col = (int)(v - q * ncols);
+  const size_t row = ((q >> bit_lo) << (bit_lo + kBits)) |
+                     (q & (((size_t)1 << bit_lo) - 1));
+  const bool desc = (row & stage) != 0;
+  const size_t step = ((size_t)ncols) << bit_lo;  // elements between cells
+  float* kp = keys + row * ncols + col;
+  int* pp = payload + row * ncols + col;
+  float k[kRows];
+  int p[kRows];
+#pragma unroll
+  for (int c = 0; c < kRows; ++c) {
+    k[c] = kp[c * step];
+    p[c] = pp[c * step];
   }
-  MDT_CMPX(x) MDT_CMPX(y) MDT_CMPX(z) MDT_CMPX(w)
-#undef MDT_CMPX
-  if (any) {
-    *k_lo = a; *k_hi = b;
-    *p_lo = pa; *p_hi = pb;
+#pragma unroll
+  for (int b = kBits - 1; b >= 0; --b) {
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {
+      if (c & (1 << b)) continue;
+      cmpx(k[c], k[c | (1 << b)], p[c], p[c | (1 << b)], desc);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kRows; ++c) {
+    kp[c * step] = k[c];
+    pp[c * step] = p[c];
   }
 }
 
@@ -260,34 +397,80 @@ extern "C" int mdt_sort_pass_contig(float* keys, int* payload, long long nrows,
                             grid, (cudaStream_t)stream);
 }
 
-// K9: in place, the bitonic sort of every pod of pod_rows rows along dim 0,
-// even pods ascending, odd pods descending. pod_rows is a power of two >= 2
-// that divides nrows; ncols % 4 == 0. Returns the first CUDA error.
-extern "C" int mdt_bitonic_pod_sort(float* keys, int* payload, long long nrows,
-                                    int ncols, int pod_rows, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int chunk_rows = pod_rows < 2048 ? pod_rows : 2048;
-  const size_t smem = (size_t)chunk_rows * kSortCols * 8;
+// K9, a chunk launch: in place, the `nsteps` compare-exchange steps given
+// as triples (log2 stage, log2 stride, window start) in `steps`, a host array
+// of 3 * nsteps ints, on every chunk of chunk_rows rows (a power of two, 16
+// to 1024; every stride below it) x 8 columns. ncols % 4 == 0. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a list that is too long
+// or a window outside the chunk.
+extern "C" int mdt_sort_chunk(float* keys, int* payload, long long nrows,
+                              int ncols, int chunk_rows, int nsteps,
+                              const int* steps, void* stream) {
+  if (nsteps < 1 || nsteps > kMaxChunkSteps || chunk_rows < kCells ||
+      chunk_rows > kMaxChunkRows || (chunk_rows & (chunk_rows - 1)))
+    return (int)cudaErrorInvalidValue;
+  ChunkSteps plan;
+  plan.n = nsteps;
+  for (int i = 0; i < nsteps; ++i) {
+    const int lo = steps[3 * i + 2], bit = steps[3 * i + 1];
+    if (lo < 0 || bit < lo || bit >= lo + kCellBits ||
+        (1 << (lo + kCellBits)) > chunk_rows || steps[3 * i] <= bit ||
+        steps[3 * i] > 30)
+      return (int)cudaErrorInvalidValue;
+    plan.stage_log[i] = (unsigned char)steps[3 * i];
+    plan.bit[i] = (unsigned char)bit;
+    plan.lo[i] = (unsigned char)lo;
+  }
+  for (int lo = 0; lo < kMaxWindows; ++lo)
+    for (int c = 0; c < kCells; ++c) {
+      const unsigned r = (unsigned)c << lo;
+      plan.cell_at[lo][c] = (int)((r ^ row_fold(r)) * kSortCols * 4);
+    }
+  const size_t smem = 2 * (size_t)kPayloadAt;
   cudaError_t err = cudaFuncSetAttribute(
       sort_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 chunk_grid((unsigned)(nrows / chunk_rows *
-                                   ((ncols + kSortCols - 1) / kSortCols)));
-  const int row_vecs = ncols / 4;
-  const size_t npairs = (size_t)nrows / 2;
-  const unsigned wide_blocks =
-      (unsigned)((npairs * row_vecs + 255) / 256);
+  const long long chunks = (nrows + chunk_rows - 1) / chunk_rows;
+  const unsigned grid =
+      (unsigned)(chunks * ((ncols + kSortCols - 1) / kSortCols));
+  sort_chunk_kernel<<<grid, chunk_rows / 2, smem, (cudaStream_t)stream>>>(
+      keys, payload, nrows, ncols, chunk_rows, plan);
+  return (int)cudaGetLastError();
+}
 
-  // every stage that fits a chunk in one launch
-  sort_chunk_kernel<<<chunk_grid, kSortThreads, smem, st>>>(
-      keys, payload, ncols, chunk_rows, 2, chunk_rows);
-  for (int stage = 2 * chunk_rows; stage <= pod_rows; stage *= 2) {
-    for (int stride = stage / 2; stride >= chunk_rows; stride /= 2)
-      sort_wide_step_kernel<<<wide_blocks, 256, 0, st>>>(
-          keys, payload, npairs, row_vecs, 31 - __builtin_clz(stride), stage);
-    sort_chunk_kernel<<<chunk_grid, kSortThreads, smem, st>>>(
-        keys, payload, ncols, chunk_rows, stage, stage);
+// K9, a wide pass: in place, the `nbits` (1 to 5) steps of stage `stage` with
+// the strides 2^(bit_lo + nbits - 1), ..., 2^bit_lo through device memory.
+// 2^(bit_lo + nbits) divides nrows. Returns cudaGetLastError().
+extern "C" int mdt_sort_wide(float* keys, int* payload, long long nrows,
+                             int ncols, long long stage, int bit_lo, int nbits,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t ngroups = (size_t)nrows >> nbits;
+  const unsigned blocks = (unsigned)((ngroups * ncols + 255) / 256);
+  switch (nbits) {
+    case 1:
+      sort_wide_kernel<1><<<blocks, 256, 0, st>>>(keys, payload, ngroups, ncols,
+                                                  bit_lo, (size_t)stage);
+      break;
+    case 2:
+      sort_wide_kernel<2><<<blocks, 256, 0, st>>>(keys, payload, ngroups, ncols,
+                                                  bit_lo, (size_t)stage);
+      break;
+    case 3:
+      sort_wide_kernel<3><<<blocks, 256, 0, st>>>(keys, payload, ngroups, ncols,
+                                                  bit_lo, (size_t)stage);
+      break;
+    case 4:
+      sort_wide_kernel<4><<<blocks, 256, 0, st>>>(keys, payload, ngroups, ncols,
+                                                  bit_lo, (size_t)stage);
+      break;
+    case 5:
+      sort_wide_kernel<5><<<blocks, 256, 0, st>>>(keys, payload, ngroups, ncols,
+                                                  bit_lo, (size_t)stage);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

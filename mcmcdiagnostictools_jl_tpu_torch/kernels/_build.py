@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for ``sm_90a``, all
-started together, and the objects link into one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds, not minutes). The library lands in
-``_build/<hash>/`` inside the package, keyed by a hash of the sources, the
-headers they share (``csrc/*.cuh``) and the flags, so an unchanged tree does
-not rebuild. Nothing here runs at import.
+started together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes). The library lands in ``_build/<hash>/`` inside the
+package, keyed by a hash of the sources, the headers they share
+(``csrc/*.cuh``), the flags and the macros defined (``defines``: a timing
+study's variant of a kernel; the package itself defines none), so an
+unchanged tree does not rebuild. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ _SIGNATURES = {
     "mdt_lagloop_b": (_P, _I, _I, _I, _P, _P),
     "mdt_sort_pass_strided": (_P, _P, _L, _I, _I, _I, _I, _I, _P),
     "mdt_sort_pass_contig": (_P, _P, _L, _I, _I, _I, _P),
-    "mdt_bitonic_pod_sort": (_P, _P, _L, _I, _I, _P),
+    "mdt_sort_chunk": (_P, _P, _L, _I, _I, _I, _P, _P),
+    "mdt_sort_wide": (_P, _P, _L, _I, _L, _I, _I, _P),
 }
 
 
@@ -52,8 +55,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(defines: tuple[str, ...] = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -73,14 +76,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels unless a library for these sources exists.
+def build(defines: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile the kernels, with the macros ``defines`` defined, unless a
+    library for these sources and macros exists.
 
     Returns ``(library path, compiler output)``; the output is empty when
     the library was already built. Raises ``RuntimeError`` with nvcc's
     output when the build fails.
     """
-    out_dir = BUILD_DIR / source_hash()
+    out_dir = BUILD_DIR / source_hash(defines)
     lib = out_dir / _LIB_NAME
     if lib.is_file():
         return lib, ""
@@ -90,8 +94,8 @@ def build() -> tuple[Path, str]:
         srcs = _sources()
         objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                              str(src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                              "-c", "-o", str(obj), str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True)
             for src, obj in zip(srcs, objs)
@@ -112,10 +116,10 @@ def build() -> tuple[Path, str]:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
     point's ``argtypes``/``restype`` declared."""
-    path, _ = build()
+    path, _ = build(defines)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -2,9 +2,9 @@
 
 Replaces the Pallas kernel ``pallas_autocov``
 (``mcmcdiagnostictools_jl_tpu/ops/pallas/autocov_kernel.py``). The CUDA
-source is ``csrc/autocov.cu``, K1's tiled lag loop (``csrc/lagloop.cuh``)
-without K1's moment passes; the header of ``lagloop.cuh`` says what bounds it
-on an H100 and how it tiles the draw axis.
+source is ``csrc/autocov.cu``, K1's lag loop (``lag_products_ring`` in
+``csrc/lagloop.cuh``) without K1's moment pass; the header of ``lagloop.cuh``
+says what bounds it on an H100 and how it tiles the draw axis.
 
 ``direct_autocov`` launches the kernel for a CUDA float32 tensor and runs
 ``direct_autocov_plain`` for a CPU tensor; it never falls back from one to

@@ -7,10 +7,11 @@ biased lag products of series that are NOT centered,
     c_k = sum_{t < niter - k} x_t x_{t+k} / niter,   k = 0..maxlag,
 
 0 for lags at or beyond ``niter``. The CUDA source is
-``csrc/lagloop_study.cu``: variant ``"a"`` is the loop K1 and K5 run (one
-shared-memory load per FMA), variant ``"b"`` its register-blocked form (a
-warp owns consecutive lags and keeps the sliding window of the shifted factor
-in registers); the source says what bounds each on an H100.
+``csrc/lagloop_study.cu``: variant ``"a"`` is the first form of the port's
+lag loop (one shared-memory load per FMA; nothing else launches it), variant
+``"b"`` the loop K1 and K5 run (a warp owns consecutive lags and keeps the
+sliding window of the shifted factor in registers; every draw is staged once,
+ahead of use); the source says what bounds each on an H100.
 
 ``lag_products`` launches the chosen variant for a CUDA float32 tensor and
 runs ``lag_products_plain`` for a CPU tensor; it never falls back from one to

@@ -3,9 +3,9 @@
 Replaces the Pallas kernel ``pallas_moments_autocov``
 (``mcmcdiagnostictools_jl_tpu/ops/pallas/fused_basic_kernel.py``). The CUDA
 source is ``csrc/moments_autocov.cu``; its header says what bounds the kernel
-on an H100 (the lag FMAs, each fed by a shared-memory load) and how the
-design tiles the draw axis, since a 5000-draw block of series no longer fits
-on chip as it did in the TPU's VMEM.
+on an H100 (the lag FMAs' dispatch rate) and how the design tiles the draw
+axis, since a 5000-draw block of series no longer fits on chip as it did in
+the TPU's VMEM.
 
 ``moments_autocov`` launches the kernel for a CUDA float32 tensor and runs
 ``moments_autocov_plain`` for a CPU tensor; it never falls back from one to

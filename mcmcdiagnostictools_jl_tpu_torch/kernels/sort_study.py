@@ -7,6 +7,12 @@ The CUDA source is ``csrc/sort_study.cu``; it says what bounds each kernel on
 an H100 and how the TPU's 32 MB pods were re-sized for a block's shared
 memory.
 
+K9 runs as a sequence of launches, chunk launches (a block sorts up to 1024
+rows x 8 columns, a thread holding 16 rows in registers) and wide passes (up
+to 5 strides at once through device memory). ``sort_plan`` decides, in plain
+Python, which launch and which register window takes which step of the
+network; the wrapper hands each launch its steps.
+
 All three work IN PLACE on ``keys`` ``(N, C)`` float32 and ``payload``
 ``(N, C)`` int32 and return the two tensors they were given:
 
@@ -23,6 +29,8 @@ place; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import backend
@@ -31,6 +39,9 @@ from . import _build
 TILE = 2048                  # rows of a tile, the unit of the pod geometry
 _BLOCK_BYTES = 64 * 1024     # shared memory a pass block aims for
 _MAX_BLOCK_BYTES = 227 * 1024
+CHUNK_ROWS = 1024            # most rows a K9 chunk block holds (x 8 columns)
+CELL_BITS = 4                # a K9 chunk thread holds 2**4 rows of one column
+WIDE_BITS = 5                # most strides a K9 wide pass takes at once
 
 
 def _check_arrays(keys, payload):
@@ -156,31 +167,115 @@ def _check_pods(nrows: int, pod_rows: int):
         raise ValueError(f"{nrows} rows are not whole pods of {pod_rows}")
 
 
+def compare_exchange_plain(keys, payload, stage: int, stride: int):
+    """One step of the network as new tensors: rows ``r`` and ``r + stride``
+    (bit ``stride`` of ``r`` clear) are swapped when ``(key_lo > key_hi) !=
+    descending``, with ``descending`` bit ``stage`` of ``r``."""
+    nrows, ncols = keys.shape
+    rows = torch.arange(nrows, device=keys.device)
+    k4 = keys.reshape(-1, 2, stride, ncols)
+    p4 = payload.reshape(-1, 2, stride, ncols)
+    desc = (rows.reshape(-1, 2, stride)[:, 0] & stage) != 0
+    swap = (k4[:, 0] > k4[:, 1]) != desc[:, :, None]
+    keys = torch.stack(
+        [torch.where(swap, k4[:, 1], k4[:, 0]),
+         torch.where(swap, k4[:, 0], k4[:, 1])], 1).reshape(nrows, ncols)
+    payload = torch.stack(
+        [torch.where(swap, p4[:, 1], p4[:, 0]),
+         torch.where(swap, p4[:, 0], p4[:, 1])], 1).reshape(nrows, ncols)
+    return keys, payload
+
+
 def bitonic_pod_sort_plain(keys, payload, pod_rows: int):
     """Plain PyTorch version of K9: the same bitonic network (stages 2,
-    4, ..., ``pod_rows``; within a stage the strides ``stage / 2``, ..., 1;
-    a pair is swapped when ``(key_lo > key_hi) != descending``, with
-    ``descending`` bit ``stage`` of the pair's row), as new tensors."""
-    nrows, ncols = keys.shape
-    _check_pods(nrows, pod_rows)
-    rows = torch.arange(nrows, device=keys.device)
+    4, ..., ``pod_rows``; within a stage the strides ``stage / 2``, ..., 1,
+    each a ``compare_exchange_plain``), as new tensors."""
+    _check_pods(keys.shape[0], pod_rows)
     stage = 2
     while stage <= pod_rows:
         stride = stage // 2
         while stride >= 1:
-            k4 = keys.reshape(-1, 2, stride, ncols)
-            p4 = payload.reshape(-1, 2, stride, ncols)
-            desc = (rows.reshape(-1, 2, stride)[:, 0] & stage) != 0
-            swap = (k4[:, 0] > k4[:, 1]) != desc[:, :, None]
-            keys = torch.stack(
-                [torch.where(swap, k4[:, 1], k4[:, 0]),
-                 torch.where(swap, k4[:, 0], k4[:, 1])], 1).reshape(nrows, ncols)
-            payload = torch.stack(
-                [torch.where(swap, p4[:, 1], p4[:, 0]),
-                 torch.where(swap, p4[:, 0], p4[:, 1])], 1).reshape(nrows, ncols)
+            keys, payload = compare_exchange_plain(keys, payload, stage, stride)
             stride //= 2
         stage *= 2
     return keys, payload
+
+
+def sort_chunk_rows(pod_rows: int) -> int:
+    """Rows of a K9 chunk: the pod, at least the 16 rows of one thread, at
+    most ``CHUNK_ROWS``."""
+    return min(max(pod_rows, 1 << CELL_BITS), CHUNK_ROWS)
+
+
+def sort_plan(pod_rows: int) -> list[dict]:
+    """K9's launches for pods of ``pod_rows`` rows, in order. Each is a dict
+    with ``kind`` and ``steps``, the steps ``(stage, stride)`` of the bitonic
+    network it runs, in the network's order:
+
+    - ``"chunk"``: every step has a stride below the chunk; ``windows`` gives
+      for each step the first bit ``lo`` of the register window ``[lo, lo +
+      4)`` it runs in (a thread holds the 16 rows that differ in those bits of
+      the row index). A window is kept while the next stride's bit lies in
+      it; else the block re-deals to the window that starts 3 bits below that
+      stride (clamped to the chunk), which covers the strides that follow in
+      the stage. The first launch takes the stages 2..chunk; a later one the
+      strides below the chunk of one stage.
+    - ``"wide"``: up to 5 neighbouring strides at or above the chunk of one
+      stage, from the top down (a thread holds the 2, 4, ..., 32 rows they
+      pair): ``stage``, ``bit_lo``, ``nbits``.
+    """
+    if pod_rows < 2 or pod_rows & (pod_rows - 1):
+        raise ValueError(f"pod_rows must be a power of two >= 2, got {pod_rows}")
+    chunk_bits = sort_chunk_rows(pod_rows).bit_length() - 1
+    launches = []
+    chunk = None
+    lo = None
+    stage_bits = 1
+    while (1 << stage_bits) <= pod_rows:
+        stage = 1 << stage_bits
+        hi = stage_bits  # strides 2**(hi - 1), ... are still to run
+        if hi > chunk_bits:
+            chunk = None
+            while hi > chunk_bits:
+                nbits = min(WIDE_BITS, hi - chunk_bits)
+                hi -= nbits
+                launches.append({
+                    "kind": "wide", "stage": stage, "bit_lo": hi,
+                    "nbits": nbits,
+                    "steps": [(stage, 1 << b)
+                              for b in range(hi + nbits - 1, hi - 1, -1)]})
+        if chunk is None:
+            chunk = {"kind": "chunk", "steps": [], "windows": []}
+            launches.append(chunk)
+            lo = None
+        for bit in range(hi - 1, -1, -1):
+            if lo is None or not lo <= bit < lo + CELL_BITS:
+                lo = min(max(bit - CELL_BITS + 1, 0), chunk_bits - CELL_BITS)
+            chunk["steps"].append((stage, 1 << bit))
+            chunk["windows"].append(lo)
+        stage_bits += 1
+    return launches
+
+
+def run_launch(lib, launch: dict, keys, payload, chunk_rows: int, stream):
+    """One launch of ``sort_plan`` on card tensors, with the kernels of
+    ``lib`` on ``stream``."""
+    nrows, ncols = keys.shape
+    if launch["kind"] == "chunk":
+        triples = [v for (stage, stride), lo in
+                   zip(launch["steps"], launch["windows"])
+                   for v in (stage.bit_length() - 1, stride.bit_length() - 1,
+                             lo)]
+        code = lib.mdt_sort_chunk(
+            keys.data_ptr(), payload.data_ptr(), nrows, ncols, chunk_rows,
+            len(launch["steps"]), (ctypes.c_int * len(triples))(*triples),
+            stream)
+        _build.check(code, "mdt_sort_chunk")
+    else:
+        code = lib.mdt_sort_wide(
+            keys.data_ptr(), payload.data_ptr(), nrows, ncols,
+            launch["stage"], launch["bit_lo"], launch["nbits"], stream)
+        _build.check(code, "mdt_sort_wide")
 
 
 def bitonic_pod_sort(keys, payload, pod_rows: int):
@@ -189,7 +284,9 @@ def bitonic_pod_sort(keys, payload, pod_rows: int):
     payload carried with its key; even pods ascending, odd pods descending.
     A bitonic network is not stable: equal keys may exchange payloads. NaN
     keys are outside the contract (the network compares with ``>``), as
-    they are for the TPU kernel."""
+    they are for the TPU kernel. On the card the launches of ``sort_plan``
+    run one after the other on the current stream; the call counts as one
+    launch of K9."""
     on_card = _check_arrays(keys, payload)
     nrows, ncols = keys.shape
     _check_pods(nrows, pod_rows)
@@ -199,11 +296,11 @@ def bitonic_pod_sort(keys, payload, pod_rows: int):
         payload.copy_(p)
         return keys, payload
     lib = _build.library()
+    chunk_rows = sort_chunk_rows(pod_rows)
     with torch.cuda.device(keys.device):
-        code = lib.mdt_bitonic_pod_sort(
-            keys.data_ptr(), payload.data_ptr(), nrows, ncols, pod_rows,
-            torch.cuda.current_stream(keys.device).cuda_stream)
-    _build.check(code, "mdt_bitonic_pod_sort")
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        for launch in sort_plan(pod_rows):
+            run_launch(lib, launch, keys, payload, chunk_rows, stream)
     bitonic_pod_sort.launches += 1
     return keys, payload
 

@@ -16,7 +16,8 @@ K3's counts are exact and its frac sums are float32 atomics in another order
 abs at unit variance, min/max equal, K5's lags at or beyond niter exactly
 0); K6's two variants sum in the same tile-by-tile order as K5 (2e-5 abs at
 unit variance against the plain version and against each other); K7, K8 and
-K9 equal their plain versions (K9 on distinct keys); a streamed call runs the
+K9 equal their plain versions (K9 on distinct keys), and K1 and K5 equal
+K6's variant A where their tile is its 128 draws; a streamed call runs the
 same kernels on the same columns as the resident one (ESS 1e-5 relative,
 R-hat 1e-6: K3's float atomics and the reductions' tiling differ); the whole slice on the card tracks the plain CPU path to 1e-3 relative
 ESS and MCSE and 1e-4 absolute R-hat (a quantile MCSE may differ beyond
@@ -59,9 +60,19 @@ def _ar1(seed, shape, phi=0.5):
     return x
 
 
-@pytest.mark.parametrize("maxlag", [10, 64, 100, 250, 300])
-def test_k1_matches_plain(cuda_device, maxlag):  # noqa: F811
-    x = _ar1(0, (1001, 8, 40))
+# lag counts on both sides of a block's span (68, 128, 256 lags), 1001 draws
+# (off every tile), series counts of 320 (whole 32-series blocks), 259 (off 4:
+# the 4-byte copies) and 148 (of 4, off 32), more lags than draws
+_LAG_SHAPES = (
+    [(1001, 8, 40, m) for m in (0, 10, 64, 65, 100, 250, 255, 256, 300)]
+    + [(1001, 7, 37, m) for m in (0, 64, 65, 250, 255, 256, 300)]
+    + [(1001, 4, 37, 250), (300, 3, 7, 303), (7, 5, 3, 12)])
+
+
+@pytest.mark.parametrize("niter,nchains,nparams,maxlag", _LAG_SHAPES)
+def test_k1_matches_plain(cuda_device, niter, nchains, nparams,  # noqa: F811
+                          maxlag):
+    x = _ar1(0, (niter, nchains, nparams))
     x[:, 0, 1] = 0.75
     x[5, 1, 2] = np.nan
     xc = t(x, torch.float32).to(cuda_device)
@@ -72,13 +83,13 @@ def test_k1_matches_plain(cuda_device, maxlag):  # noqa: F811
     for i, (g, w) in enumerate(zip(got, want)):
         tol = dict(rtol=0, atol=0) if i in (2, 3) else dict(rtol=0, atol=2e-5)
         assert_close(g, w, equal_nan=True, **tol)
+    assert got[4].shape == (maxlag + 1, nchains, nparams)
+    tail = got[4][niter:]
+    assert torch.equal(tail, torch.zeros_like(tail))
 
 
-@pytest.mark.parametrize("niter,nchains,nparams,maxlag", [
-    (1001, 8, 40, 0), (1001, 8, 40, 10), (1001, 8, 40, 100),
-    (1001, 8, 40, 250), (1001, 8, 40, 300), (300, 3, 7, 303),
-    (7, 5, 3, 12), (1, 2, 3, 4),
-])
+@pytest.mark.parametrize("niter,nchains,nparams,maxlag",
+                         _LAG_SHAPES + [(1, 2, 3, 4)])
 def test_k5_matches_plain(cuda_device, niter, nchains, nparams,  # noqa: F811
                           maxlag):
     """Series counts off the 32-series block width, lags past niter (zeros),
@@ -95,12 +106,30 @@ def test_k5_matches_plain(cuda_device, niter, nchains, nparams,  # noqa: F811
     assert torch.equal(got[niter:], torch.zeros_like(got[niter:]))
 
 
-def test_k5_matches_k1_acov(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("niter,nchains,nparams,maxlag", [
+    (1000, 6, 50, 250), (1001, 7, 37, 64), (1001, 7, 37, 65),
+    (1001, 7, 37, 256), (1001, 4, 37, 300), (300, 3, 7, 303)])
+def test_k5_matches_k1_acov(cuda_device, niter, nchains, nparams,  # noqa: F811
+                            maxlag):
     """The same estimator: K5 on the series centered with K1's means."""
-    x = t(_ar1(4, (1000, 6, 50)), torch.float32).to(cuda_device)
-    mean, _, _, _, acov = k1.moments_autocov(x, 250)
-    assert_close(k5.direct_autocov((x - mean).contiguous(), 250), acov,
+    x = t(_ar1(4, (niter, nchains, nparams)), torch.float32).to(cuda_device)
+    mean, _, _, _, acov = k1.moments_autocov(x, maxlag)
+    assert_close(k5.direct_autocov((x - mean).contiguous(), maxlag), acov,
                  rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("maxlag", [100, 250, 300])
+def test_k1_k5_equal_k6a_at_a_tile_of_128(cuda_device, maxlag):  # noqa: F811
+    """Where the production loop's tile is the first form's 128 draws, both
+    add the same products in the same order (more than 68 lags): equal bit
+    for bit."""
+    x = t(_ar1(16, (1001, 7, 37)), torch.float32).to(cuda_device)
+    mean, _, _, _, acov = k1.moments_autocov(x, maxlag)
+    centered = (x - mean).contiguous()
+    first = k6.lag_products(centered.reshape(1001, -1), maxlag, "a")
+    assert torch.equal(acov.reshape(maxlag + 1, -1), first)
+    assert torch.equal(k5.direct_autocov(centered, maxlag).reshape(
+        maxlag + 1, -1), first)
 
 
 @pytest.mark.parametrize("method", [
@@ -344,13 +373,14 @@ def test_cuda_float64_tensor_raises(cuda_device):  # noqa: F811
 @pytest.mark.parametrize("niter,series,maxlag", [
     (1001, 320, 0), (1001, 320, 10), (1001, 320, 63), (1000, 70, 64),
     (1001, 320, 100), (1000, 33, 250), (300, 37, 303), (7, 5, 12), (1, 6, 4),
-    (129, 31, 130),
+    (129, 31, 130), (1001, 259, 65), (1001, 259, 255), (1001, 148, 256),
 ])
 def test_k6_matches_plain(cuda_device, variant, niter, series,  # noqa: F811
                           maxlag):
-    """Every window length of variant B (8, 16, 32) and lag count of A,
-    series counts off the 32-series block, draws off the tile and off the
-    window length, lags past niter (zeros); the series are not centered."""
+    """Every window length of variant B (17, 16, 32) and lag count of A,
+    series counts off the 32-series block and off 4, draws off the tile and
+    off the window length, more than one lag span, lags past niter (zeros);
+    the series are not centered."""
     x = t(_ar1(11, (niter, series)) + 0.5, torch.float32).to(cuda_device)
     before = dict(kernels.launch_counts())
     got = k6.lag_products(x, maxlag, variant)
@@ -396,11 +426,14 @@ def test_k7_k8_match_plain(cuda_device, rows, cols, tile, pods,  # noqa: F811
 
 @pytest.mark.parametrize("rows,cols,pod_rows", [
     (64, 8, 2), (64, 8, 16), (64, 12, 64), (4096, 4, 2048), (8192, 20, 4096),
-    (16384, 8, 8192), (32768, 8, 16384), (65536, 4, 32768),
+    (16384, 8, 8192), (32768, 8, 16384), (65536, 4, 32768), (48, 4, 8),
+    (96, 12, 32), (1536, 20, 512), (6144, 20, 2048), (131072, 4, 65536),
 ])
 def test_k9_matches_plain(cuda_device, rows, cols, pod_rows):  # noqa: F811
-    """Pods below, at and above the 2048-row chunk (wide steps through
-    device memory), column counts off the 8-column block."""
+    """Pods below the 16 rows of a thread, below, at and above the 1024-row
+    chunk (wide passes of 1 to 5 strides through device memory, two for a
+    pod of 65,536), an odd number of pods, a last chunk that passes the end
+    of the array, column counts off the 8-column block."""
     g = torch.Generator().manual_seed(13)
     keys = torch.randperm(rows * cols, generator=g).float().reshape(rows, cols)
     keys = keys.to(cuda_device)
