@@ -11,6 +11,10 @@ and exits nonzero, printing no result, if any phase fails:
 3. per kernel: K1-K4 against their plain PyTorch versions on the card, at
    the main path's shapes (10k draws x 128 chains x 256 params, float32),
    with a NaN column and a constant column; prints error, bound and times;
+   K3 also through its finishing entry point (prefix counts equal, fm within
+   1e-4, K4's table equal to its cum and fm, two runs bit-equal), plain and
+   folded around a shift; K4 bit-equal also with shift, fill and bad, with
+   the kernel its wrapper chose by shape, and through its gather route;
    then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
@@ -221,7 +225,10 @@ def phase_build() -> str:
 def phase_kernels(x3: torch.Tensor) -> list:
     """K1-K4 against their plain versions; each row carries its bound (K1:
     the lag products' operations; K2-K4: the sample read once, K4's output
-    written once, the tables)."""
+    written once, the tables). K3 also through its finishing entry point
+    (prefix counts equal, fm within 1e-4, K4's table, run twice) and folded
+    around a shift; K4 also with shift, fill and bad, and through its gather
+    route."""
     from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as fr
     from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as ma
     from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
@@ -254,10 +261,11 @@ def phase_kernels(x3: torch.Tensor) -> list:
            time_ms(lambda: fr.column_minmax_plain(xf)),
            {**roofline(sample_bytes),
             "library_ms": time_ms(lambda: torch.aminmax(x2, dim=0))})
-    lo, hi, _ = k
+    lo, hi, bad = k
     scale = _hist_scale(lo, hi, NBINS)
 
-    # K3: counts exact; frac sums in float32 in another (atomic) order, so
+    # K3: counts exact; the kernel's frac sums are exact fixed-point sums
+    # rounded once, the plain version's float32 sums in scatter order, so
     # compare the mean within-bin position fm = s1 / cnt, a sum of up to
     # ~1e3 terms in [0, 1]: bound 1e-4
     cnt, s1 = fr.hist_moments(xf, lo, scale, NBINS)
@@ -265,23 +273,73 @@ def phase_kernels(x3: torch.Tensor) -> list:
     torch.cuda.synchronize()
     check(torch.equal(cnt, cnt_p), "K3 counts differ")
     fm_err = float(((s1 - s1_p).abs() / cnt.clamp(min=1.0)).max())
+    # the finishing entry point (what the main path calls), plain and folded
+    # around a per-column shift; twice: integer sums do not depend on order
+    med = torch.nan_to_num(xf[::1000].nanmedian(0).values)
+    hi_f = torch.maximum(hi - med, med - lo)
+    scale_f = _hist_scale(torch.zeros_like(lo), hi_f, NBINS)
+    for tag, args in (("", (xf, lo, scale, NBINS)),
+                      (" folded", (xf, torch.zeros_like(lo), scale_f, NBINS,
+                                   med))):
+        cum, fm, tab = fr.hist_cdf_tables(*args)
+        again = fr.hist_cdf_tables(*args)
+        cum_p, fm_p, _ = fr.hist_cdf_tables_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(cum, cum_p), f"K3{tag}: prefix counts differ")
+        err = float((fm - fm_p).abs().max())
+        check(err <= 1e-4, f"K3{tag}: fm off its plain version by {err:.2e}")
+        check(torch.equal(tab, fr.pack_tables(cum, fm)),
+              f"K3{tag}: K4's table is not its cum and fm")
+        check(all(torch.equal(a, b) for a, b in zip((cum, fm, tab), again)),
+              f"K3{tag}: two runs differ")
+        print(f"   K3 hist_cdf_tables{tag}: cum equal, fm within {err:.3e} "
+              "(bound 1e-4), table equal to pack_tables(cum, fm), two runs "
+              "bit-equal")
+        fm_err = max(fm_err, err)
     report("K3 hist_moments", max_abs_err(s1, s1_p), fm_err, 1e-4,
            "counts equal; error of s1/cnt",
-           time_ms(lambda: fr.hist_moments(xf, lo, scale, NBINS)),
-           time_ms(lambda: fr.hist_moments_plain(xf, lo, scale, NBINS)),
-           roofline(sample_bytes + 8.0 * NBINS * PARAMS))
+           time_ms(lambda: fr.hist_cdf_tables(xf, lo, scale, NBINS)),
+           time_ms(lambda: fr.hist_cdf_tables_plain(xf, lo, scale, NBINS)),
+           {**roofline(sample_bytes + 8.0 * NBINS * PARAMS),
+            "deterministic": True, "ms_hist_moments": time_ms(
+                lambda: fr.hist_moments(xf, lo, scale, NBINS)),
+            "ms_folded": time_ms(lambda: fr.hist_cdf_tables(
+                xf, torch.zeros_like(lo), scale_f, NBINS, med))})
 
-    # K4 on K3's tables: both round identically; bound one float32 ulp of a
-    # rank near n = 1.28M (0.125)
-    fm = torch.where(cnt > 0, s1 / cnt.clamp(min=1.0), 0.5)
-    cum = torch.cat([cnt.new_zeros((1, PARAMS)), cnt.cumsum(0)])
-    tables = torch.stack([cum[:-1], cnt, cnt * (0.5 - fm)])
-    err = max_abs_err(fr.rank_lookup(xf, lo, scale, tables, NBINS),
-                      fr.rank_lookup_plain(xf, lo, scale, tables, NBINS))
+    # K4 on K3's table: both round identically; bound one float32 ulp of a
+    # rank near n = 1.28M (0.125), measured 0. Plain, then folded with the
+    # constant column filled and the NaN column masked by the kernel
+    cum, fm, tab = fr.hist_cdf_tables(xf, lo, scale, NBINS)
+    fill = torch.full_like(lo, torch.nan).masked_fill(hi <= lo, (n + 1) * 0.5)
+    _, _, tab_f = fr.hist_cdf_tables(xf, torch.zeros_like(lo), scale_f, NBINS,
+                                     med)
+    folded = (xf, torch.zeros_like(lo), scale_f, tab_f, NBINS)
+    extras = dict(shift=med, fill=fill, bad=bad)
+    err = max_abs_err(fr.rank_lookup(xf, lo, scale, tab, NBINS),
+                      fr.rank_lookup_plain(xf, lo, scale, tab, NBINS))
+    route = fr.rank_lookup.route
+    err_f = max_abs_err(fr.rank_lookup(*folded, **extras),
+                        fr.rank_lookup_plain(*folded, **extras))
+    print(f"   K4 route {route} (kernel, columns a block, row chunks), chosen "
+          f"by shape; with shift, fill and bad: max abs err {err_f:.3e}")
+    check(route[0] == "wide", "K4 did not take its wide kernel at this shape")
+    check(err_f == 0.0, "K4 with shift, fill and bad is not bit-equal")
+    # the [C, cnt, off] stack of the first design goes through the L2 gather
+    cnt_t = cum[1:] - cum[:-1]
+    stack = torch.stack([cum[:-1], cnt_t, cnt_t * (0.5 - fm)])
+    err_g = max_abs_err(fr.rank_lookup(xf, lo, scale, stack, NBINS),
+                        fr.rank_lookup_plain(xf, lo, scale, stack, NBINS))
+    check(fr.rank_lookup.route == ("gather",) and err_g == 0.0,
+          "K4's gather route is not bit-equal")
+    gather_ms = time_ms(lambda: fr.rank_lookup(xf, lo, scale, stack, NBINS))
+    del stack, cnt_t
     report("K4 rank_lookup", err, err, 0.125, "one f32 ulp at rank 1.28M:",
-           time_ms(lambda: fr.rank_lookup(xf, lo, scale, tables, NBINS)),
-           time_ms(lambda: fr.rank_lookup_plain(xf, lo, scale, tables, NBINS)),
-           roofline(2 * sample_bytes + 12.0 * NBINS * PARAMS))
+           time_ms(lambda: fr.rank_lookup(xf, lo, scale, tab, NBINS)),
+           time_ms(lambda: fr.rank_lookup_plain(xf, lo, scale, tab, NBINS)),
+           {**roofline(2 * sample_bytes + 12.0 * NBINS * PARAMS),
+            "kernel_by_shape": list(route), "ms_gather_kernel": gather_ms,
+            "ms_folded_filled": time_ms(
+                lambda: fr.rank_lookup(*folded, **extras))})
 
     # K1 on the split sample (5000, 256, 256): moments and autocovariance in
     # another float32 summation order; errors relative to the series
@@ -717,13 +775,19 @@ def phase_fused_z(x3: torch.Tensor) -> dict:
     xf = with_bad_columns(x3).reshape(-1, PARAMS)
     n = xf.shape[0]
     cdf = ofr.build_hist_cdf(xf, NBINS)
-    cnt = cdf.counts
-    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)])
     scale = ofr._hist_scale(cdf.lo, cdf.hi, NBINS)
-    args = (xf, cdf.lo, scale, tables, NBINS)
+    args = (xf, cdf.lo, scale, cdf.tab, NBINS)
     z_k = fr.rank_lookup(*args, blom_n=n)
     z_p = fr.rank_lookup_plain(*args, blom_n=n)
     err, ulps = max_abs_err(z_k, z_p), max_ulp_err(z_k, z_p)
+    # with the constant column filled and the NaN column masked in the kernel
+    extras = dict(fill=torch.full_like(cdf.lo, torch.nan).masked_fill(
+        cdf.hi <= cdf.lo, 0.0), bad=cdf.bad)
+    z_k = fr.rank_lookup(*args, blom_n=n, **extras)
+    z_p = fr.rank_lookup_plain(*args, blom_n=n, **extras)
+    check(bool(torch.isnan(z_k[:, 1]).all()) and not bool(z_k[:, 2].any()),
+          "K4's z mode did not write the NaN and the constant column")
+    ulps = max(ulps, max_ulp_err(z_k, z_p))
     del z_k, z_p
     ms = time_ms(lambda: fr.rank_lookup(*args, blom_n=n))
     plain_ms = time_ms(lambda: fr.rank_lookup_plain(*args, blom_n=n))
@@ -1193,8 +1257,8 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
         check(v.shape == (CONFIG4_PARAMS,) and v.device.type == "cuda",
               f"bad output shape/device {tuple(v.shape)} {v.device}")
         check(bool(torch.isfinite(v).all()), "non-finite ESS or R-hat")
-    # the same kernels on the same columns: only K3's float atomics (another
-    # order every run) and reductions tiled for another width differ
+    # the same kernels on the same columns: only reductions tiled for
+    # another width differ (K3 adds whole numbers: the same every run)
     ess_rel = float((res.ess[:PARAMS] / resident_fast.ess - 1).abs().max())
     rhat_abs = float((res.rhat[:PARAMS] - resident_fast.rhat).abs().max())
     print(f"[11 streamed vs resident, first {PARAMS} parameters] ESS rel "

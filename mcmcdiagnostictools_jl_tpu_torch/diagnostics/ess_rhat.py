@@ -48,8 +48,8 @@ from ..ops.fastrank import (
     _folded_cdf,
     build_hist_cdf,
     fast_rank_bulk_tail,
+    fast_rank_fold,
     fast_rank_normalize,
-    fast_rank_normalize_flat,
     hist_quantile,
 )
 from ..ops.geyer import geyer_ess_from_rho
@@ -185,8 +185,8 @@ def _fast_expectand_proxy(estimator: str, x3, q: float | None, nbins: int):
         return _indicator_leq(x3, hist_quantile(cdf, (q,), nbins)[0])
     if estimator == "mad":
         med = hist_quantile(cdf, (0.5,), nbins)[0]
-        folded = _fold(xf, med)
-        fcdf = _folded_cdf(folded, cdf, med, nbins)
+        fcdf = _folded_cdf(xf, cdf, med, nbins)
+        folded = _fold(xf, med)  # the indicator needs the fold itself
         med_f = torch.where(cdf.bad, torch.nan,
                             hist_quantile(fcdf, (0.5,), nbins)[0])
         return _indicator_leq(folded.reshape(d, c, p), med_f)
@@ -262,10 +262,7 @@ def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
         xf = x3.reshape(d * c, p).contiguous()
         cdf = build_hist_cdf(xf, nbins)
         t_lo, t_hi, med = hist_quantile(cdf, ps, nbins)
-        folded = _fold(xf, med)
-        z_tail, _ = fast_rank_normalize_flat(
-            folded, nbins, cdf=_folded_cdf(folded, cdf, med, nbins))
-        z_tail = torch.where(cdf.bad[None, :], torch.nan, z_tail)
+        z_tail = fast_rank_fold(xf, cdf, med, nbins)
         return t_lo, t_hi, _basic_rhat(z_tail.reshape(d, c, p), split_chains)
     xs, order, bad = sort_with_positions(x3)
     t_lo, t_hi, med = (torch.where(bad, torch.nan, sorted_quantile(xs, q))

@@ -4,7 +4,7 @@
 |----|---------|------------------------|
 | K1 | ``moments_autocov.moments_autocov`` | ``ops/pallas/fused_basic_kernel.py::pallas_moments_autocov`` |
 | K2 | ``fastrank.column_minmax`` | ``ops/pallas/fastrank_kernel.py::pallas_column_minmax`` |
-| K3 | ``fastrank.hist_moments`` | ``ops/pallas/fastrank_kernel.py::pallas_hist_moments`` |
+| K3 | ``fastrank.hist_moments``, ``fastrank.hist_cdf_tables`` (the same kernel, its second pass emitting the finished CDF) | ``ops/pallas/fastrank_kernel.py::pallas_hist_moments`` |
 | K4 | ``fastrank.rank_lookup`` | ``ops/pallas/fastrank_kernel.py::pallas_rank_lookup`` |
 | K5 | ``autocov.direct_autocov`` | ``ops/pallas/autocov_kernel.py::pallas_autocov`` |
 | K6a, K6b | ``lagloop_study.lag_products`` (``variant="a"`` / ``"b"``) | ``benchmarks/micro_lagloop.py::_run`` (``_kernel_a`` / ``_kernel_b``) |
@@ -14,8 +14,9 @@
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
-the kernels; K4 also counts its z-mode launches (``blom_n``) on their own,
-reported as ``"K4z"``, and K6 counts each variant on its own. Importing this package builds nothing; the first
+the kernels; both entry points of K3 count into ``hist_moments.launches``;
+K4 also counts its z-mode launches (``blom_n``) on their own, reported as
+``"K4z"``, and K6 counts each variant on its own. Importing this package builds nothing; the first
 launch does.
 """
 

@@ -39,8 +39,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mdt_moments_autocov": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "mdt_column_minmax": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "mdt_hist_moments": (_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P),
-    "mdt_rank_lookup": (_P, _L, _I, _P, _P, _P, _I, _F, _P, _P),
+    "mdt_hist_tables": (_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P, _P, _P),
+    "mdt_rank_lookup_wide": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
+                             _P, _P),
+    "mdt_rank_lookup_gather": (_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P,
+                               _P),
+    "mdt_slab_copy": (_P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
     "mdt_direct_autocov": (_P, _I, _I, _I, _P, _P),
     "mdt_lagloop_a": (_P, _I, _I, _I, _P, _P),
     "mdt_lagloop_b": (_P, _I, _I, _I, _P, _P),

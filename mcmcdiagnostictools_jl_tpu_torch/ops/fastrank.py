@@ -16,9 +16,12 @@ mode to ~1e-3 at the default 4096 bins on continuous samples. No sort, no
 inverse permutation: (draw, chain) order never leaves the array.
 
 On the card the three steps are the hand-written kernels; on the CPU their
-plain versions (``kernels/fastrank.py``). The small per-column work (prefix
-sums, the Blom transform, quantile inversion) is plain PyTorch on both, as
-the JAX package keeps it outside Pallas.
+plain versions (``kernels/fastrank.py``). K3 finishes the CDF itself (prefix
+counts, within-bin means, K4's table), and K3 and K4 fold the sample
+(``shift``) and write the constant columns (``fill``, ``bad``) themselves, so
+no step here passes over the sample outside a kernel except Blom +
+``ndtri``. The small per-column work (quantile inversion, ranges) is plain
+PyTorch on both, as the JAX package keeps it outside Pallas.
 
 ``FUSE_BLOM_Z`` (default off, the JAX package's default) moves the Blom
 transform and the inverse normal CDF into step 4: K4's z mode emits z
@@ -36,7 +39,8 @@ import torch
 from ..kernels.fastrank import (
     bins_from_scale,
     column_minmax,
-    hist_moments,
+    hist_cdf_tables,
+    pack_tables,
     rank_lookup,
 )
 
@@ -59,7 +63,9 @@ class HistCDF(NamedTuple):
     ``cum``: (nbins+1, P) float32 prefix counts (``cum[0] = 0``);
     ``fm``: (nbins, P) mean within-bin position (1/2 for empty bins);
     ``lo``/``hi``: (P,) bin range (degenerate columns: lo == hi);
-    ``n``: element count; ``bad``: (P,) NaN-poisoned columns.
+    ``n``: element count; ``bad``: (P,) NaN-poisoned columns;
+    ``tab``: K4's (P, nbins+1, 2) table of ``cum`` and ``fm``
+    (``kernels.fastrank.pack_tables``; built on demand when None).
     """
 
     cum: torch.Tensor
@@ -68,6 +74,7 @@ class HistCDF(NamedTuple):
     hi: torch.Tensor
     n: int
     bad: torch.Tensor
+    tab: torch.Tensor | None = None
 
     @property
     def counts(self):
@@ -88,51 +95,57 @@ def _bin_coords(xf, lo, hi, nbins: int):
 
 
 def build_hist_cdf(xf: torch.Tensor, nbins: int = DEFAULT_NBINS,
-                   minmax=None) -> HistCDF:
-    """Histogram CDF of a flat contiguous ``(N, P)`` sample. ``minmax``: a
+                   minmax=None, shift=None) -> HistCDF:
+    """Histogram CDF of a flat contiguous ``(N, P)`` sample, or with the
+    ``(P,)`` vector ``shift`` of its fold ``|xf - shift|``. ``minmax``: a
     precomputed ``(lo, hi, bad)`` (the fold transform derives it)."""
     lo, hi, bad = column_minmax(xf) if minmax is None else minmax
-    cnt, s1 = hist_moments(xf, lo, _hist_scale(lo, hi, nbins), nbins)
-    fm = torch.where(cnt > 0, s1 / cnt.clamp(min=1.0), 0.5)
-    cum = torch.cat([cnt.new_zeros((1, cnt.shape[1])), cnt.cumsum(0)], dim=0)
-    return HistCDF(cum, fm, lo, hi, xf.shape[0], bad)
+    cum, fm, tab = hist_cdf_tables(xf, lo, _hist_scale(lo, hi, nbins), nbins,
+                                   shift)
+    return HistCDF(cum, fm, lo, hi, xf.shape[0], bad, tab)
 
 
-def _lookup(xf: torch.Tensor, cdf: HistCDF, nbins: int,
-            blom_n: int | None = None):
-    """K4 on the CDF's tables: ranks, or z values with ``blom_n``."""
-    cnt = cdf.counts
-    tables = torch.stack([cdf.cum[:-1], cnt, cnt * (0.5 - cdf.fm)], dim=0)
-    return rank_lookup(xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tables,
-                       nbins, blom_n).to(xf.dtype)
+def _lookup(xf: torch.Tensor, cdf: HistCDF, nbins: int, fill: float,
+            blom_n: int | None = None, shift=None, bad=None):
+    """K4 on the CDF's table: ranks, or z values with ``blom_n``, of ``xf``
+    or of its fold; degenerate (constant) columns get ``fill``, the columns
+    ``bad`` NaN."""
+    tab = pack_tables(cdf.cum, cdf.fm) if cdf.tab is None else cdf.tab
+    fills = torch.full_like(cdf.lo, torch.nan).masked_fill(cdf.hi <= cdf.lo,
+                                                          fill)
+    return rank_lookup(xf, cdf.lo, _hist_scale(cdf.lo, cdf.hi, nbins), tab,
+                       nbins, blom_n, shift=shift, fill=fills,
+                       bad=bad).to(xf.dtype)
 
 
-def interpolated_ranks(xf: torch.Tensor, cdf: HistCDF, nbins: int):
-    """Per-element mean-anchored rank in ``[1/2, n + 1/2]``, original order.
-    Degenerate (constant) columns get the exact tied rank ``(n+1)/2``."""
-    degenerate = (cdf.hi <= cdf.lo)[None, :]
-    return torch.where(degenerate, (cdf.n + 1) * 0.5, _lookup(xf, cdf, nbins))
+def interpolated_ranks(xf: torch.Tensor, cdf: HistCDF, nbins: int, *,
+                       shift=None, bad=None):
+    """Per-element mean-anchored rank in ``[1/2, n + 1/2]``, original order,
+    of ``xf`` or with ``shift`` of ``|xf - shift|`` (``cdf`` is then the
+    fold's). Degenerate (constant) columns get the exact tied rank
+    ``(n+1)/2``, the columns ``bad`` (a ``(P,)`` mask) NaN."""
+    return _lookup(xf, cdf, nbins, (cdf.n + 1) * 0.5, shift=shift, bad=bad)
 
 
 def _blom(rank, n: int):
     return (rank - 0.375) / (n + 0.25)
 
 
-def z_from_ranks(rank, n: int, bad):
-    """Blom alpha=3/8 + inverse normal CDF, NaN-poisoned columns masked."""
+def z_from_ranks(rank, n: int, bad=None):
+    """Blom alpha=3/8 + inverse normal CDF. NaN ranks stay NaN; ``bad``
+    masks NaN-poisoned columns whose ranks are not NaN already."""
     z = torch.special.ndtri(_blom(rank, n))
-    return torch.where(bad[None, :], torch.nan, z)
+    return z if bad is None else torch.where(bad[None, :], torch.nan, z)
 
 
-def _fused_z(xf: torch.Tensor, cdf: HistCDF, nbins: int):
+def _fused_z(xf: torch.Tensor, cdf: HistCDF, nbins: int, shift=None):
     """The ``FUSE_BLOM_Z`` route: z straight from K4's z mode; degenerate
     columns get the z of the tied rank ``(n+1)/2`` and NaN-poisoned columns
-    NaN, both after the kernel (JAX ``ops/fastrank.py:408-411``)."""
-    z = _lookup(xf, cdf, nbins, blom_n=cdf.n)
+    NaN, both written by the kernel (JAX ``ops/fastrank.py:408-411``)."""
     z_deg = torch.special.ndtri(torch.tensor(_blom((cdf.n + 1) * 0.5, cdf.n),
                                              dtype=torch.float64))
-    z = torch.where((cdf.hi <= cdf.lo)[None, :], float(z_deg), z)
-    return torch.where(cdf.bad[None, :], torch.nan, z)
+    return _lookup(xf, cdf, nbins, float(z_deg), blom_n=cdf.n, shift=shift,
+                   bad=cdf.bad)
 
 
 def hist_rank_value(cdf: HistCDF, h, nbins: int):
@@ -168,17 +181,18 @@ def hist_quantile(cdf: HistCDF, ps, nbins: int):
 
 
 def fast_rank_normalize_flat(xf: torch.Tensor, nbins: int = DEFAULT_NBINS,
-                             cdf: HistCDF | None = None):
+                             cdf: HistCDF | None = None, shift=None):
     """Histogram rank-normal transform of a flat ``(N, P)`` sample, in
-    place: ``(z, cdf)`` with ``z`` in original row order. With
+    place: ``(z, cdf)`` with ``z`` in original row order. With ``shift``
+    (and the fold's ``cdf``) the transform of ``|xf - shift|``. With
     ``FUSE_BLOM_Z`` set, K4 emits z itself (``ppnd7``)."""
     xf = xf.contiguous()
     if cdf is None:
-        cdf = build_hist_cdf(xf, nbins)
+        cdf = build_hist_cdf(xf, nbins, shift=shift)
     if FUSE_BLOM_Z:
-        return _fused_z(xf, cdf, nbins), cdf
-    rank = interpolated_ranks(xf, cdf, nbins)
-    return z_from_ranks(rank, cdf.n, cdf.bad), cdf
+        return _fused_z(xf, cdf, nbins, shift), cdf
+    rank = interpolated_ranks(xf, cdf, nbins, shift=shift, bad=cdf.bad)
+    return z_from_ranks(rank, cdf.n), cdf
 
 
 def fast_rank_normalize(x3: torch.Tensor, nbins: int = DEFAULT_NBINS):
@@ -188,20 +202,35 @@ def fast_rank_normalize(x3: torch.Tensor, nbins: int = DEFAULT_NBINS):
     return z.reshape(d, c, p)
 
 
-def _folded_cdf(folded, cdf: HistCDF, med, nbins: int) -> HistCDF:
-    """Histogram CDF of ``|x - med|`` with its range derived from the bulk
-    CDF (lo = 0, hi = max(hi - med, med - lo)): no second min/max pass."""
-    m = torch.nan_to_num(med)
+def _fold_shift(med):
+    """The shift of the fold around ``med``: 0 where the median is NaN."""
+    return torch.nan_to_num(med)
+
+
+def _fold(xf, med):
+    return torch.abs(xf - _fold_shift(med)[None, :])
+
+
+def _folded_cdf(xf, cdf: HistCDF, med, nbins: int) -> HistCDF:
+    """Histogram CDF of ``|xf - med|`` (folded inside K3) with its range
+    derived from the bulk CDF ``cdf`` (lo = 0, hi = max(hi - med, med -
+    lo)): no second min/max pass, no folded copy."""
+    m = _fold_shift(med)
     hi_f = torch.maximum(cdf.hi - m, m - cdf.lo)
     hi_f = torch.where(hi_f > 0, hi_f, 1.0)
     lo_f = torch.zeros_like(hi_f)
     # degenerate columns keep hi <= lo so the tied-rank override fires
     hi_f = torch.where(cdf.hi <= cdf.lo, lo_f, hi_f)
-    return build_hist_cdf(folded, nbins, minmax=(lo_f, hi_f, cdf.bad))
+    return build_hist_cdf(xf, nbins, minmax=(lo_f, hi_f, cdf.bad), shift=m)
 
 
-def _fold(xf, med):
-    return torch.abs(xf - torch.nan_to_num(med)[None, :])
+def fast_rank_fold(xf: torch.Tensor, cdf: HistCDF, med, nbins: int):
+    """Rank-normal transform of the fold ``|xf - med|`` of a flat sample
+    whose bulk CDF is ``cdf``; the fold is never materialised. NaN-poisoned
+    columns come out NaN (the fold's CDF carries the bulk's ``bad``)."""
+    z, _ = fast_rank_normalize_flat(
+        xf, nbins, cdf=_folded_cdf(xf, cdf, med, nbins), shift=_fold_shift(med))
+    return z
 
 
 def fast_rank_bulk_tail(x3: torch.Tensor, nbins: int = DEFAULT_NBINS):
@@ -212,8 +241,5 @@ def fast_rank_bulk_tail(x3: torch.Tensor, nbins: int = DEFAULT_NBINS):
     xf = x3.reshape(d * c, p).contiguous()
     z_bulk, cdf = fast_rank_normalize_flat(xf, nbins)
     med = hist_quantile(cdf, (0.5,), nbins)[0]
-    folded = _fold(xf, med)
-    z_tail, _ = fast_rank_normalize_flat(
-        folded, nbins, cdf=_folded_cdf(folded, cdf, med, nbins))
-    z_tail = torch.where(cdf.bad[None, :], torch.nan, z_tail)
+    z_tail = fast_rank_fold(xf, cdf, med, nbins)
     return z_bulk.reshape(d, c, p), z_tail.reshape(d, c, p), med

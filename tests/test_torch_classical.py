@@ -2,6 +2,8 @@
 Raftery-Lewis), its batched scans and the functions under them, against the
 JAX package at float64 on the CPU.
 
+The Gelman functions are also held to ``tests/ref_impl.py``'s oracle.
+
 Tolerance: BASELINE.md's parity bound, 1e-6 relative
 (``torch_parity.PARITY_F64``), for every result; integers, flags and
 Raftery's run lengths exactly. The JAX package's scalar Heidelberger path
@@ -22,6 +24,7 @@ import torch
 
 import mcmcdiagnostictools_jl_tpu as mdt
 import mcmcdiagnostictools_jl_tpu_torch as mtt
+import ref_impl
 from conftest import ar1
 from mcmcdiagnostictools_jl_tpu.ops import geyer as jgeyer
 from mcmcdiagnostictools_jl_tpu.ops import special as jspecial
@@ -150,6 +153,31 @@ def test_gelman_matches_jax(chains, ndim):
         assert_close(g, w, **PARITY_F64)
     assert_close(got.psrfmultivariate, want.psrfmultivariate, **PARITY_F64)
     assert float(got.psrf.reshape(-1)[0]) > 1.05  # the transient is flagged
+
+
+@pytest.mark.parametrize("shape,phi,alpha", [
+    ((600, 4, 5), 0.3, 0.05), ((250, 3, 2), 0.7, 0.2), ((1000, 6, 3), 0.0, 0.05)])
+def test_gelman_matches_the_oracle(rng, shape, phi, alpha):
+    """The port against ``tests/ref_impl.py``'s literal Brooks-Gelman PSRF
+    (an oracle that shares no code with either package), float64 within 1e-6."""
+    x = ref_impl.ar1_matrix(rng, phi, 1.0, shape)
+    x[: shape[0] // 4, 0, 0] += 2.0  # a transient: one PSRF well above 1
+    want_psrf, want_ci, _, _ = ref_impl.gelmandiag(x, alpha)
+    got = mtt.gelmandiag(x, alpha=alpha)
+    assert got.psrf.dtype == torch.float64
+    assert_close(got.psrf, want_psrf, **PARITY_F64)
+    assert_close(got.psrfci, want_ci, **PARITY_F64)
+    assert float(got.psrf[0]) > 1.02
+
+
+@pytest.mark.parametrize("shape,phi", [((600, 4, 5), 0.3), ((250, 3, 2), 0.7)])
+def test_gelman_multivariate_matches_the_oracle(rng, shape, phi):
+    x = ref_impl.ar1_matrix(rng, phi, 1.0, shape)
+    want_psrf, want_ci, want_mv = ref_impl.gelman_multivariate(x)
+    got = mtt.gelmandiag_multivariate(x)
+    assert_close(got.psrf, want_psrf, **PARITY_F64)
+    assert_close(got.psrfci, want_ci, **PARITY_F64)
+    assert_close(got.psrfmultivariate, want_mv, **PARITY_F64)
 
 
 def test_gelman_alpha_and_tensor_input(chains):

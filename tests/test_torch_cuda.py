@@ -11,15 +11,17 @@ K4's z mode adds AS241's ``ppnd7`` on identical ranks with the same
 round-to-nearest operations (within 4 float32 ULP of z: equal where the
 kernel's ``logf`` and PyTorch's come from one toolkit, an ULP or two apart
 where they do not);
-K3's counts are exact and its frac sums are float32 atomics in another order
-(within 1e-4 of the bin count); K1 and K5 sum in another float32 order (2e-5
+K3's counts and prefix counts are exact and its frac sums exact fixed-point
+sums rounded once, the plain version's float32 sums in scatter order (within
+1e-4 of the bin count; two runs of K3 bit-equal); K4 also with ``shift``,
+``fill`` and ``bad`` and through each of its kernels; K1 and K5 sum in another float32 order (2e-5
 abs at unit variance, min/max equal, K5's lags at or beyond niter exactly
 0); K6's two variants sum in the same tile-by-tile order as K5 (2e-5 abs at
 unit variance against the plain version and against each other); K7, K8 and
 K9 equal their plain versions (K9 on distinct keys), and K1 and K5 equal
 K6's variant A where their tile is its 128 draws; a streamed call runs the
 same kernels on the same columns as the resident one (ESS 1e-5 relative,
-R-hat 1e-6: K3's float atomics and the reductions' tiling differ); the whole slice on the card tracks the plain CPU path to 1e-3 relative
+R-hat 1e-6: the reductions' tiling differs); the whole slice on the card tracks the plain CPU path to 1e-3 relative
 ESS and MCSE and 1e-4 absolute R-hat (a quantile MCSE may differ beyond
 that only where an ESS within 1e-3 moved an interval rank); the classical
 suite on the card tracks the CPU to 1e-3 (Geweke z, abs + rel), 1e-4
@@ -145,16 +147,27 @@ def test_direct_autocov_methods_launch_k5(cuda_device, method):  # noqa: F811
                  rtol=1e-3, atol=0)
 
 
+def _fast_sample(n, p, device, seed=1):
+    """Normal columns with, where ``p`` allows: ties, a constant column, a
+    NaN, an all-NaN column, an infinity."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, p)).astype(np.float32)
+    for col, put in enumerate((None, lambda c: np.round(c * 2) / 2,
+                               lambda c: 1.25)):
+        if put is not None and col < p:
+            x[:, col] = put(x[:, col])
+    if p > 3:
+        x[min(7, n - 1), 3] = np.nan
+    if p > 4:
+        x[:, 4] = np.nan
+    if p > 5:
+        x[min(3, n - 1), 5] = np.inf
+    return t(x).to(device)
+
+
 @pytest.mark.parametrize("n,p,nbins", [(50001, 37, 4096), (4096, 7, 256)])
 def test_fast_kernels_match_plain(cuda_device, n, p, nbins):  # noqa: F811
-    rng = np.random.default_rng(1)
-    x = rng.standard_normal((n, p)).astype(np.float32)
-    x[:, 1] = np.round(x[:, 1] * 2) / 2
-    x[:, 2] = 1.25
-    x[7, 3] = np.nan
-    x[:, 4] = np.nan
-    x[3, 5] = np.inf
-    x = t(x).to(cuda_device)
+    x = _fast_sample(n, p, cuda_device)
     lo, hi, bad = kfr.column_minmax(x)
     for g, w in zip((lo, hi, bad), kfr.column_minmax_plain(x)):
         assert torch.equal(g, w)
@@ -168,6 +181,98 @@ def test_fast_kernels_match_plain(cuda_device, n, p, nbins):  # noqa: F811
     tables = torch.stack([cum[:-1], cnt, cnt * (0.5 - fm)])
     assert torch.equal(kfr.rank_lookup(x, lo, scale, tables, nbins),
                        kfr.rank_lookup_plain(x, lo, scale, tables, nbins))
+    assert kfr.rank_lookup.route == ("gather",)  # the [C, cnt, off] stack
+    tab = kfr.pack_tables(cum, fm)
+    assert torch.equal(kfr.rank_lookup(x, lo, scale, tab, nbins),
+                       kfr.rank_lookup_plain(x, lo, scale, tab, nbins))
+    assert kfr.rank_lookup.route == ("gather",)  # p is no multiple of 8
+
+
+# shapes across K3's and K4's kernels: P off 4 and off 8, N below one tile,
+# 1 to 20,000 bins (K3: 4, 2 and 1 columns a block), K4's wide kernel at 8, 16
+# and 32 columns a block and one bin past what it holds
+_SLAB_SHAPES = [(50001, 37, 4096), (4096, 7, 256), (100, 6, 64), (333, 6, 1),
+                (1000, 1, 64), (5000, 10, 10000), (3000, 8, 20000),
+                (4096, 8, 256), (5000, 40, 4096), (4096, 16, 256),
+                (3001, 96, 500), (4097, 8, 4149), (100, 12, 64)]
+
+
+@pytest.mark.parametrize("n,p,nbins", _SLAB_SHAPES)
+def test_k3_finished_cdf_matches_plain(cuda_device, n, p, nbins):  # noqa: F811
+    """K3's second pass: prefix counts equal, fm within 1e-4 (the plain
+    version adds float32 in scatter order, the kernel exact fixed point),
+    K4's table the kernel's own cum and fm, two runs bit-equal; plain and
+    folded around a shift."""
+    x = _fast_sample(n, p, cuda_device)
+    lo, hi, _ = kfr.column_minmax(x)
+    scale = _hist_scale(lo, hi, nbins)
+    shift = torch.nan_to_num(x.nanmedian(0).values)
+    for sh in (None, shift):
+        before = kfr.hist_moments.launches
+        cum, fm, tab = kfr.hist_cdf_tables(x, lo, scale, nbins, sh)
+        assert kfr.hist_moments.launches == before + 1
+        cum_p, fm_p, _ = kfr.hist_cdf_tables_plain(x, lo, scale, nbins, sh)
+        assert torch.equal(cum, cum_p)
+        assert float((fm - fm_p).abs().max()) <= 1e-4
+        assert torch.equal(tab, kfr.pack_tables(cum, fm))
+        for a, b in zip((cum, fm, tab),
+                        kfr.hist_cdf_tables(x, lo, scale, nbins, sh)):
+            assert torch.equal(a, b)
+        cnt, s1 = kfr.hist_moments(x, lo, scale, nbins, sh)
+        assert torch.equal(cnt, cum[1:] - cum[:-1])
+        assert torch.equal(torch.where(cnt > 0, s1 / cnt.clamp(min=1.0), 0.5),
+                           fm)
+
+
+@pytest.mark.parametrize("n,p,nbins", _SLAB_SHAPES + [(100, 3, 40000)])
+def test_k4_shift_fill_bad_match_plain(cuda_device, n, p, nbins):  # noqa: F811
+    """K4 on the (cum, fm) table, with and without shift, fill and bad:
+    ranks bit-equal, z within 4 float32 ULP; the kernel is chosen by shape."""
+    x = _fast_sample(n, p, cuda_device)
+    lo, hi, bad = kfr.column_minmax(x)
+    scale = _hist_scale(lo, hi, nbins)
+    shift = torch.nan_to_num(x.nanmedian(0).values)
+    fill = torch.full_like(lo, torch.nan).masked_fill(hi <= lo, (n + 1) * 0.5)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    want_route = kfr.lookup_route(n, p, nbins, True, sms, True)
+    assert want_route[0] == ("wide" if p % 8 == 0 and nbins <= 4148
+                             else "gather")
+    for kw in ({}, dict(shift=shift, fill=fill, bad=bad)):
+        _, _, tab = kfr.hist_cdf_tables_plain(x, lo, scale, nbins,
+                                              kw.get("shift"))
+        before = (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches)
+        got = kfr.rank_lookup(x, lo, scale, tab, nbins, **kw)
+        assert kfr.rank_lookup.route == want_route
+        want = kfr.rank_lookup_plain(x, lo, scale, tab, nbins, **kw)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        z = kfr.rank_lookup(x, lo, scale, tab, nbins, blom_n=n, **kw)
+        assert (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches) == (
+            before[0] + 2, before[1] + 1)
+        assert _max_ulp(z, kfr.rank_lookup_plain(x, lo, scale, tab, nbins,
+                                                 blom_n=n, **kw)) <= 4
+        if kw:
+            assert torch.isnan(got[:, bad]).all() and torch.isnan(z[:, bad]).all()
+            if p > 2:
+                assert bool((got[:, 2] == (n + 1) * 0.5).all())
+
+
+def test_fast_transforms_pass_the_sample_through_kernels_only(
+        cuda_device):  # noqa: F811
+    """The rank kind's two transforms launch K3 and K4 twice each, fold and
+    mask inside them, and match the CPU route."""
+    x = torch.from_numpy(_ar1(12, (1500, 8, 16)).astype(np.float32))
+    x[:, :, 2] = 0.5
+    x[3, 1, 5] = np.nan
+    kernels.reset_launch_counts()
+    z_bulk, z_tail, med = fr.fast_rank_bulk_tail(x.to(cuda_device))
+    counts = kernels.launch_counts()
+    assert (counts["K2"], counts["K3"], counts["K4"]) == (1, 2, 2)
+    for got, want in zip((z_bulk, z_tail, med), fr.fast_rank_bulk_tail(x)):
+        # an fm that differs in its last bits moves a rank by a fraction of
+        # its bin's count: 1e-3 in z
+        assert_close(got.cpu(), want, rtol=0, atol=1e-3, equal_nan=True)
+    assert torch.isnan(z_tail[:, :, 5]).all() and not z_bulk[:, :, 2].any()
 
 
 @pytest.mark.parametrize("n,p,nbins", [(50001, 37, 4096), (4096, 7, 256),
