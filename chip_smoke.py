@@ -20,7 +20,9 @@ and exits nonzero, printing no result, if any phase fails:
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
    on that sample; checks that every kernel ran, that fast tracks exact,
-   and that the badly mixed parameter is flagged; prints the wall times;
+   and that the badly mixed parameter is flagged; then the same sample as
+   numpy float64 with no device, which must run K1-K4 on the card and give
+   the float32 tensor's result; prints the wall times;
 5. card against CPU: the same calls at 2000 x 32 x 64 on the card and
    through the plain CPU path must agree;
 6. the estimator path with ``DirectKernelAutocovMethod`` (kernel K5): K5
@@ -55,7 +57,31 @@ and exits nonzero, printing no result, if any phase fails:
     must run in every chunk, the first 256 parameters must equal the resident
     call of phase 4, peak device memory must stay bounded whatever the number
     of chunks; prints the wall beside the sums of gather, copy and compute;
-    then the exact rank mode in chunks of 64 against phase 4's exact result.
+    then the exact rank mode in chunks of 64 against phase 4's exact result;
+12. ``discretediag`` on BASELINE.md config 3 digitized into 4 categories
+    (10k x 8 x 100): all six methods at nsim=1000 on the card, the three
+    chi-squared methods against the CPU (stat, df, p within 1e-9 relative),
+    the bootstrap methods' statistic against the CPU's, finite df and
+    p-values in [0, 1], their df and p-values against the CPU's at nsim=1000
+    on the first 4 parameters (df 15 %, p on the same side of 0.05 where the
+    CPU's lies 3 Monte Carlo errors from it), MCBOOT's NaN statistic and 0.0
+    p-value; a chain drawn from other category probabilities flagged at
+    p < 1e-3 by weiss and billingsley; walls, the share of each bootstrap
+    wall spent in the loop over draws, and a profile of that loop;
+13. dense R*: the default ``GBTClassifier()`` through ``rstar`` on 1000 x 8
+    x 100 AR(1) draws with one chain of one parameter shifted by 1 sd and
+    without, probabilistic and deterministic (shifted above unshifted, the
+    dense fit must run); one fitted state predicts the same logits on the
+    card and on the CPU (1e-5);
+14. BASELINE.md config 5's R* (100 draws x 10,000 chains x 4 params: 20,000
+    classes on ~700k training rows) through the class-chunked fit, which
+    must run, mean in [0.9, 1.1]; wall, peak memory, and the device time
+    split between the logit products, the histograms and the rest; then its
+    first 256 chains through the dense and the class-chunked fit (splits
+    equal, leaf values within 5e-6);
+15. float64 on the card: ``ess_rhat`` in both rank modes, ``mcse`` mean and
+    ``gewekediag`` at 2000 x 32 x 64 run the plain versions on the card (no
+    kernel may launch) and agree with the CPU within 1e-6.
 
 The line before the last two is the card's name and power limit, the
 second-to-last line the kernels' JSON record (each with its time, its plain
@@ -453,13 +479,39 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
           f"max of the others {rest:.4f}")
     check(rb > 1.1 and rest < 1.1, "badly mixed parameter not flagged")
 
+    # the plainest call, numpy float64 with no device: float32 on the card
+    # (the JAX package's default), so K1-K4 run and give the tensor's result
+    x_np = x3.cpu().numpy().astype(np.float64)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from_np = mtt.ess_rhat(x_np, kind="rank", rank_mode="fast")
+    torch.cuda.synchronize()
+    np_wall = time.perf_counter() - t0
+    np_counts = kernels.launch_counts()
+    del x_np
+    np_ess = float((from_np.ess / fast.ess - 1).abs().max())
+    np_rhat = float((from_np.rhat - fast.rhat).abs().max())
+    print(f"[4 numpy float64, no device] {np_counts}; on {from_np.ess.device} "
+          f"{from_np.ess.dtype}; vs the float32 tensor: ESS rel {np_ess:.3e}, "
+          f"R-hat abs {np_rhat:.3e} (bounds 1e-6); wall {np_wall:.3f} s (the "
+          "host cast and copy of 2.6 GB included)")
+    for kid, least in (("K1", 1), ("K2", 1), ("K3", 2), ("K4", 2)):
+        check(np_counts[kid] >= least, f"{kid} ran {np_counts[kid]} times in "
+              f"the numpy float64 call, expected >= {least}")
+    check(from_np.ess.device.type == "cuda"
+          and from_np.ess.dtype == torch.float32
+          and np_ess <= 1e-6 and np_rhat <= 1e-6,
+          "numpy float64 input does not give the float32 tensor's result")
+
     walls = {
         "fast_s": wall_s(lambda: mtt.ess_rhat(x3, kind="rank", rank_mode="fast")),
         "exact_s": wall_s(lambda: mtt.ess_rhat(x3, kind="rank")),
     }
     print(f"[4 wall] fast {walls['fast_s']:.4f} s, exact {walls['exact_s']:.4f} s "
           f"(median of 3, {DRAWS}x{CHAINS}x{PARAMS} f32)")
-    return {"counts": fast_counts, "fast": fast, "exact": exact, **walls}
+    return {"counts": fast_counts, "fast": fast, "exact": exact,
+            "numpy_float64_s": np_wall, **walls}
 
 
 def geyer_stop_pairs(proxy: torch.Tensor, method: str, maxlag: int):
@@ -1314,6 +1366,411 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
                                      "exact_rhat_abs": rhat_abs_x}}
 
 
+# ---- phases 12-15: discretediag, R*, float64 on the card --------------------
+
+
+class CallTimer:
+    """Wraps a module function for one phase: counts its calls and sums its
+    wall time (synchronising the card around each call); put back by
+    ``restore``. The module's callers find it through the module's
+    namespace, so the wrapper sees every call they make."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls, self.seconds = 0, 0.0
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(module, name, timed)
+
+    def reset(self) -> None:
+        self.calls, self.seconds = 0, 0.0
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+def rel_dev(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max relative deviation of ``a`` from ``b`` (float64, on the host) over
+    entries where neither is NaN; NaN masks must agree."""
+    a, b = a.double().cpu(), b.double().cpu()
+    check(torch.equal(torch.isnan(a), torch.isnan(b)), "NaN positions differ")
+    ok = ~torch.isnan(a) & (a != b)
+    return float(((a[ok] - b[ok]).abs() / b[ok].abs()).max()) if ok.any() else 0.0
+
+
+DISCRETE_METHODS = ("weiss", "hangartner", "billingsley", "DARBOOT", "MCBOOT",
+                    "billingsleyBOOT")
+# the bootstraps' df and p-values against the CPU's on the first parameters
+# (each test depends on its own parameter only): on the same side of 0.05
+# wherever the CPU's p lies more than three Monte Carlo standard errors from
+# it, df within 15 % (the margins of tests/test_torch_discretediag.py)
+BOOT_CPU_PARAMS = 4
+P_MARGIN = 3 * math.sqrt(0.05 * 0.95 / 1000)
+
+
+def boot_vs_cpu(method: str, part: str, g, c) -> tuple[int, float]:
+    """Side-of-0.05 disagreements and the largest relative df deviation of
+    the card's bootstrap ``g`` (every parameter) from the CPU's ``c`` (the
+    first ``BOOT_CPU_PARAMS``), both at nsim=1000."""
+    gp, gd = g.pvalue[:BOOT_CPU_PARAMS].cpu(), g.df[:BOOT_CPU_PARAMS].cpu()
+    clear = (c.pvalue - 0.05).abs() > P_MARGIN
+    flips = int(((gp < 0.05) != (c.pvalue < 0.05))[clear].sum())
+    df_rel = float(((gd - c.df).abs() / c.df.abs()).max())
+    check(flips == 0, f"{method} {part}: {flips} p-values on the other side "
+          "of 0.05 from the CPU's")
+    check(df_rel <= 0.15, f"{method} {part}: df {df_rel:.3f} from the CPU's")
+    return flips, df_rel
+
+
+def phase_discretediag() -> dict:
+    """BASELINE.md config 3 (benchmarks/suite.py: a seeded standard-normal
+    10k x 8 x 100 float32 sample digitized at -1, 0, 1) through all six
+    methods at nsim=1000 on the card. The chi-squared methods against the
+    port's CPU path (stat, df, p within 1e-9 relative); the bootstrap
+    methods' statistic against the CPU's (it does not depend on the draws:
+    nsim=1 there; 1e-12 relative, float64 sums of a few terms in another
+    order), their df finite and p-values in [0, 1], and df and p-values
+    against the CPU's at nsim=1000 on the first parameters (``boot_vs_cpu``);
+    MCBOOT's NaN statistic and 0.0 p-value; a chain drawn from other category probabilities flagged
+    by weiss and billingsley at p < 1e-3. Walls, and for the bootstrap
+    methods the share of the wall spent in the loop over draws."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics import discretediag as dd
+
+    rng = np.random.default_rng(0)
+    z = rng.standard_normal((10_000, 8, 100)).astype(np.float32)
+    cats = np.digitize(z, [-1.0, 0.0, 1.0]).astype(np.float32)
+    x_cpu = torch.from_numpy(cats)
+    x_gpu = x_cpu.cuda()
+    print("[12 data] config 3 digitized at -1, 0, 1: 10000x8x100, 4 "
+          "categories, on the card")
+    mtt.discretediag(x_gpu)  # first use of these PyTorch ops on the card
+    loop = CallTimer(dd, "_draw_loop")
+    out = {}
+    try:
+        for method in DISCRETE_METHODS:
+            loop.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mtt.discretediag(x_gpu, method=method, nsim=1000, rng=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            loop_s, loop_calls = loop.seconds, loop.calls
+            boot = method.endswith("BOOT")
+            share = loop_s / wall
+            cpu = mtt.discretediag(x_cpu, method=method, nsim=1 if boot else
+                                   1000, rng=0)
+            if boot:
+                t1 = time.perf_counter()
+                cpu_slice = mtt.discretediag(x_cpu[:, :, :BOOT_CPU_PARAMS],
+                                             method=method, nsim=1000, rng=0)
+                cpu_slice_s = time.perf_counter() - t1
+            for part, shape in (("between_chain", (100,)),
+                                ("within_chain", (100, 8))):
+                g, c = getattr(res, part), getattr(cpu, part)
+                for field, v in zip(g._fields, g):
+                    check(tuple(v.shape) == shape and v.device.type == "cuda"
+                          and v.dtype == torch.float64,
+                          f"{method} {part}.{field}: {tuple(v.shape)} "
+                          f"{v.dtype} on {v.device}")
+                if boot:
+                    dev_stat = rel_dev(g.stat, c.stat)
+                    check(dev_stat <= 1e-12, f"{method} {part} statistic: "
+                          f"card != CPU ({dev_stat:.3e})")
+                    check(bool(torch.isfinite(g.df).all()),
+                          f"{method} {part}: df not finite")
+                    check(bool(((g.pvalue >= 0) & (g.pvalue <= 1)).all()),
+                          f"{method} {part}: p-value outside [0, 1]")
+                    if method == "MCBOOT":
+                        check(bool(torch.isnan(g.stat).all()
+                                   and (g.pvalue == 0).all()),
+                              "MCBOOT: statistic not NaN or p-value not 0")
+                    dev = dev_stat
+                    flips, df_rel = boot_vs_cpu(method, part, g,
+                                                getattr(cpu_slice, part))
+                    out.setdefault(method, {})[f"{part}_df_rel_vs_cpu"] = df_rel
+                    out[method][f"{part}_p_side_flips"] = flips
+                else:
+                    dev = max(rel_dev(a, b) for a, b in zip(g, c))
+                    check(dev <= 1e-9, f"{method} {part}: card != CPU "
+                          f"({dev:.3e})")
+                out.setdefault(method, {})[f"{part}_card_vs_cpu_rel"] = dev
+            out[method].update(wall_s=wall, draw_loop_s=loop_s,
+                               draw_loop_share=share)
+            what = (f"draw loop {loop_s:.3f} s ({share:.1%}, {loop_calls} "
+                    "chunks)" if boot else "no draw loop")
+            print(f"[12 {method}] wall {wall:.3f} s, {what}; card vs CPU "
+                  f"{'statistic ' if boot else 'stat/df/p '}max rel "
+                  f"{max(out[method]['between_chain_card_vs_cpu_rel'], out[method]['within_chain_card_vs_cpu_rel']):.3e}")
+            if boot:
+                o = out[method]
+                print(f"[12 {method} vs CPU, nsim=1000, first "
+                      f"{BOOT_CPU_PARAMS} params] df max rel "
+                      f"{max(o['between_chain_df_rel_vs_cpu'], o['within_chain_df_rel_vs_cpu']):.3e} "
+                      f"(bound 0.15); p on the other side of 0.05 "
+                      f"{o['between_chain_p_side_flips'] + o['within_chain_p_side_flips']} "
+                      f"(bound 0, where the CPU's p lies more than "
+                      f"{P_MARGIN:.4f} from 0.05); CPU {cpu_slice_s:.1f} s")
+    finally:
+        loop.restore()
+
+    # what the loop over draws spends its time on: MCBOOT on the first 500
+    # draws under the profiler (device time by kernel, idle share)
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import profile_calls
+
+    prof = profile_calls.profile_call(
+        lambda: mtt.discretediag(x_gpu[:500], method="MCBOOT", nsim=1000,
+                                 rng=0), top=6)
+    steps = 499 + 149  # between-chain and within-chain draws after the first
+    print(f"[12 MCBOOT profile, 500 draws] wall {prof['wall_ms']:.1f} ms "
+          f"({prof['wall_ms'] * 1e3 / steps:.0f} us a draw), device "
+          f"{prof['device_ms']:.1f} ms, idle {prof['idle']:.1%}")
+    for kernel, ms, n in prof["kernels"]:
+        print(f"   {ms:8.3f} ms x{n:<5d} {kernel[:90]}")
+    out["MCBOOT"]["profile_500_draws"] = {
+        k: prof[k] for k in ("wall_ms", "device_ms", "idle")}
+
+    # chain 0 of parameter 0 drawn from other category probabilities
+    bad = cats.copy()
+    bad[:, 0, 0] = rng.choice(4, size=10_000, p=[0.05, 0.15, 0.3, 0.5])
+    xb = torch.from_numpy(bad).cuda()
+    for method in ("weiss", "billingsley"):
+        p = mtt.discretediag(xb, method=method).between_chain.pvalue
+        rest = float(p[1:].min())
+        print(f"[12 {method} flags the odd chain] p of parameter 0 "
+              f"{float(p[0]):.3e} (bound 1e-3); min of the others {rest:.3e}")
+        check(float(p[0]) < 1e-3, f"{method}: the odd chain is not flagged")
+        out[method]["odd_chain_p"] = float(p[0])
+    return out
+
+
+def rstar_sample(rng, shift: bool) -> np.ndarray:
+    """1000 draws x 8 chains x 100 params of AR(1) phi=0.5, parameter 0 of
+    chain 0 shifted by one stationary sd (1 / sqrt(1 - phi^2)) if asked."""
+    x = ar1(rng, 0.5, (1000, 8, 100))
+    if shift:
+        x[:, 0, 0] += np.float32(1.0 / math.sqrt(0.75))
+    return x
+
+
+def phase_rstar_dense() -> dict:
+    """The default ``GBTClassifier()`` (100 rounds, depth 3, 64 bins) through
+    ``rstar`` on a shifted and an unshifted sample, probabilistic (mean) and
+    ``deterministic``: the shifted R* must exceed the unshifted, the dense
+    fit must run. Then one fit on the card, and predict with that state on
+    the card and on the CPU: logits within 1e-5."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.models import gbt
+
+    rng = np.random.default_rng(SEED + 13)
+    xs = {name: torch.from_numpy(rstar_sample(rng, name == "shifted")).cuda()
+          for name in ("shifted", "unshifted")}
+    dense = CallTimer(gbt, "_fit_gbt")
+    bigk = CallTimer(gbt, "_fit_gbt_bigk")
+    out = {}
+    try:
+        for name, x in xs.items():
+            for algo, clf in (("probabilistic", mtt.models.GBTClassifier()),
+                              ("deterministic", mtt.models.deterministic(
+                                  mtt.models.GBTClassifier()))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = mtt.rstar(clf, x, rng=0)
+                wall = time.perf_counter() - t0
+                val = r.mean() if algo == "probabilistic" else r
+                check(math.isfinite(val), f"R* {name} {algo} not finite")
+                out[f"{name}_{algo}"] = val
+                out[f"{name}_{algo}_wall_s"] = wall
+                print(f"[13 {name} {algo}] R* {val:.4f}; wall {wall:.3f} s")
+        check(dense.calls == 4 and bigk.calls == 0,
+              f"dense fits {dense.calls}, class-chunked {bigk.calls}: "
+              "expected 4 and 0")
+        for algo in ("probabilistic", "deterministic"):
+            check(out[f"shifted_{algo}"] > out[f"unshifted_{algo}"],
+                  f"{algo} R* of the shifted sample does not exceed the "
+                  "unshifted")
+    finally:
+        dense.restore()
+        bigk.restore()
+
+    # one state, predicted on the card and on the CPU
+    x = xs["shifted"]
+    rows = x.permute(1, 0, 2).reshape(8000, 100)
+    y = np.repeat(np.arange(16), 500)  # split chains, in order
+    clf = mtt.models.GBTClassifier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = clf.fit(rows, y, 16)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg = clf.predict_logits(state, rows)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    state_cpu = type(state)(*(v.cpu() if isinstance(v, torch.Tensor) else v
+                              for v in state))
+    lc = clf.predict_logits(state_cpu, rows.cpu())
+    err = max_abs_err(lg.cpu(), lc)
+    print(f"[13 one state] fit {fit_s:.3f} s, predict {predict_s * 1e3:.2f} "
+          f"ms on 8000 x 100 rows, 16 classes; logits card vs CPU max abs "
+          f"{err:.3e} (bound 1e-5)")
+    check(err <= 1e-5, "GBT logits: card != CPU")
+    out.update(fit_s=fit_s, predict_s=predict_s, logits_card_vs_cpu=err)
+    return out
+
+
+def profile_split(fn, labels) -> dict:
+    """One call of ``fn`` under the profiler: device time (ms) of the
+    kernels launched inside each ``record_function`` label and of the rest,
+    by walking each launching op up to its labelled ancestor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {lab: 0.0 for lab in labels}
+    split["rest"] = 0.0
+    for e in prof.events():
+        if e.device_type.name != "CPU" or not e.kernels or e.name in labels:
+            continue
+        lab, p = "rest", e.cpu_parent
+        while p is not None:
+            if p.name in labels:
+                lab = p.name
+                break
+            p = p.cpu_parent
+        split[lab] += sum(k.duration for k in e.kernels
+                          if k.name not in labels) / 1e3
+    return split
+
+
+def phase_rstar_bigk() -> dict:
+    """BASELINE.md config 5's R* (benchmarks/suite.py: 100 draws x 10,000
+    chains x 4 params, standard normal float32, seed 0) through
+    ``GBTClassifier(n_rounds=20, n_bins=32, class_chunk=256)`` with rng=0:
+    20,000 split-chain classes on ~700k training rows through the
+    class-chunked fit, which must run; the mean must lie in [0.9, 1.1].
+    Wall and peak device memory of one run, then the device time split
+    between the logit products, the histograms and the rest from a second
+    run under the profiler. Then the first 256 chains through the dense fit
+    and the class-chunked fit (64 classes a chunk): splits equal, leaf
+    values within 5e-6."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.models import gbt
+
+    x = np.random.default_rng(0).standard_normal((100, 10_000, 4)).astype(
+        np.float32)
+    xg = torch.from_numpy(x).cuda()
+    clf = mtt.models.GBTClassifier(n_rounds=20, n_bins=32, class_chunk=256)
+    bigk = CallTimer(gbt, "_fit_gbt_bigk")
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dist = mtt.rstar(clf, xg, rng=0)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        check(bigk.calls == 1, f"class-chunked fit ran {bigk.calls} times")
+        fit_s = bigk.seconds
+    finally:
+        bigk.restore()
+    mean = dist.mean()
+    print(f"[14 config 5 R*] mean {mean:.4f} (bounds 0.9, 1.1), {dist.n} test "
+          f"rows; wall {wall:.2f} s (fit {fit_s:.2f} s), peak +{peak:.2f} GB")
+    check(0.9 <= mean <= 1.1, "config 5 R* outside [0.9, 1.1]")
+    split = profile_split(lambda: mtt.rstar(clf, xg, rng=0),
+                          ("gbt.logits", "gbt.hist"))
+    total = sum(split.values())
+    print(f"[14 device time] {total / 1e3:.2f} s: logit products "
+          f"{split['gbt.logits'] / 1e3:.2f} s, histograms "
+          f"{split['gbt.hist'] / 1e3:.2f} s, rest {split['rest'] / 1e3:.2f} s")
+
+    # the first 256 chains (512 split-chain classes, 25,600 rows) through
+    # the dense fit and the class-chunked fit: the same forest
+    rows = xg[:, :256].permute(1, 0, 2).reshape(25_600, 4)
+    y = np.repeat(np.arange(512), 50)
+    states, walls = {}, {}
+    for kc in (-1, 64):
+        c = mtt.models.GBTClassifier(n_rounds=20, n_bins=32, class_chunk=kc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[kc] = c.fit(rows, y, 512)
+        torch.cuda.synchronize()
+        walls[kc] = time.perf_counter() - t0
+    dense, chunked = states[-1], states[64]
+    same = (torch.equal(dense.split_feature, chunked.split_feature)
+            and torch.equal(dense.split_bin, chunked.split_bin))
+    lv_err = max_abs_err(dense.leaf_value, chunked.leaf_value)
+    print(f"[14 dense vs class-chunked, 256 chains] splits equal: {same}; leaf "
+          f"values max abs {lv_err:.3e} (bound 5e-6); fits {walls[-1]:.2f} s "
+          f"dense, {walls[64]:.2f} s in chunks of 64 classes")
+    check(same and lv_err <= 5e-6,
+          "class-chunked fit differs from the dense fit")
+    return {"mean": mean, "wall_s": wall, "fit_s": fit_s, "peak_gb": peak,
+            "device_ms": split, "slice_leaf_value_max_abs": lv_err,
+            "slice_fit_dense_s": walls[-1], "slice_fit_chunked_s": walls[64]}
+
+
+def phase_float64() -> dict:
+    """Float64 on the card: ``ess_rhat(kind="rank")`` in both rank modes,
+    ``mcse(kind="mean")`` and ``gewekediag`` on a 2000 x 32 x 64 float64
+    sample run the plain versions on the card (no kernel may launch) and
+    agree with the CPU within 1e-6 (relative; Geweke z 1e-6 abs + rel)."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+
+    rng = np.random.default_rng(SEED + 15)
+    x_cpu = torch.from_numpy(ar1(rng, 0.5, (2000, 32, 64)).astype(np.float64))
+    x_gpu = x_cpu.cuda()
+    calls = {
+        "ess_rhat fast": lambda v: mtt.ess_rhat(v, kind="rank",
+                                                rank_mode="fast"),
+        "ess_rhat exact": lambda v: mtt.ess_rhat(v, kind="rank"),
+        "mcse mean": lambda v: mtt.mcse(v, kind="mean"),
+        "gewekediag": lambda v: mtt.gewekediag(v),
+    }
+    out = {}
+    for name, fn in calls.items():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = fn(x_gpu)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        wall = wall_s(lambda: fn(x_gpu))
+        counts = kernels.launch_counts()
+        check(not any(counts.values()), f"float64 {name} launched {counts}")
+        c = fn(x_cpu)
+        g = g if isinstance(g, tuple) else (g,)
+        c = c if isinstance(c, tuple) else (c,)
+        worst = 0.0
+        for a, b in zip(g, c):
+            check(a.device.type == "cuda" and a.dtype == torch.float64,
+                  f"float64 {name}: {a.dtype} on {a.device}")
+            a, b = a.cpu(), b
+            tol = 1e-6 * (1 + b.abs()) if name == "gewekediag" else 1e-6 * b.abs()
+            check(bool(((a - b).abs() <= tol).all()),
+                  f"float64 {name}: card != CPU")
+            worst = max(worst, rel_dev(a, b))
+        print(f"[15 float64 {name}] card vs CPU max rel {worst:.3e} (bound "
+              f"1e-6); no kernel launched; wall {wall * 1e3:.1f} ms (median "
+              f"of 3; first call {first * 1e3:.1f} ms)")
+        out[name] = {"card_vs_cpu_rel": worst, "wall_s": wall,
+                     "first_call_s": first}
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     # (fails outside the repo)
@@ -1344,6 +1801,11 @@ def main() -> int:
     lag = phase_lagloop(build_log)
     sort = phase_sort_study(build_log)
     streaming = phase_streaming(x3, e2e.pop("fast"), e2e.pop("exact"))
+    del x3
+    discrete = phase_discretediag()
+    rstar_dense = phase_rstar_dense()
+    rstar_bigk = phase_rstar_bigk()
+    float64 = phase_float64()
 
     src = f"{PKG}/csrc/"
     pallas = "mcmcdiagnostictools_jl_tpu/ops/pallas/"
@@ -1388,10 +1850,13 @@ def main() -> int:
         entry.update(row)
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
+                      "wall_numpy_float64_s": e2e["numpy_float64_s"],
                       **est["walls"],
                       "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"],
                       **fz["walls"], "fused_vs_unfused": fz["fused_vs_unfused"],
-                      "classical": classical, "streaming": streaming}))
+                      "classical": classical, "streaming": streaming,
+                      "discretediag": discrete, "rstar_dense": rstar_dense,
+                      "rstar_config5": rstar_bigk, "float64": float64}))
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

@@ -8,20 +8,31 @@ reference) to PyTorch on an NVIDIA H100. It covers ``ess`` (every kind:
 fast: histogram CDF, with ``ops.fastrank.FUSE_BLOM_Z`` selecting kernel K4's
 fused z mode), and the classical suite ``gelmandiag``,
 ``gelmandiag_multivariate``, ``gewekediag``, ``heideldiag`` and
-``rafterydiag``, and the out-of-core executor ``stream_param_chunks`` /
-``ess_rhat_streaming`` for a host sample larger than device memory. The
-kernel studies (lag-loop formulations, sort passes and the pod sort) live in
-``benchmarks/``.
+``rafterydiag``, the discrete diagnostic ``discretediag``, the classifier
+diagnostic ``rstar`` (with its histogram GBT in ``models/``), and the
+out-of-core executor ``stream_param_chunks`` / ``ess_rhat_streaming`` for a
+host sample larger than device memory. The kernel studies (lag-loop
+formulations, sort passes and the pod sort) live in ``benchmarks/``.
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
 a parameter slice poisons only that parameter. A tensor is computed on its
 own device: a CUDA float32 tensor goes through the kernels in ``kernels/``,
-a CPU tensor through their plain PyTorch versions; numpy input goes to the
-``device=`` argument (default: the CPU).
+a CUDA float64 tensor through their plain PyTorch versions on the card, a
+CPU tensor through the plain versions on the host. Numpy and other
+non-tensor input goes to the ``device=`` argument, by default the current
+card, where float64 becomes float32 (the JAX package's default) and so runs
+the kernels: pass ``device="cpu"`` (or a CPU tensor) to compute on the host,
+float64 kept.
 """
 
+from . import models
 from .diagnostics.bfmi import bfmi
+from .diagnostics.discretediag import (
+    DiscreteDiagResult,
+    DiscreteDiagValues,
+    discretediag,
+)
 from .diagnostics.gelmandiag import (
     GelmanMultivariateResult,
     GelmanResult,
@@ -45,6 +56,7 @@ from .diagnostics.ess_rhat import (
 from .diagnostics.mcse import mcse
 from .diagnostics.rafterydiag import RafteryResult, rafterydiag
 from .diagnostics.rhat_nested import rhat_nested
+from .diagnostics.rstar import rstar
 from .streaming import StreamStats, ess_rhat_streaming, stream_param_chunks
 
 __version__ = "0.1.0"
@@ -61,6 +73,8 @@ __all__ = [
     "gewekediag",
     "heideldiag",
     "rafterydiag",
+    "discretediag",
+    "rstar",
     "ess_rhat_streaming",
     "stream_param_chunks",
     "StreamStats",
@@ -76,4 +90,7 @@ __all__ = [
     "GewekeResult",
     "HeidelResult",
     "RafteryResult",
+    "DiscreteDiagResult",
+    "DiscreteDiagValues",
+    "models",
 ]

@@ -5,13 +5,17 @@ The JAX package probes the platform in three places (``_auto_method`` and
 in ``ops/fastrank.py``). Here a tensor's own device decides, once:
 
 - a CUDA float32 tensor goes to the hand-written kernels (``kernels/``);
-- a CPU tensor goes to the plain PyTorch versions beside them;
-- a CUDA tensor of any other dtype raises ``NotImplementedError``: no float64
-  path for the card is ported yet (ROADMAP.md, queue A).
+- a CUDA float64 tensor goes to the plain PyTorch versions beside them, on
+  the card (the JAX package sends float64 down plain XLA the same way): no
+  kernel is written in float64;
+- a CPU tensor goes to the plain PyTorch versions;
+- a CUDA tensor of any other dtype raises ``NotImplementedError``.
 
-There is no silent route from a CUDA tensor to a plain version. Entry points
-that take host data and no tensor (the out-of-core executor, the kernel
-studies) run on the card unless the caller names a device: ``resolve_device``.
+The route is chosen by device and dtype alone: a CUDA float32 tensor whose
+kernel fails to build or launch raises, it never falls back to a plain
+version. Non-tensor input (numpy, lists) and the entry points that take host
+data (the out-of-core executor, the kernel studies) run on the card unless
+the caller names a device: ``resolve_device``.
 """
 
 from __future__ import annotations
@@ -21,13 +25,16 @@ import torch
 
 def use_kernels(x: torch.Tensor) -> bool:
     """True when ``x`` must go through the hand-written kernels, False when
-    the plain PyTorch version serves it (CPU tensors). Raises for a CUDA
-    tensor that is not float32 and for any other device."""
+    the plain PyTorch version serves it (CPU tensors, and CUDA float64
+    tensors, on the card). Raises for a CUDA tensor of any other dtype and
+    for any other device."""
     if x.device.type == "cuda":
+        if x.dtype == torch.float64:
+            return False
         if x.dtype != torch.float32:
             raise NotImplementedError(
-                f"CUDA tensors must be float32, got {x.dtype}: the float64 "
-                "card path is not ported yet (ROADMAP.md, queue A)"
+                f"CUDA tensors must be float32 (the kernels) or float64 (the "
+                f"plain versions on the card), got {x.dtype}"
             )
         return True
     if x.device.type == "cpu":

@@ -4,7 +4,9 @@
 - ``sort_microbench``: the traffic of one sort pass (K7, K8) and the bitonic
   sort of a pod (K9) beside the library sort;
 - ``profile_calls``: where the device time of the port's flagship calls goes
-  (``torch.profiler``, by kernel).
+  (``torch.profiler``, by kernel);
+- ``gbt_contract``: the R* GBT's histogram and leaf products at config 5's
+  shapes, one product against row blocks through ``torch.bmm``.
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -10,6 +10,10 @@ JAX package's ``ops/special.py``).
   That also keeps the inverse accurate at the large Beta parameters (ESS ~
   1e5) where the JAX package's float32 bisection and its Cornish-Fisher
   branch lose digits (ROADMAP.md, fault C1).
+- ``chi2_sf``, the chi-squared survival function of the discrete
+  diagnostic's p-values, likewise: SciPy on the host in float64 for ``(P,)``
+  vectors, as the JAX package computes them (``torch.special.gammaincc`` is
+  up to 2e-9 off SciPy at the degrees of freedom those tests meet).
 - ``besselk_quarter`` and ``pcramer``, the Cramer-von Mises p-value of the
   Heidelberger-Welch test (src/heideldiag.jl:56-68): batched tensor
   functions on the argument's device and in its dtype.
@@ -40,6 +44,14 @@ def fdist_quantile(d1, d2, q: float) -> torch.Tensor:
     d1 = torch.as_tensor(d1, dtype=torch.float64, device=d2.device)
     y = betaincinv(d1 / 2, d2 / 2, q)
     return d2 * y / (d1 * (1.0 - y))
+
+
+def chi2_sf(stat: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """``scipy.stats.chi2.sf(stat, df)`` elementwise (broadcast together), as
+    a float64 tensor on ``stat``'s device."""
+    s64 = stat.detach().to("cpu", torch.float64).numpy()
+    d64 = df.detach().to("cpu", torch.float64).numpy()
+    return torch.from_numpy(special.chdtrc(d64, s64)).to(stat.device)
 
 
 def besselk_quarter(x: torch.Tensor) -> torch.Tensor:

@@ -327,9 +327,9 @@ def ess_rhat_streaming(
     the streaming regime being the throughput regime; ``rank_mode="exact"``
     sorts. A NaN poisons only its parameter. ``niter <= 4`` raises.
 
-    ``device``: default the card, where float32 chunks run kernels K1-K4
-    (any other ``dtype`` raises there); ``"cpu"`` runs the plain versions in
-    a plain loop. With ``return_stats=True`` also returns the
+    ``device``: default the card, where float32 chunks run kernels K1-K4 and
+    float64 chunks their plain versions (any other ``dtype`` raises there);
+    ``"cpu"`` runs the plain versions in a plain loop. With ``return_stats=True`` also returns the
     :class:`StreamStats` of the run.
 
     The JAX function's ``mesh_cfg`` and ``rank_impl`` (streaming onto a
@@ -345,10 +345,6 @@ def ess_rhat_streaming(
     _check_maxlag(maxlag)
     device = resolve_device(device)
     dtype = _torch_dtype(dtype)
-    if device.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"chunks on the card must be float32, got {dtype}: the float64 "
-            "card path is not ported yet (ROADMAP.md, queue A)")
     src, nparams, pshape, dims = _make_source(source, nparams)
     if nparams <= 0:
         raise ValueError("streaming requires at least one parameter")

@@ -18,9 +18,11 @@ def canonicalize(x, device=None, min_ndim: int = 1):
     """``x`` of shape ``(draws[, chains[, params...]])`` as ``(draws, chains,
     P)`` plus the original parameter shape.
 
-    A tensor is computed where it lives; any other input (numpy, lists) goes
-    to ``device`` (default: the CPU). Floating dtypes are kept; integers and
-    bools promote to ``torch.get_default_dtype()``. A 1-d input gains a
+    A tensor is computed where it lives, in its dtype; any other input
+    (numpy, lists) goes to ``device``, by default the current card, float64
+    as float32 there (``device="cpu"`` for the host; with no card and no
+    ``device`` this raises; ``convert.to_tensor``). Integers and bools
+    promote to ``torch.get_default_dtype()``. A 1-d input gains a
     singleton chain axis; <=2-d inputs have ``pshape == ()``.
     """
     x = to_tensor(x, device)

@@ -133,8 +133,8 @@ def test_window_mcse_equals_full_series_mcse(rng):
     equals the MCSE of the sliced window."""
     x = ar1(rng, 0.6, 1.0, (800, 3))
     s, m, _ = _window_mcse_mean(t(x), [(0, 800), (100, 530)])
-    assert_close(s[0], mtt.mcse(t(x[:, None, :]), split_chains=1), **PARITY_F64)
-    assert_close(s[1], mtt.mcse(t(x[100:530, None, :]), split_chains=1),
+    assert_close(s[0], mtt.mcse(t(x[:, None, :]), split_chains=1, device="cpu"), **PARITY_F64)
+    assert_close(s[1], mtt.mcse(t(x[100:530, None, :]), split_chains=1, device="cpu"),
                  **PARITY_F64)
     assert_close(m, np.stack([x.mean(0), x[100:530].mean(0)]), **PARITY_F64)
 
@@ -145,8 +145,8 @@ def test_window_mcse_equals_full_series_mcse(rng):
 @pytest.mark.parametrize("ndim", [3, 4])
 def test_gelman_matches_jax(chains, ndim):
     x = _shaped(chains, ndim)
-    assert_result(mtt.gelmandiag(x), mdt.gelmandiag(x), ndim)
-    got = mtt.gelmandiag_multivariate(x)
+    assert_result(mtt.gelmandiag(x, device="cpu"), mdt.gelmandiag(x), ndim)
+    got = mtt.gelmandiag_multivariate(x, device="cpu")
     want = mdt.gelmandiag_multivariate(x)
     assert isinstance(got.psrfmultivariate, float)
     for g, w in zip(got[:2], want[:2]):
@@ -163,7 +163,7 @@ def test_gelman_matches_the_oracle(rng, shape, phi, alpha):
     x = ref_impl.ar1_matrix(rng, phi, 1.0, shape)
     x[: shape[0] // 4, 0, 0] += 2.0  # a transient: one PSRF well above 1
     want_psrf, want_ci, _, _ = ref_impl.gelmandiag(x, alpha)
-    got = mtt.gelmandiag(x, alpha=alpha)
+    got = mtt.gelmandiag(x, alpha=alpha, device="cpu")
     assert got.psrf.dtype == torch.float64
     assert_close(got.psrf, want_psrf, **PARITY_F64)
     assert_close(got.psrfci, want_ci, **PARITY_F64)
@@ -174,27 +174,27 @@ def test_gelman_matches_the_oracle(rng, shape, phi, alpha):
 def test_gelman_multivariate_matches_the_oracle(rng, shape, phi):
     x = ref_impl.ar1_matrix(rng, phi, 1.0, shape)
     want_psrf, want_ci, want_mv = ref_impl.gelman_multivariate(x)
-    got = mtt.gelmandiag_multivariate(x)
+    got = mtt.gelmandiag_multivariate(x, device="cpu")
     assert_close(got.psrf, want_psrf, **PARITY_F64)
     assert_close(got.psrfci, want_ci, **PARITY_F64)
     assert_close(got.psrfmultivariate, want_mv, **PARITY_F64)
 
 
 def test_gelman_alpha_and_tensor_input(chains):
-    got = mtt.gelmandiag(t(chains), alpha=0.2)
+    got = mtt.gelmandiag(t(chains), alpha=0.2, device="cpu")
     assert isinstance(got.psrf, torch.Tensor)
     assert_result(got, mdt.gelmandiag(chains, alpha=0.2), 3)
 
 
 def test_gelman_errors(rng):
     with pytest.raises(ValueError, match="2 chains"):
-        mtt.gelmandiag(rng.standard_normal((100, 1, 3)))
+        mtt.gelmandiag(rng.standard_normal((100, 1, 3)), device="cpu")
     with pytest.raises(ValueError, match="2 chains"):
-        mtt.gelmandiag_multivariate(rng.standard_normal((100, 1, 3)))
+        mtt.gelmandiag_multivariate(rng.standard_normal((100, 1, 3)), device="cpu")
     with pytest.raises(ValueError, match="two variables"):
-        mtt.gelmandiag_multivariate(rng.standard_normal((100, 4, 1)))
+        mtt.gelmandiag_multivariate(rng.standard_normal((100, 4, 1)), device="cpu")
     with pytest.raises(ValueError):
-        mtt.gelmandiag(rng.standard_normal((100, 4)))  # not 3-d
+        mtt.gelmandiag(rng.standard_normal((100, 4)), device="cpu")  # not 3-d
 
 
 # ---- Geweke -----------------------------------------------------------------
@@ -203,7 +203,7 @@ def test_gelman_errors(rng):
 @pytest.mark.parametrize("ndim", [1, 2, 3, 4])
 def test_geweke_matches_jax(chains, ndim):
     x = _shaped(chains, ndim)
-    assert_result(mtt.gewekediag(x), mdt.gewekediag(x), ndim)
+    assert_result(mtt.gewekediag(x, device="cpu"), mdt.gewekediag(x), ndim)
 
 
 @pytest.mark.parametrize("ndim", [1, 3])
@@ -216,16 +216,16 @@ def test_geweke_kwargs_match_jax(chains, ndim, kw):
     x = _shaped(chains, ndim)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the 3-draw window's short-chain warning
-        assert_result(mtt.gewekediag(x, **kw), mdt.gewekediag(x, **kw), ndim)
+        assert_result(mtt.gewekediag(x, **kw, device="cpu"), mdt.gewekediag(x, **kw), ndim)
 
 
 @pytest.mark.parametrize("kw", [dict(first=0.0), dict(last=1.0),
                                 dict(first=0.6, last=0.5)])
 def test_geweke_errors(rng, kw):
     with pytest.raises(ValueError):
-        mtt.gewekediag(rng.standard_normal(100), **kw)
+        mtt.gewekediag(rng.standard_normal(100), **kw, device="cpu")
     with pytest.raises(ValueError):
-        mtt.gewekediag(rng.standard_normal((100, 2, 2)), **kw)
+        mtt.gewekediag(rng.standard_normal((100, 2, 2)), **kw, device="cpu")
 
 
 # ---- Heidelberger-Welch -----------------------------------------------------
@@ -234,7 +234,7 @@ def test_geweke_errors(rng, kw):
 @pytest.mark.parametrize("ndim", [1, 2, 3, 4])
 def test_heidel_matches_jax(chains, ndim):
     x = _shaped(chains, ndim) + 2.0
-    assert_result(mtt.heideldiag(x), mdt.heideldiag(x), ndim)
+    assert_result(mtt.heideldiag(x, device="cpu"), mdt.heideldiag(x), ndim)
 
 
 @pytest.mark.parametrize("ndim", [1, 3])
@@ -242,7 +242,7 @@ def test_heidel_matches_jax(chains, ndim):
                                 dict(autocov_method="fft", alpha=0.2)])
 def test_heidel_kwargs_match_jax(chains, ndim, kw):
     x = _shaped(chains, ndim) + 2.0
-    assert_result(mtt.heideldiag(x, **kw), mdt.heideldiag(x, **kw), ndim)
+    assert_result(mtt.heideldiag(x, **kw, device="cpu"), mdt.heideldiag(x, **kw), ndim)
 
 
 def test_masked_window_stack_lag_sums(rng):
@@ -267,9 +267,9 @@ def test_heidel_needs_ten_draws():
     """With fewer than 10 draws the scan step int(n/10) is 0: the reference
     loops forever, the port raises."""
     with pytest.raises(ValueError, match="10 draws"):
-        mtt.heideldiag(np.arange(9.0))
+        mtt.heideldiag(np.arange(9.0), device="cpu")
     with pytest.raises(ValueError, match="10 draws"):
-        mtt.heideldiag(np.ones((9, 2)))
+        mtt.heideldiag(np.ones((9, 2)), device="cpu")
 
 
 # ---- Raftery-Lewis ----------------------------------------------------------
@@ -283,7 +283,7 @@ def long_chains(rng):
 @pytest.mark.parametrize("ndim", [1, 2, 3, 4])
 def test_raftery_matches_jax(long_chains, ndim):
     x = _shaped(long_chains, ndim)
-    got = mtt.rafterydiag(x)
+    got = mtt.rafterydiag(x, device="cpu")
     want = mdt.rafterydiag(x)
     assert_result(got, want, ndim)
     if ndim == 1:
@@ -298,18 +298,18 @@ def test_raftery_matches_jax(long_chains, ndim):
 def test_raftery_kwargs_match_jax(long_chains, kw):
     for ndim in (1, 3):
         x = _shaped(long_chains, ndim)
-        assert_result(mtt.rafterydiag(x, **kw), mdt.rafterydiag(x, **kw), ndim)
+        assert_result(mtt.rafterydiag(x, **kw, device="cpu"), mdt.rafterydiag(x, **kw), ndim)
 
 
 def test_raftery_too_few_draws_warns(rng):
     x = rng.standard_normal((100, 2, 3))
     with pytest.warns(UserWarning, match="samples are needed"):
-        got = mtt.rafterydiag(x)
+        got = mtt.rafterydiag(x, device="cpu")
     with pytest.warns(UserWarning, match="samples are needed"):
         want = mdt.rafterydiag(x)
     assert_result(got, want, 3)
     with pytest.warns(UserWarning, match="samples are needed"):
-        one = mtt.rafterydiag(x[:, 0, 0])
+        one = mtt.rafterydiag(x[:, 0, 0], device="cpu")
     assert one.thinning == -1 and one.nmin == 3746
     assert all(math.isnan(v) for v in (one.burnin, one.total,
                                        one.dependencefactor))
@@ -320,7 +320,7 @@ def test_raftery_ties_and_nan(rng):
     decides), and a NaN series follows numpy's NaN quantile."""
     x = np.round(ar1(rng, 0.5, 1.0, (6000, 2, 3)) * 4) / 4
     x[10, 1, 2] = np.nan
-    assert_result(mtt.rafterydiag(x), mdt.rafterydiag(x), 3)
+    assert_result(mtt.rafterydiag(x, device="cpu"), mdt.rafterydiag(x), 3)
 
 
 @pytest.mark.parametrize("q", [0.025, 0.5, 0.975, 0.3337, 0.0, 1.0])

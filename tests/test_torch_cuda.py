@@ -40,6 +40,8 @@ import torch
 
 import mcmcdiagnostictools_jl_tpu_torch as mtt
 from mcmcdiagnostictools_jl_tpu_torch import kernels
+from mcmcdiagnostictools_jl_tpu_torch.convert import to_tensor
+from mcmcdiagnostictools_jl_tpu_torch.utils import canonicalize
 from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import _beta_interval_ranks
 from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
 from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop, sort_microbench
@@ -386,11 +388,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F81
     with pytest.raises(ValueError):
         kfr.hist_moments(x, lo, lo, 100_000)  # does not fit shared memory
     with pytest.raises(NotImplementedError):
-        k1.moments_autocov(x[:8].double().reshape(8, 2, 4), 2)
+        k1.moments_autocov(x[:8].half().reshape(8, 2, 4), 2)
     with pytest.raises(ValueError):
         k5.direct_autocov(x.reshape(64, 2, 4).transpose(1, 2), 3)
     with pytest.raises(NotImplementedError):
-        k5.direct_autocov(x.double().reshape(64, 2, 4), 3)
+        k5.direct_autocov(x.half().reshape(64, 2, 4), 3)
 
 
 @pytest.mark.parametrize("mode", ["exact", "fast"])
@@ -459,8 +461,8 @@ def test_sbm_nested_bfmi_on_card_match_cpu(cuda_device):  # noqa: F811
                  rtol=1e-5, atol=0)
 
 
-def test_cuda_float64_tensor_raises(cuda_device):  # noqa: F811
-    x = torch.zeros((20, 2, 2), dtype=torch.float64, device=cuda_device)
+def test_cuda_float16_tensor_raises(cuda_device):  # noqa: F811
+    x = torch.zeros((20, 2, 2), dtype=torch.float16, device=cuda_device)
     with pytest.raises(NotImplementedError, match="float32"):
         mtt.ess_rhat(x)
     for fn in (mtt.mcse, mtt.ess, lambda v: mtt.rhat_nested(v, [0, 1]),
@@ -574,11 +576,11 @@ def test_study_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noq
     with pytest.raises(ValueError, match="shared memory"):
         k789.pass_contig(big, big.int(), 1, seg_rows=512)
     with pytest.raises(NotImplementedError):
-        k789.pass_contig(k.double(), p, 2, tile_rows=8)
+        k789.pass_contig(k.half(), p, 2, tile_rows=8)
     with pytest.raises(ValueError, match="contiguous"):
         k6.lag_products(k.t(), 3)
     with pytest.raises(NotImplementedError):
-        k6.lag_products(k.double(), 3)
+        k6.lag_products(k.half(), 3)
 
 
 def test_study_entry_points_run_on_the_card(cuda_device):  # noqa: F811
@@ -654,9 +656,156 @@ def test_streaming_sources_on_the_card(cuda_device, tmp_path):  # noqa: F811
     assert_close(mtt.ess_rhat_streaming(x.astype(np.float64),
                                         param_chunk=8).ess, want.ess,
                  rtol=1e-5, atol=0)
+    assert_close(mtt.ess_rhat_streaming(x, dtype=torch.float64,
+                                        param_chunk=8).ess,
+                 mtt.ess_rhat_streaming(x, dtype=torch.float64, device="cpu",
+                                        param_chunk=8).ess,
+                 rtol=1e-9, atol=0)
     with pytest.raises(NotImplementedError, match="float32"):
-        mtt.ess_rhat_streaming(x, dtype=torch.float64)
+        mtt.ess_rhat_streaming(x, dtype=torch.float16)
     with pytest.raises(ValueError, match="host sample"):
         mtt.ess_rhat_streaming(torch.from_numpy(x).to(cuda_device))
     out = mtt.stream_param_chunks(lambda c: c[0, 0], x, param_chunk=4)
     assert torch.equal(out.cpu(), torch.from_numpy(x[0, 0]))
+
+
+# ---- float64 on the card, numpy input, discretediag and R* -------------------
+
+_F64_CALLS = [
+    lambda v: mtt.ess_rhat(v, kind="rank", rank_mode="fast"),
+    lambda v: mtt.ess_rhat(v, kind="rank"),
+    lambda v: mtt.ess(v, kind="tail", rank_mode="fast"),
+    lambda v: mtt.mcse(v, kind="mean"),
+    lambda v: mtt.mcse(v, kind=mtt.Quantile(0.1), rank_mode="fast"),
+    lambda v: mtt.rhat_nested(v, [0, 0, 1, 1]),
+    lambda v: mtt.gewekediag(v),
+    lambda v: mtt.heideldiag(v),
+    lambda v: mtt.gelmandiag(v),
+    lambda v: mtt.rafterydiag(v, r=0.05),
+    lambda v: mtt.bfmi(v[:, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("call", range(len(_F64_CALLS)))
+def test_float64_runs_plain_versions_on_the_card(cuda_device, call):  # noqa: F811
+    """A CUDA float64 tensor computes on the card through the plain
+    versions (no kernel launches) and agrees with the CPU within 1e-6."""
+    fn = _F64_CALLS[call]
+    x = t(_ar1(21, (600, 4, 6)))
+    kernels.reset_launch_counts()
+    g = fn(x.to(cuda_device))
+    assert not any(kernels.launch_counts().values())
+    c = fn(x)
+    g = g if isinstance(g, tuple) else (g,)
+    c = c if isinstance(c, tuple) else (c,)
+    for gv, cv in zip(g, c):
+        if isinstance(gv, torch.Tensor):
+            assert gv.device.type == "cuda" and gv.dtype in (
+                torch.float64, torch.bool, torch.int64), gv.dtype
+            gv = gv.cpu()
+        assert_close(gv, cv, rtol=1e-6, atol=1e-9, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_numpy_input_runs_on_the_current_card(cuda_device, dtype):  # noqa: F811
+    """Numpy with no device lands on the current card, float64 as float32
+    (the JAX package's default), and launches K1-K4: the float32 tensor's
+    result."""
+    x = _ar1(22, (300, 4, 3)).astype(dtype)
+    want = torch.device("cuda", torch.cuda.current_device())
+    assert to_tensor(x).device == want
+    assert canonicalize(x)[0].device == want
+    kernels.reset_launch_counts()
+    res = mtt.ess_rhat(x, rank_mode="fast")
+    counts = kernels.launch_counts()
+    assert all(counts[k] >= 1 for k in ("K1", "K2", "K3", "K4")), counts
+    assert res.ess.device == want and res.ess.dtype == torch.float32
+    f32 = mtt.ess_rhat(torch.from_numpy(x.astype(np.float32)).to(want),
+                       rank_mode="fast")
+    assert torch.equal(res.ess, f32.ess) and torch.equal(res.rhat, f32.rhat)
+    assert mtt.gewekediag(x).zscore.device == want
+    assert mtt.discretediag(np.round(x)).between_chain.stat.device == want
+    cpu = mtt.ess_rhat(x, rank_mode="fast", device="cpu")
+    assert cpu.ess.device.type == "cpu"
+
+
+_DISCRETE = ("weiss", "hangartner", "billingsley", "DARBOOT", "MCBOOT",
+             "billingsleyBOOT")
+
+
+@pytest.mark.parametrize("method", _DISCRETE)
+def test_discretediag_on_card_matches_cpu(cuda_device, method):  # noqa: F811
+    """Chi-squared methods: stat, df and p within 1e-9 relative; bootstrap
+    methods: the statistic (independent of the draws) within 1e-12, df
+    finite, p-values in [0, 1] (the draws differ between devices)."""
+    rng = np.random.default_rng(23)
+    x = np.concatenate([rng.integers(0, 3, size=(400, 4, 3)),
+                        rng.integers(0, 6, size=(400, 4, 2))], axis=2)
+    g = mtt.discretediag(t(x).to(cuda_device), method=method, nsim=100, rng=1)
+    c = mtt.discretediag(t(x), method=method, nsim=100, rng=1)
+    for part in ("between_chain", "within_chain"):
+        gp, cp = getattr(g, part), getattr(c, part)
+        assert all(v.device.type == "cuda" and v.dtype == torch.float64
+                   for v in gp)
+        if method.endswith("BOOT"):
+            assert_close(gp.stat.cpu(), cp.stat, rtol=1e-12, atol=0,
+                         equal_nan=True)
+            assert torch.isfinite(gp.df).all()
+            assert ((gp.pvalue >= 0) & (gp.pvalue <= 1)).all()
+        else:
+            for gv, cv in zip(gp, cp):
+                assert_close(gv.cpu(), cv, rtol=1e-9, atol=0, equal_nan=True)
+
+
+def _gbt_rows(seed, n=3000, nf=4, k=12):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, nf)).astype(np.float32)
+    y = rng.integers(0, k, n)
+    x[:, 0] += y * 0.5
+    return t(x), y, k
+
+
+def test_gbt_predict_on_card_matches_cpu(cuda_device):  # noqa: F811
+    """One state (fitted on the card), predicted on the card and on the
+    CPU: logits within 1e-5, labels equal where the top two logits are
+    apart."""
+    x, y, k = _gbt_rows(24)
+    clf = mtt.models.GBTClassifier(n_rounds=20, n_bins=32)
+    state = clf.fit(x.to(cuda_device), y, k)
+    assert state.leaf_value.device.type == "cuda"
+    state_cpu = type(state)(*(v.cpu() if isinstance(v, torch.Tensor) else v
+                              for v in state))
+    lg = clf.predict_logits(state, x.to(cuda_device))
+    lc = clf.predict_logits(state_cpu, x)
+    assert_close(lg.cpu(), lc, rtol=0, atol=1e-5)
+    assert_close(clf.predict_true_proba(state, x.to(cuda_device), y).cpu(),
+                 clf.predict_true_proba(state_cpu, x, y), rtol=0, atol=1e-6)
+
+
+def test_gbt_class_chunked_fit_runs_on_the_card(cuda_device):  # noqa: F811
+    """The class-chunked fit on the card gives the dense fit's forest (the
+    JAX package's bigk-vs-dense test, on the card)."""
+    x, y, k = _gbt_rows(25)
+    xg = x.to(cuda_device)
+    dense = mtt.models.GBTClassifier(n_rounds=12, n_bins=16, class_chunk=-1)
+    bigk = mtt.models.GBTClassifier(n_rounds=12, n_bins=16, class_chunk=5)
+    s1, s2 = dense.fit(xg, y, k), bigk.fit(xg, y, k)
+    assert s2.split_feature.device.type == "cuda"
+    assert torch.equal(s1.split_feature, s2.split_feature)
+    assert torch.equal(s1.split_bin, s2.split_bin)
+    assert_close(s1.leaf_value.cpu(), s2.leaf_value.cpu(), rtol=0, atol=5e-6)
+    assert torch.equal(dense.predict(s1, xg), bigk.predict(s2, xg))
+    assert_close(bigk.predict_true_proba(s2, xg, y).cpu(),
+                 dense.predict_true_proba(s1, xg, y).cpu(), rtol=0, atol=5e-6)
+
+
+def test_rstar_on_the_card(cuda_device):  # noqa: F811
+    """Separated chains give R* near the number of chains on the card, and
+    the deterministic R* is a float."""
+    rng = np.random.default_rng(26)
+    x = rng.standard_normal((400, 4, 2)) * 0.1
+    x += np.arange(4)[None, :, None] * 10.0
+    clf = mtt.models.GBTClassifier(n_rounds=10, n_bins=16)
+    assert mtt.rstar(clf, t(x).to(cuda_device), rng=0).mean() > 0.7 * 4
+    val = mtt.rstar(mtt.models.deterministic(clf), x, rng=0)
+    assert isinstance(val, float) and 0.0 <= val <= 8.0

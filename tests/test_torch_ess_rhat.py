@@ -44,7 +44,7 @@ def _chains(rng, shape, phi=0.5):
 @pytest.mark.parametrize("kind", KINDS)
 def test_ess_rhat_matches_jax(rng, kind, mode):
     x = _chains(rng, (1000, 4, 3))
-    got = mtt.ess_rhat(x, kind=kind, rank_mode=mode)
+    got = mtt.ess_rhat(x, kind=kind, rank_mode=mode, device="cpu")
     want = mdt.ess_rhat(x, kind=kind, rank_mode=mode)
     assert_close(got.ess, want.ess)
     assert_close(got.rhat, want.rhat)
@@ -53,7 +53,7 @@ def test_ess_rhat_matches_jax(rng, kind, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_odd_draws_and_param_dims_match_jax(rng, mode):
     x = _chains(rng, (237, 3, 2, 2))
-    got = mtt.ess_rhat(x, rank_mode=mode)
+    got = mtt.ess_rhat(x, rank_mode=mode, device="cpu")
     want = mdt.ess_rhat(x, rank_mode=mode)
     assert tuple(got.ess.shape) == (2, 2)
     assert_close(got.ess, want.ess)
@@ -64,7 +64,7 @@ def test_odd_draws_and_param_dims_match_jax(rng, mode):
 @pytest.mark.parametrize("kind", KINDS)
 def test_rhat_matches_jax(rng, kind, mode):
     x = _chains(rng, (600, 4, 5)) * 2.0 + 1.0
-    assert_close(mtt.rhat(x, kind=kind, rank_mode=mode),
+    assert_close(mtt.rhat(x, kind=kind, rank_mode=mode, device="cpu"),
                  mdt.rhat(x, kind=kind, rank_mode=mode))
 
 
@@ -72,7 +72,7 @@ def test_rhat_matches_jax(rng, kind, mode):
 @pytest.mark.parametrize("kind", ["bulk", "tail", "basic"])
 def test_ess_matches_jax(rng, kind, mode):
     x = _chains(rng, (800, 4, 3))
-    assert_close(mtt.ess(x, kind=kind, rank_mode=mode, tail_prob=0.2),
+    assert_close(mtt.ess(x, kind=kind, rank_mode=mode, tail_prob=0.2, device="cpu"),
                  mdt.ess(x, kind=kind, rank_mode=mode, tail_prob=0.2))
 
 
@@ -84,7 +84,7 @@ def test_autocov_methods_match_jax(rng, method):
     x = _chains(rng, (500, 4, 3))
     jmethod = getattr(method, "name", method)
     jmethod = {"kernel": "direct"}.get(jmethod, jmethod)
-    got = mtt.ess_rhat(x, kind="basic", autocov_method=method)
+    got = mtt.ess_rhat(x, kind="basic", autocov_method=method, device="cpu")
     want = mdt.ess_rhat(x, kind="basic", autocov_method=jmethod)
     assert_close(got.ess, want.ess)
 
@@ -93,10 +93,10 @@ def test_callable_autocov_method(rng):
     from mcmcdiagnostictools_jl_tpu_torch.ops.autocov import _mean_autocov_fft
 
     x = _chains(rng, (400, 4, 2))
-    got = mtt.ess(x, kind="basic", autocov_method=_mean_autocov_fft)
+    got = mtt.ess(x, kind="basic", autocov_method=_mean_autocov_fft, device="cpu")
     assert_close(got, mdt.ess(x, kind="basic", autocov_method="fft"))
     with pytest.raises(TypeError):
-        mtt.ess(x, autocov_method=3)
+        mtt.ess(x, autocov_method=3, device="cpu")
 
 
 @pytest.mark.parametrize("opts", [
@@ -106,7 +106,7 @@ def test_callable_autocov_method(rng):
 def test_options_match_jax(rng, opts):
     x = _chains(rng, (301, 4, 3))
     opts = {"kind": "rank", **opts}
-    got = mtt.ess_rhat(x, **opts)
+    got = mtt.ess_rhat(x, **opts, device="cpu")
     want = mdt.ess_rhat(x, **opts)
     assert_close(got.ess, want.ess)
     assert_close(got.rhat, want.rhat)
@@ -115,8 +115,8 @@ def test_options_match_jax(rng, opts):
 @pytest.mark.parametrize("mode", MODES)
 def test_param_chunk_is_exact(rng, mode):
     x = _chains(rng, (300, 4, 7))
-    whole = mtt.ess_rhat(x, rank_mode=mode)
-    chunked = mtt.ess_rhat(x, rank_mode=mode, param_chunk=3)
+    whole = mtt.ess_rhat(x, rank_mode=mode, device="cpu")
+    chunked = mtt.ess_rhat(x, rank_mode=mode, param_chunk=3, device="cpu")
     # per-parameter independence: equal up to the last bits of float64
     # reductions whose vector width follows the batch
     assert_close(chunked.ess, whole.ess, rtol=1e-12, atol=0)
@@ -126,7 +126,7 @@ def test_param_chunk_is_exact(rng, mode):
 @pytest.mark.parametrize("kind", ["rank", "tail"])
 def test_fast_f32_matches_jax_pipeline_with_interpreted_kernels(rng, kind):
     x = _chains(rng, (1000, 4, 3)).astype(np.float32)
-    got = mtt.ess_rhat(x, kind=kind, rank_mode="fast")
+    got = mtt.ess_rhat(x, kind=kind, rank_mode="fast", device="cpu")
     assert got.ess.dtype == torch.float32
     want_ess, want_rhat = _ess_rhat_pipeline(
         x, kind=kind, split_chains=2, maxlag=250, method="fused_interpret",
@@ -140,17 +140,17 @@ def test_fast_f32_matches_jax_pipeline_with_interpreted_kernels(rng, kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_exact_mode_matches_numpy_oracle(rng, kind):
     x = ref_impl.rank_normalize(rng.standard_normal((1000, 4, 3))) * 1.3 + 0.2
-    got = mtt.ess_rhat(x, kind=kind)
+    got = mtt.ess_rhat(x, kind=kind, device="cpu")
     want_ess, want_rhat = ref_impl.ess_rhat(x, kind=kind)
     assert_close(got.ess, want_ess)
     assert_close(got.rhat, want_rhat)
-    assert_close(mtt.rhat(x, kind=kind), ref_impl.rhat(x, kind=kind))
+    assert_close(mtt.rhat(x, kind=kind, device="cpu"), ref_impl.rhat(x, kind=kind))
 
 
 def test_exact_ess_kinds_match_numpy_oracle(rng):
     x = rng.standard_normal((800, 4, 3))
     for kind in ("bulk", "tail", "basic"):
-        assert_close(mtt.ess(x, kind=kind), ref_impl.ess(x, kind=kind))
+        assert_close(mtt.ess(x, kind=kind, device="cpu"), ref_impl.ess(x, kind=kind))
 
 
 # ---- contracts ---------------------------------------------------------------
@@ -158,9 +158,9 @@ def test_exact_ess_kinds_match_numpy_oracle(rng):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_scalar_output_for_2d_input(rng, mode):
-    res = mtt.ess_rhat(rng.standard_normal((200, 4)), rank_mode=mode)
+    res = mtt.ess_rhat(rng.standard_normal((200, 4)), rank_mode=mode, device="cpu")
     assert isinstance(res.ess, float) and isinstance(res.rhat, float)
-    assert isinstance(mtt.rhat(rng.standard_normal(200)), float)
+    assert isinstance(mtt.rhat(rng.standard_normal(200), device="cpu"), float)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -168,7 +168,7 @@ def test_scalar_output_for_2d_input(rng, mode):
 def test_nan_poisons_only_its_parameter(rng, kind, mode):
     x = rng.standard_normal((200, 4, 3))
     x[10, 2, 1] = np.nan
-    res = mtt.ess_rhat(x, kind=kind, rank_mode=mode)
+    res = mtt.ess_rhat(x, kind=kind, rank_mode=mode, device="cpu")
     for v in res:
         assert np.isnan(v[1].item())
         assert np.all(np.isfinite(v[[0, 2]].numpy()))
@@ -177,38 +177,38 @@ def test_nan_poisons_only_its_parameter(rng, kind, mode):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("kind", KINDS)
 def test_identical_sample_gives_nan(kind, mode):
-    res = mtt.ess_rhat(np.full((100, 4, 2), 1.5), kind=kind, rank_mode=mode)
+    res = mtt.ess_rhat(np.full((100, 4, 2), 1.5), kind=kind, rank_mode=mode, device="cpu")
     assert np.all(np.isnan(res.ess.numpy())) and np.all(np.isnan(res.rhat.numpy()))
 
 
 def test_short_chains_warn_with_nan_ess_and_finite_rhat(rng):
     x = rng.standard_normal((9, 4, 2))
     with pytest.warns(UserWarning, match="must be >4"):
-        res = mtt.ess_rhat(x)
+        res = mtt.ess_rhat(x, device="cpu")
     assert np.all(np.isnan(res.ess.numpy())) and np.all(np.isfinite(res.rhat.numpy()))
     with pytest.warns(UserWarning):
         want = mdt.ess_rhat(x)
     assert_close(res.rhat, want.rhat)
     with pytest.warns(UserWarning):
-        assert np.isnan(mtt.ess(x[:, :, 0]))
+        assert np.isnan(mtt.ess(x[:, :, 0], device="cpu"))
 
 
 def test_kind_errors(rng):
     x = rng.standard_normal((100, 4, 2))
     with pytest.raises(ValueError):
-        mtt.ess(x, kind="rank")
+        mtt.ess(x, kind="rank", device="cpu")
     for kind in ("mean", "median", "std", "mad", mtt.Quantile(0.3)):
-        assert np.all(np.isfinite(mtt.ess(x, kind=kind).numpy()))
+        assert np.all(np.isfinite(mtt.ess(x, kind=kind, device="cpu").numpy()))
     with pytest.raises(ValueError):
-        mtt.rhat(x, kind="nope")
+        mtt.rhat(x, kind="nope", device="cpu")
     with pytest.raises(ValueError):
-        mtt.ess_rhat(x, kind="mean")
+        mtt.ess_rhat(x, kind="mean", device="cpu")
     with pytest.raises(ValueError):
-        mtt.ess_rhat(x, rank_mode="nope")
+        mtt.ess_rhat(x, rank_mode="nope", device="cpu")
     with pytest.raises(ValueError):
-        mtt.ess_rhat(x, maxlag=0)
+        mtt.ess_rhat(x, maxlag=0, device="cpu")
     with pytest.raises(ValueError):
-        mtt.ess(x, kind="tail", tail_prob=1.0)
+        mtt.ess(x, kind="tail", tail_prob=1.0, device="cpu")
     with pytest.raises(ValueError):
         mtt.Quantile(1.5)
 
@@ -226,16 +226,16 @@ def test_adaptive_geyer_probe_branches(rng, monkeypatch, phi, lags):
 
     monkeypatch.setattr(k1, "moments_autocov_plain", record)
     x = ar1(rng, phi, 1.0, (1200, 4, 3))
-    got = mtt.ess(x, kind="basic")
+    got = mtt.ess(x, kind="basic", device="cpu")
     assert seen == lags
-    assert_close(got, mtt.ess(x, kind="basic", autocov_method="direct"))
+    assert_close(got, mtt.ess(x, kind="basic", autocov_method="direct", device="cpu"))
 
 
 def test_numpy_input_goes_to_the_named_device(rng):
     x = rng.standard_normal((100, 4, 2))
     res = mtt.ess_rhat(x, device="cpu")
     assert res.ess.device.type == "cpu" and res.ess.dtype == torch.float64
-    res32 = mtt.ess_rhat(torch.from_numpy(x.astype(np.float32)))
+    res32 = mtt.ess_rhat(torch.from_numpy(x.astype(np.float32)), device="cpu")
     assert res32.rhat.dtype == torch.float32
     with pytest.raises(ValueError):
         mtt.ess_rhat(torch.from_numpy(x), device="meta")
@@ -245,5 +245,5 @@ def test_no_warnings_on_the_main_path(rng):
     x = _chains(rng, (400, 4, 3)).astype(np.float32)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        mtt.ess_rhat(x, rank_mode="fast")
-        mtt.ess_rhat(x)
+        mtt.ess_rhat(x, rank_mode="fast", device="cpu")
+        mtt.ess_rhat(x, device="cpu")

@@ -61,7 +61,7 @@ def _jax_ess(kind, mode, bda):
 @pytest.mark.parametrize("kind", KINDS)
 def test_ess_estimators_match_jax(rng, kind, mode):
     x = _chains(int(rng.integers(1 << 30)), (700, 4, 3))
-    got = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode)
+    got = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, device="cpu")
     assert_close(got, mdt.ess(x, kind=_kinds(kind)[1], rank_mode=mode))
 
 
@@ -72,14 +72,14 @@ def test_every_marker_matches_jax(method, mode):
     bda = getattr(method, "name", method) == "bda"
     for kind in KINDS:
         got = mtt.ess(_X, kind=_kinds(kind)[0], rank_mode=mode,
-                      autocov_method=method)
+                      autocov_method=method, device="cpu")
         assert_close(got, _jax_ess(kind, mode, bda))
 
 
 @pytest.mark.parametrize("kind", ["median", "mad", 0.1, 0.95, "mean", "std"])
 def test_fast_f32_matches_jax_pipeline_with_interpreted_kernels(rng, kind):
     x = _chains(int(rng.integers(1 << 30)), (1000, 4, 3)).astype(np.float32)
-    got = mtt.ess(x, kind=_kinds(kind)[0], rank_mode="fast")
+    got = mtt.ess(x, kind=_kinds(kind)[0], rank_mode="fast", device="cpu")
     assert got.dtype == torch.float32
     q = kind if isinstance(kind, float) else None
     want, _ = _ess_rhat_pipeline(
@@ -94,7 +94,7 @@ def test_fast_f32_matches_jax_pipeline_with_interpreted_kernels(rng, kind):
 def test_exact_mode_matches_numpy_oracle(rng, kind):
     x = rng.standard_normal((600, 4, 3)) * 1.3 + 0.2
     okind, q = ("quantile", kind) if isinstance(kind, float) else (kind, None)
-    assert_close(mtt.ess(x, kind=_kinds(kind)[0]),
+    assert_close(mtt.ess(x, kind=_kinds(kind)[0], device="cpu"),
                  ref_impl.ess(x, kind=okind, q=q))
 
 
@@ -104,7 +104,7 @@ def test_options_match_jax(rng, opts):
     x = _chains(int(rng.integers(1 << 30)), (301, 4, 3))
     for kind in ("std", 0.3):
         for mode in MODES:
-            assert_close(mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, **opts),
+            assert_close(mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, **opts, device="cpu"),
                          mdt.ess(x, kind=_kinds(kind)[1], rank_mode=mode, **opts))
 
 
@@ -112,8 +112,8 @@ def test_options_match_jax(rng, opts):
 def test_param_chunk_is_exact(rng, mode):
     x = _chains(int(rng.integers(1 << 30)), (300, 4, 7))
     for kind in ("mad", mtt.Quantile(0.2)):
-        whole = mtt.ess(x, kind=kind, rank_mode=mode)
-        chunked = mtt.ess(x, kind=kind, rank_mode=mode, param_chunk=3)
+        whole = mtt.ess(x, kind=kind, rank_mode=mode, device="cpu")
+        chunked = mtt.ess(x, kind=kind, rank_mode=mode, param_chunk=3, device="cpu")
         assert_close(chunked, whole, rtol=1e-12, atol=0)
 
 
@@ -125,7 +125,7 @@ def test_param_chunk_is_exact(rng, mode):
 def test_nan_poisons_only_its_parameter(rng, kind, mode):
     x = rng.standard_normal((200, 4, 3))
     x[10, 2, 1] = np.nan
-    v = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode).numpy()
+    v = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, device="cpu").numpy()
     assert np.isnan(v[1]) and np.all(np.isfinite(v[[0, 2]]))
 
 
@@ -134,7 +134,7 @@ def test_constant_slice_gives_nan(rng, mode):
     x = rng.standard_normal((200, 4, 3))
     x[:, :, 2] = 1.5
     for kind in KINDS:
-        v = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode).numpy()
+        v = mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, device="cpu").numpy()
         assert np.isnan(v[2]) and np.all(np.isfinite(v[:2]))
 
 
@@ -142,7 +142,7 @@ def test_constant_slice_gives_nan(rng, mode):
 def test_scalar_output_for_2d_input(rng, mode):
     x = rng.standard_normal((200, 4))
     for kind in KINDS:
-        assert isinstance(mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode),
+        assert isinstance(mtt.ess(x, kind=_kinds(kind)[0], rank_mode=mode, device="cpu"),
                           float)
 
 
@@ -150,7 +150,7 @@ def test_kind_errors(rng):
     x = rng.standard_normal((100, 4, 2))
     for bad in ("rank", "bogus", 0.5, None):
         with pytest.raises(ValueError):
-            mtt.ess(x, kind=bad)
+            mtt.ess(x, kind=bad, device="cpu")
     with pytest.raises(ValueError):
         mtt.Quantile(0.0)
 

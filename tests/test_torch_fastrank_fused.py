@@ -202,7 +202,7 @@ def test_fast_ess_rhat_still_matches_jax(rng, kind):
     """float64 on the CPU against the JAX package's XLA path (the bound of
     tests/test_torch_ess_rhat.py: float32 tables summed in another order)."""
     x = _sample(rng, 4000, 6, np.float64).reshape(1000, 4, 6)
-    got = mtt.ess_rhat(x, kind=kind, rank_mode="fast")
+    got = mtt.ess_rhat(x, kind=kind, rank_mode="fast", device="cpu")
     want = mdt.ess_rhat(x, kind=kind, rank_mode="fast")
     assert_close(got.ess, want.ess, rtol=1e-4, atol=1e-8, equal_nan=True)
     assert_close(got.rhat, want.rhat, rtol=1e-5, atol=1e-8, equal_nan=True)
@@ -210,7 +210,7 @@ def test_fast_ess_rhat_still_matches_jax(rng, kind):
 
 def test_mad_proxy_keeps_its_fold(rng):
     x = rng.standard_normal((800, 4, 3))
-    assert_close(mtt.ess(x, kind="mad", rank_mode="fast"),
+    assert_close(mtt.ess(x, kind="mad", rank_mode="fast", device="cpu"),
                  mdt.ess(x, kind="mad", rank_mode="fast"), **PARITY_F64)
 
 

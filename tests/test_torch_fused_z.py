@@ -110,10 +110,10 @@ def test_fused_route_reaches_the_z_mode(rng, monkeypatch):
     monkeypatch.setattr(kfr, "rank_lookup_plain", spy)
     x3 = t(rng.standard_normal((400, 4, 3)))
     before = (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches)
-    unfused = mtt.ess_rhat(x3, rank_mode="fast")
+    unfused = mtt.ess_rhat(x3, rank_mode="fast", device="cpu")
     assert calls == [None, None]
     monkeypatch.setattr(fr, "FUSE_BLOM_Z", True)
-    fused = mtt.ess_rhat(x3, rank_mode="fast")
+    fused = mtt.ess_rhat(x3, rank_mode="fast", device="cpu")
     assert calls[2:] == [1600, 1600]  # bulk and fold, blom_n = draws * chains
     assert before == (kfr.rank_lookup.launches, kfr.rank_lookup.z_launches)
     assert_close(fused.ess, unfused.ess, rtol=1e-4, atol=0)

@@ -59,25 +59,25 @@ def test_mcse_matches_jax(rng, kind, mode):
     for marker, jmarker in ((mtt.DirectKernelAutocovMethod(),
                              mdt.PallasAutocovMethod(interpret=True)),
                             ("auto", "auto")):
-        got = mtt.mcse(x, kind=pk, rank_mode=mode, autocov_method=marker)
+        got = mtt.mcse(x, kind=pk, rank_mode=mode, autocov_method=marker, device="cpu")
         assert_close(got, mdt.mcse(x, kind=jk, rank_mode=mode,
                                    autocov_method=jmarker))
 
 
 def test_exact_kinds_match_numpy_oracles(rng):
     x = rng.standard_normal((500, 4, 3)) * 2.0 + 1.0
-    assert_close(mtt.mcse(x), ref_impl.mcse_mean(x))
-    assert_close(mtt.mcse(x, kind="std"), ref_impl.mcse_std(x))
+    assert_close(mtt.mcse(x, device="cpu"), ref_impl.mcse_mean(x))
+    assert_close(mtt.mcse(x, kind="std", device="cpu"), ref_impl.mcse_std(x))
     for p in (0.1, 0.5, 0.9):
-        assert_close(mtt.mcse(x, kind=mtt.Quantile(p)),
+        assert_close(mtt.mcse(x, kind=mtt.Quantile(p), device="cpu"),
                      ref_impl.mcse_quantile(x, p))
-    assert_close(mtt.mcse(x, kind="median"), ref_impl.mcse_quantile(x, 0.5))
+    assert_close(mtt.mcse(x, kind="median", device="cpu"), ref_impl.mcse_quantile(x, 0.5))
 
 
 @pytest.mark.parametrize("batch_size", [None, 10])
 def test_sbm_matches_jax_and_oracle(rng, batch_size):
     x = rng.standard_normal((300, 3, 2))
-    got = mtt.mcse(x, kind=lambda w: w.mean(), batch_size=batch_size)
+    got = mtt.mcse(x, kind=lambda w: w.mean(), batch_size=batch_size, device="cpu")
     assert_close(got, mdt.mcse(x, kind=lambda w: w.mean(),
                                batch_size=batch_size))
     assert_close(got, ref_impl.mcse_sbm(x, np.mean, batch_size=batch_size))
@@ -88,34 +88,34 @@ def test_sbm_batches_windows_by_memory(rng, monkeypatch):
     from mcmcdiagnostictools_jl_tpu_torch.diagnostics import mcse as m
 
     x = rng.standard_normal((200, 4, 3))
-    whole = mtt.mcse(x, kind=lambda w: (w * w).mean())
+    whole = mtt.mcse(x, kind=lambda w: (w * w).mean(), device="cpu")
     monkeypatch.setattr(m, "_SBM_BATCH_BYTES", 1)  # one window per batch
-    assert_close(mtt.mcse(x, kind=lambda w: (w * w).mean()), whole,
+    assert_close(mtt.mcse(x, kind=lambda w: (w * w).mean(), device="cpu"), whole,
                  rtol=1e-12, atol=0)
 
 
 def test_sbm_callable_vmap_cannot_trace_fails_loudly(rng):
     x = rng.standard_normal((100, 2, 2))
     with pytest.raises(RuntimeError):
-        mtt.mcse(x, kind=lambda w: float(w.mean()))
+        mtt.mcse(x, kind=lambda w: float(w.mean()), device="cpu")
 
 
 def test_sbm_constant_and_nan_slices(rng):
     x = rng.standard_normal((100, 2, 3))
     x[:, :, 0] = 2.0
     x[4, 1, 2] = np.nan
-    v = mtt.mcse(x, kind=lambda w: w.mean()).numpy()
+    v = mtt.mcse(x, kind=lambda w: w.mean(), device="cpu").numpy()
     assert np.isnan(v[0]) and np.isfinite(v[1]) and np.isnan(v[2])
     with pytest.raises(ValueError):
-        mtt.mcse(x, kind=lambda w: w.mean(), batch_size=0)
+        mtt.mcse(x, kind=lambda w: w.mean(), batch_size=0, device="cpu")
 
 
 @pytest.mark.parametrize("p", [0.05, 0.5, 0.99])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_fast_quantile_within_pinned_bound(p, dtype):
     x = ar1(np.random.default_rng(7), 0.5, 1.0, (4000, 16, 32)).astype(dtype)
-    exact = mtt.mcse(x, kind=mtt.Quantile(p))
-    fast = mtt.mcse(x, kind=mtt.Quantile(p), rank_mode="fast")
+    exact = mtt.mcse(x, kind=mtt.Quantile(p), device="cpu")
+    fast = mtt.mcse(x, kind=mtt.Quantile(p), rank_mode="fast", device="cpu")
     assert_close(fast, exact, rtol=FAST_QUANTILE_BOUND, atol=0)
 
 
@@ -125,9 +125,9 @@ def test_quantile_f32_large_ess_matches_f64_oracle():
     ~88-rank interval (1.1e-2)."""
     y = np.random.default_rng(11).standard_normal((49500, 4, 2))
     y = y.astype(np.float32)
-    s = mtt.ess(y, kind=mtt.Quantile(0.99)).numpy()
+    s = mtt.ess(y, kind=mtt.Quantile(0.99), device="cpu").numpy()
     assert np.all((s > 1.9e5) & (s * 0.01 + 1 < 2000))
-    got = mtt.mcse(y, kind=mtt.Quantile(0.99))
+    got = mtt.mcse(y, kind=mtt.Quantile(0.99), device="cpu")
     assert_close(got, ref_impl.mcse_quantile(y.astype(np.float64), 0.99),
                  rtol=1.1e-2, atol=0)
 
@@ -152,12 +152,12 @@ def test_both_modes_take_the_same_keywords(rng, mode):
     kw = dict(split_chains=3, maxlag=40, relative=False,
               autocov_method=mtt.FFTAutocovMethod(), rank_nbins=1024)
     for kind in ("mean", "std", "median", mtt.Quantile(0.2)):
-        v = mtt.mcse(x, kind=kind, rank_mode=mode, **kw)
+        v = mtt.mcse(x, kind=kind, rank_mode=mode, **kw, device="cpu")
         assert np.all(np.isfinite(v.numpy()))
         with pytest.raises(TypeError, match="unexpected mcse kwargs"):
-            mtt.mcse(x, kind=kind, rank_mode=mode, tail_prob=0.1)
+            mtt.mcse(x, kind=kind, rank_mode=mode, tail_prob=0.1, device="cpu")
         with pytest.raises(TypeError, match="batch_size"):
-            mtt.mcse(x, kind=kind, rank_mode=mode, batch_size=10)
+            mtt.mcse(x, kind=kind, rank_mode=mode, batch_size=10, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["median", 0.3])
@@ -165,21 +165,21 @@ def test_fast_quantile_honours_split_maxlag_and_relative(rng, kind):
     x = _chains(rng, (800, 4, 3))
     pk, jk = _kinds(kind)
     for opts in (dict(split_chains=1), dict(maxlag=20)):
-        assert_close(mtt.mcse(x, kind=pk, rank_mode="fast", **opts),
+        assert_close(mtt.mcse(x, kind=pk, rank_mode="fast", **opts, device="cpu"),
                      mdt.mcse(x, kind=jk, rank_mode="fast", **opts))
     # relative=True feeds ESS / (draws * chains) to the Beta interval in
     # both modes; the fast one tracks the exact one
-    assert_close(mtt.mcse(x, kind=pk, rank_mode="fast", relative=True),
-                 mtt.mcse(x, kind=pk, relative=True),
+    assert_close(mtt.mcse(x, kind=pk, rank_mode="fast", relative=True, device="cpu"),
+                 mtt.mcse(x, kind=pk, relative=True, device="cpu"),
                  rtol=FAST_QUANTILE_BOUND, atol=0)
-    assert_close(mtt.mcse(x, kind=pk, relative=True),
+    assert_close(mtt.mcse(x, kind=pk, relative=True, device="cpu"),
                  mdt.mcse(x, kind=jk, relative=True))
 
 
 def test_sbm_rejects_ess_keywords(rng):
     x = rng.standard_normal((100, 4))
     with pytest.raises(TypeError):
-        mtt.mcse(x, kind=lambda w: w.mean(), maxlag=10)
+        mtt.mcse(x, kind=lambda w: w.mean(), maxlag=10, device="cpu")
 
 
 # ---- contracts ---------------------------------------------------------------
@@ -191,7 +191,7 @@ def test_nan_and_constant_slices(rng, mode):
     x[7, 1, 1] = np.nan
     x[:, :, 2] = 0.5
     for kind in KINDS:
-        v = mtt.mcse(x, kind=_kinds(kind)[0], rank_mode=mode).numpy()
+        v = mtt.mcse(x, kind=_kinds(kind)[0], rank_mode=mode, device="cpu").numpy()
         assert np.isnan(v[1]) and np.isfinite(v[0]), kind
         assert np.isnan(v[2]), kind
 
@@ -201,10 +201,10 @@ def test_shapes_and_scalars(rng, mode):
     x = rng.standard_normal((200, 4, 3, 2))
     for kind in KINDS:
         pk = _kinds(kind)[0]
-        assert tuple(mtt.mcse(x, kind=pk, rank_mode=mode).shape) == (3, 2)
-        assert isinstance(mtt.mcse(x[:, :, 0, 0], kind=pk, rank_mode=mode),
+        assert tuple(mtt.mcse(x, kind=pk, rank_mode=mode, device="cpu").shape) == (3, 2)
+        assert isinstance(mtt.mcse(x[:, :, 0, 0], kind=pk, rank_mode=mode, device="cpu"),
                           float)
-    assert isinstance(mtt.mcse(x[:, 0, 0, 0], kind=lambda w: w.mean()), float)
+    assert isinstance(mtt.mcse(x[:, 0, 0, 0], kind=lambda w: w.mean(), device="cpu"), float)
 
 
 def test_short_chains_warn_with_nan(rng):
@@ -212,15 +212,15 @@ def test_short_chains_warn_with_nan(rng):
     for mode in MODES:
         for kind in ("mean", mtt.Quantile(0.4)):
             with pytest.warns(UserWarning, match="must be >4"):
-                v = mtt.mcse(x, kind=kind, rank_mode=mode)
+                v = mtt.mcse(x, kind=kind, rank_mode=mode, device="cpu")
             assert np.all(np.isnan(v.numpy()))
 
 
 def test_unknown_kind_raises(rng):
     with pytest.raises(ValueError):
-        mtt.mcse(rng.standard_normal((100, 4)), kind="bogus")
+        mtt.mcse(rng.standard_normal((100, 4)), kind="bogus", device="cpu")
     with pytest.raises(ValueError):
-        mtt.mcse(rng.standard_normal((100, 4)), rank_mode="nope")
+        mtt.mcse(rng.standard_normal((100, 4)), rank_mode="nope", device="cpu")
 
 
 def test_no_warnings_on_the_path(rng):
@@ -228,4 +228,4 @@ def test_no_warnings_on_the_path(rng):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         for mode in MODES:
-            mtt.mcse(x, kind=mtt.Quantile(0.9), rank_mode=mode)
+            mtt.mcse(x, kind=mtt.Quantile(0.9), rank_mode=mode, device="cpu")

@@ -67,7 +67,7 @@ def test_float32_fast_matches_jax_streaming(rng, kind):
 @pytest.mark.parametrize("rank_mode", ["fast", "exact"])
 def test_matches_monolithic(rng, rank_mode):
     x = _sample(rng, (600, 4, 37))
-    a = mtt.ess_rhat(x, kind="rank", rank_mode=rank_mode)
+    a = mtt.ess_rhat(x, kind="rank", rank_mode=rank_mode, device="cpu")
     b = _stream(x, param_chunk=8, kind="rank", rank_mode=rank_mode)
     assert_close(b.ess, a.ess, rtol=5e-6, atol=0)
     assert_close(b.rhat, a.rhat, rtol=5e-6, atol=0)
@@ -81,7 +81,7 @@ def test_every_kind_matches_monolithic_with_options(rng, kind):
     kw = dict(kind=kind, relative=True, split_chains=3, maxlag=40,
               tail_prob=0.2, rank_mode="fast", rank_nbins=512,
               autocov_method=mtt.FFTAutocovMethod())
-    a = mtt.ess_rhat(x, **kw)
+    a = mtt.ess_rhat(x, **kw, device="cpu")
     b = _stream(x, param_chunk=4, **kw)
     assert_close(b.ess, a.ess, rtol=5e-6, atol=0)
     assert_close(b.rhat, a.rhat, rtol=5e-6, atol=0)
@@ -100,7 +100,7 @@ def test_ragged_final_chunk(rng):
 @pytest.mark.parametrize("param_chunk", [6, 256])
 def test_exactly_one_chunk(rng, param_chunk):
     x = _sample(rng, (400, 4, 6))
-    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast")
+    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast", device="cpu")
     b, stats = _stream(x, param_chunk=param_chunk, return_stats=True)
     assert stats.n_chunks == 1
     assert_close(b.ess, a.ess, rtol=1e-6, atol=0)
@@ -119,7 +119,7 @@ def test_callable_source_never_materializes():
         return np.stack(cols, axis=2).astype(np.float32)
 
     b = _stream(source, nparams=p, param_chunk=7)
-    a = mtt.ess_rhat(source(0, p), kind="rank", rank_mode="fast")
+    a = mtt.ess_rhat(source(0, p), kind="rank", rank_mode="fast", device="cpu")
     want = mdt.ess_rhat_streaming(source, nparams=p, param_chunk=7)
     assert b.ess.shape == (p,)
     assert_close(b.ess, a.ess, rtol=1e-6, atol=0)
@@ -149,7 +149,7 @@ def test_stats_shape(rng):
 
 def test_param_shape_preserved(rng):
     x = _sample(rng, (400, 4, 3, 5))
-    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast")
+    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast", device="cpu")
     b = _stream(x, param_chunk=4)
     want = mdt.ess_rhat_streaming(x, param_chunk=4)
     assert b.ess.shape == (3, 5) and b.rhat.shape == (3, 5)
@@ -214,7 +214,7 @@ def test_memmap_source(rng, tmp_path):
     m[:] = x
     m.flush()
     ro = np.memmap(f, dtype=np.float32, mode="r", shape=x.shape)
-    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast")
+    a = mtt.ess_rhat(x, kind="rank", rank_mode="fast", device="cpu")
     b = _stream(ro, param_chunk=5)
     assert_close(b.ess, a.ess, rtol=1e-6, atol=0)
     assert_close(b.ess, mdt.ess_rhat_streaming(ro, param_chunk=5).ess,
