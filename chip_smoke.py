@@ -81,7 +81,18 @@ and exits nonzero, printing no result, if any phase fails:
     equal, leaf values within 5e-6);
 15. float64 on the card: ``ess_rhat`` in both rank modes, ``mcse`` mean and
     ``gewekediag`` at 2000 x 32 x 64 run the plain versions on the card (no
-    kernel may launch) and agree with the CPU within 1e-6.
+    kernel may launch) and agree with the CPU within 1e-6;
+16. the sharded path (``parallel``), run after phase 11 on its data and, for
+    the GBT, after phase 13, over a (1, 1) mesh of a world of one rank over
+    NCCL (the card takes one rank): ``ess_rhat_sharded(kind="rank")`` with
+    the gather, ring and hist rank transforms and ``rhat_nested_sharded`` on
+    16 superchains at 10k x 128 x 256, each with its launches counted from
+    0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, K1 and K2
+    never), its wall beside the in-core call's and its largest differences
+    from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
+    against gather 1e-6); config 4 through ``ess_rhat_streaming(mesh_cfg=
+    ...)`` against phase 11's result; ``ShardedGBTClassifier`` on phase 13's
+    rows: the same forest.
 
 The line before the last two is the card's name and power limit, the
 second-to-last line the kernels' JSON record (each with its time, its plain
@@ -101,6 +112,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 DRAWS, CHAINS, PARAMS = 10_000, 128, 256
 NBINS = 4096
@@ -1355,7 +1367,8 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
           f"(bound 1e-5), R-hat abs {rhat_abs_x:.3e} (bound 1e-6)")
     check(ess_rel_x <= 1e-5 and rhat_abs_x <= 1e-6,
           "streamed exact mode != resident")
-    return {"wall_s": stats.wall_s, "first_run_wall_s": cold_wall,
+    return {"host": host, "result": res,
+            "wall_s": stats.wall_s, "first_run_wall_s": cold_wall,
             "wall_2_chunks_s": stats2.wall_s, **{"sum_" + k: v
                                                  for k, v in sums.items()},
             "wall_over_largest_sum": ratio, "peak_gb": peak,
@@ -1624,7 +1637,8 @@ def phase_rstar_dense() -> dict:
           f"ms on 8000 x 100 rows, 16 classes; logits card vs CPU max abs "
           f"{err:.3e} (bound 1e-5)")
     check(err <= 1e-5, "GBT logits: card != CPU")
-    out.update(fit_s=fit_s, predict_s=predict_s, logits_card_vs_cpu=err)
+    out.update(fit_s=fit_s, predict_s=predict_s, logits_card_vs_cpu=err,
+               one_state=(clf, rows, y, state))
     return out
 
 
@@ -1771,6 +1785,194 @@ def phase_float64() -> dict:
     return out
 
 
+# ---- phase 16: the sharded path on a world of one rank over NCCL -----------
+
+NSUPER = 16  # superchains of the nested R-hat: 8 chains each
+
+
+def start_world_of_one() -> None:
+    """A process group of one rank over NCCL on card 0, from an in-memory
+    store (NCCL takes one rank a card; this machine has one card)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def counted_call(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after: ``(result, counts, first call s, median wall of 3 warm calls)``."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    return res, counts, first, wall_s(fn)
+
+
+def check_launches(tag: str, counts: dict, want: dict) -> None:
+    """Each kernel of ``want`` ran exactly that often (None: at least once);
+    K1 and K2 (not on the sharded path) never."""
+    shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5")}
+    print(f"   {tag} launches: {shown}")
+    for kid, n in {"K1": 0, "K2": 0, **want}.items():
+        ok = counts[kid] >= 1 if n is None else counts[kid] == n
+        check(ok, f"{tag}: {kid} ran {counts[kid]} times, expected "
+              f"{'>= 1' if n is None else n}")
+
+
+def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
+                  host: np.ndarray, streamed) -> dict:
+    """``parallel.ess_rhat_sharded(kind="rank")`` on the full sample with the
+    gather, ring and hist rank transforms, and ``rhat_nested_sharded`` on 16
+    superchains, over a (1, 1) mesh of a world of one rank over NCCL: walls
+    (median of 3 warm calls) beside the in-core calls', the K3/K4/K5
+    launches of each call (hist: K3 and K4 twice each; every kind K5; K1
+    and K2 never), and the largest differences from the in-core results
+    (exact for gather and ring, the fast mode for hist): ESS 1e-3 relative,
+    R-hat 1e-4 absolute (phase 6's K5-against-K1 limits). Then config 4
+    through ``ess_rhat_streaming(mesh_cfg=...)`` against phase 11's streamed
+    result under the same limits."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels, parallel
+
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    cfg = parallel.make_mesh()
+    check(cfg.device == torch.device("cuda", 0) and cfg.chain_shards == 1
+          and cfg.param_shards == 1, f"mesh on {cfg.device}")
+    maxlag = min(250, DRAWS // 2 - 4)
+    out = {"ess_rhat": {}, "nested": {}}
+    results = {}
+    for impl in ("gather", "ring", "hist"):
+        mode = "fast" if impl == "hist" else "exact"
+        ref = fast if impl == "hist" else exact
+        res, counts, first, wall = counted_call(
+            lambda: parallel.ess_rhat_sharded(x3, cfg, kind="rank",
+                                              rank_impl=impl))
+        results[impl] = res
+        tag = f"[16 ess_rhat_sharded {impl}]"
+        print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
+              f"{mode} {in_core_walls[mode]:.4f} s")
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None}
+                       if impl == "hist" else {"K3": 0, "K4": 0, "K5": None})
+        for v in res:
+            check(v.shape == (PARAMS,) and v.device.type == "cuda"
+                  and bool(torch.isfinite(v).all()),
+                  f"{tag}: bad output {tuple(v.shape)} on {v.device}")
+        rhat_abs = float((res.rhat - ref.rhat).abs().max())
+        print(f"   vs in-core {mode}: R-hat abs {rhat_abs:.3e} (bound 1e-4)")
+        check(rhat_abs <= 1e-4, f"{tag}: R-hat != in-core")
+        ess_rel = check_agree(
+            f"{tag} ESS vs in-core {mode}", res.ess, ref.ess, 1e-3,
+            lambda: (geyer_stop_pairs(bulk_z(x3, mode), "direct_kernel",
+                                      maxlag),
+                     geyer_stop_pairs(bulk_z(x3, mode), "kernel", maxlag)))
+        out["ess_rhat"][impl] = {
+            "wall_s": wall, "first_call_s": first,
+            "in_core_wall_s": in_core_walls[mode], "ess_rel": ess_rel,
+            "rhat_abs": rhat_abs,
+            "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5")}}
+    ring, gather = results["ring"], results["gather"]
+    rg_ess = float((ring.ess / gather.ess - 1).abs().max())
+    rg_rhat = float((ring.rhat - gather.rhat).abs().max())
+    print(f"[16 ring vs gather] ESS rel {rg_ess:.3e}, R-hat abs {rg_rhat:.3e} "
+          "(bounds 1e-6: the same ranks; the tail moments are summed in "
+          "another order)")
+    check(rg_ess <= 1e-6 and rg_rhat <= 1e-6, "ring != gather")
+    out["ring_vs_gather"] = {"ess_rel": rg_ess, "rhat_abs": rg_rhat}
+
+    ids = np.repeat(np.arange(NSUPER), CHAINS // NSUPER)
+    r_in, _, _, nested_wall = counted_call(lambda: mtt.rhat_nested(x3, ids))
+    for impl in ("gather", "ring", "hist"):
+        r, counts, first, wall = counted_call(
+            lambda: parallel.rhat_nested_sharded(x3, ids, cfg,
+                                                 rank_impl=impl))
+        tag = f"[16 rhat_nested_sharded {impl}, {NSUPER} superchains]"
+        bound = 1e-3 if impl == "hist" else 1e-4
+        err = float((r - r_in).abs().max())
+        print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
+              f"exact {nested_wall:.4f} s; R-hat abs vs in-core {err:.3e} "
+              f"(bound {bound:.0e}{', the fast mode' if impl == 'hist' else ''})")
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0}
+                       if impl == "hist" else {"K3": 0, "K4": 0, "K5": 0})
+        check(r.shape == (PARAMS,) and bool(torch.isfinite(r).all())
+              and err <= bound, f"{tag}: != in-core")
+        out["nested"][impl] = {"wall_s": wall, "first_call_s": first,
+                               "in_core_wall_s": nested_wall,
+                               "rhat_abs": err}
+
+    # config 4 streamed onto the mesh (the hist transform), twice: the first
+    # run also pins its buffers
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        res, stats = mtt.ess_rhat_streaming(host, param_chunk=PARAMS,
+                                            mesh_cfg=cfg, return_stats=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    tag = "[16 config 4 streamed onto the mesh]"
+    check_launches(tag, counts, {"K3": 2 * stats.n_chunks,
+                                 "K4": 2 * stats.n_chunks, "K5": None})
+    rhat_abs = float((res.rhat - streamed.rhat).abs().max())
+    sums = {k: sum(getattr(stats, k)) for k in ("fetch_s", "h2d_s",
+                                               "compute_s")}
+    print(f"{tag} {stats.n_chunks} chunks; wall {stats.wall_s:.3f} s (sums: "
+          f"gather {sums['fetch_s']:.3f}, copy {sums['h2d_s']:.3f}, compute "
+          f"{sums['compute_s']:.3f}); in-core streamed (phase 11) "
+          f"{in_core_walls['streamed']:.3f} s; R-hat abs vs phase 11 "
+          f"{rhat_abs:.3e} (bound 1e-4)")
+    check(res.ess.shape == (CONFIG4_PARAMS,) and rhat_abs <= 1e-4,
+          "mesh streaming != in-core streaming")
+
+    def stream_stops():
+        # where each column's Geyer truncation falls with K5 and with K1,
+        # on the in-core fast transform of each chunk
+        stops = ([], [])
+        for lo in range(0, CONFIG4_PARAMS, PARAMS):
+            z = bulk_z(torch.from_numpy(np.ascontiguousarray(
+                host[:, :, lo:lo + PARAMS])).cuda(), "fast")
+            for acc, method in zip(stops, ("direct_kernel", "kernel")):
+                acc.append(geyer_stop_pairs(z, method, maxlag))
+        return torch.cat(stops[0]), torch.cat(stops[1])
+
+    ess_rel = check_agree(f"{tag} ESS vs phase 11", res.ess, streamed.ess,
+                          1e-3, stream_stops)
+    out["streaming"] = {"wall_s": stats.wall_s, **sums, "ess_rel": ess_rel,
+                        "rhat_abs": rhat_abs,
+                        "in_core_wall_s": in_core_walls["streamed"]}
+    return out
+
+
+def phase_sharded_gbt(single, rows: torch.Tensor, y: np.ndarray, state,
+                      fit_s: float) -> dict:
+    """``ShardedGBTClassifier`` with the settings of phase 13's classifier
+    ``single`` on its rows, over the world of one rank (every level's
+    histograms and the leaf sums through an NCCL all-reduce): the forest of
+    phase 13's fit, splits equal and leaf values within 1e-5."""
+    import dataclasses
+
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    clf = mtt.models.ShardedGBTClassifier(**dataclasses.asdict(single))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2 = clf.fit(rows, y, state.num_classes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = (torch.equal(s2.split_feature, state.split_feature)
+            and torch.equal(s2.split_bin, state.split_bin))
+    lv = max_abs_err(s2.leaf_value, state.leaf_value)
+    print(f"[16 ShardedGBTClassifier, phase 13's rows] splits equal: {same}; "
+          f"leaf values max abs {lv:.3e} (bound 1e-5); fit {wall:.3f} s "
+          f"(GBTClassifier {fit_s:.3f} s)")
+    check(same and lv <= 1e-5, "sharded GBT forest != GBTClassifier's")
+    return {"fit_s": wall, "single_fit_s": fit_s, "leaf_value_max_abs": lv}
+
+
 def main() -> int:
     dev = phase_device()
     # (fails outside the repo)
@@ -1800,10 +2002,19 @@ def main() -> int:
     phase_classical_card_vs_cpu()
     lag = phase_lagloop(build_log)
     sort = phase_sort_study(build_log)
-    streaming = phase_streaming(x3, e2e.pop("fast"), e2e.pop("exact"))
-    del x3
+    fast, exact = e2e.pop("fast"), e2e.pop("exact")
+    streaming = phase_streaming(x3, fast, exact)
+    start_world_of_one()
+    sharded = phase_sharded(x3, fast, exact, {"fast": e2e["fast_s"],
+                                              "exact": e2e["exact_s"],
+                                              "streamed": streaming["wall_s"]},
+                            streaming.pop("host"), streaming.pop("result"))
+    del x3, fast, exact
     discrete = phase_discretediag()
     rstar_dense = phase_rstar_dense()
+    sharded["gbt"] = phase_sharded_gbt(*rstar_dense.pop("one_state"),
+                                       rstar_dense["fit_s"])
+    torch.distributed.destroy_process_group()
     rstar_bigk = phase_rstar_bigk()
     float64 = phase_float64()
 
@@ -1856,7 +2067,8 @@ def main() -> int:
                       **fz["walls"], "fused_vs_unfused": fz["fused_vs_unfused"],
                       "classical": classical, "streaming": streaming,
                       "discretediag": discrete, "rstar_dense": rstar_dense,
-                      "rstar_config5": rstar_bigk, "float64": float64}))
+                      "rstar_config5": rstar_bigk, "float64": float64,
+                      "sharded": sharded}))
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

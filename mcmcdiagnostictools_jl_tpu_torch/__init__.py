@@ -11,8 +11,13 @@ fused z mode), and the classical suite ``gelmandiag``,
 ``rafterydiag``, the discrete diagnostic ``discretediag``, the classifier
 diagnostic ``rstar`` (with its histogram GBT in ``models/``), and the
 out-of-core executor ``stream_param_chunks`` / ``ess_rhat_streaming`` for a
-host sample larger than device memory. The kernel studies (lag-loop
-formulations, sort passes and the pod sort) live in ``benchmarks/``.
+host sample larger than device memory. ``parallel`` runs ESS / R-hat and
+nested R-hat over a ``(chains, params)`` mesh of ``torch.distributed``
+ranks, one process a device (``make_mesh``, ``ess_rhat_sharded``,
+``rhat_nested_sharded``; ``ess_rhat_streaming(mesh_cfg=...)``), and
+``models.ShardedGBTClassifier`` fits R*'s classifier over the ranks. The
+kernel studies (lag-loop formulations, sort passes and the pod sort) live
+in ``benchmarks/``.
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
@@ -26,7 +31,7 @@ the kernels: pass ``device="cpu"`` (or a CPU tensor) to compute on the host,
 float64 kept.
 """
 
-from . import models
+from . import models, parallel
 from .diagnostics.bfmi import bfmi
 from .diagnostics.discretediag import (
     DiscreteDiagResult,
@@ -93,4 +98,5 @@ __all__ = [
     "DiscreteDiagResult",
     "DiscreteDiagValues",
     "models",
+    "parallel",
 ]

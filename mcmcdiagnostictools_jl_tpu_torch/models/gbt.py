@@ -28,8 +28,10 @@ holds the ``(n, K)`` logits. Its spans are labelled for the profiler:
 ``gbt.logits`` (the products of the leaf history with the leaf values) and
 ``gbt.hist`` (the histogram contractions).
 
-``ShardedGBTClassifier`` (the JAX package's data-parallel fit over a device
-mesh) has no counterpart yet: it waits for the port of ``parallel/``.
+``ShardedGBTClassifier`` is the data-parallel fit over the ranks of a
+``torch.distributed`` process group: both fits take a ``reduce`` hook that
+sums each level's histograms and the leaf sums across the ranks (the
+identity on one device).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -91,23 +94,29 @@ class GBTClassifier:
         x = self._rows(x)
         y = torch.as_tensor(y, device=x.device).to(torch.int64)
         edges = _quantile_bin_edges(x, self.n_bins)
-        binned = _bin_features(x, edges)  # (n, F) int64
-        kc = self._chunk_width(binned.shape[0], num_classes)
+        sf, sb, lv = self._fit_binned(_bin_features(x, edges), y, num_classes)
+        if verbosity > 0:
+            print(
+                f"{type(self).__name__}: fitted {self.n_rounds} multi-output "
+                f"trees ({num_classes} classes, depth {self.max_depth})"
+            )
+        return GBTState(sf, sb, lv, edges, num_classes)
+
+    def _fit_binned(self, binned, y, num_classes: int, n: int | None = None,
+                    **sharded):
+        """The dense or the class-chunked fit of binned rows ``(n, F)``,
+        chosen for ``n`` rows in all (default: these); ``sharded``: a
+        sharded fit's row weights ``w`` and ``reduce``."""
+        kc = self._chunk_width(binned.shape[0] if n is None else n,
+                               num_classes)
         opts = dict(num_classes=num_classes, n_rounds=self.n_rounds,
                     learning_rate=self.learning_rate,
                     max_depth=self.max_depth, n_bins=self.n_bins,
                     reg_lambda=self.reg_lambda,
-                    min_child_weight=self.min_child_weight)
+                    min_child_weight=self.min_child_weight, **sharded)
         if kc:
-            sf, sb, lv = _fit_gbt_bigk(binned, y, class_chunk=kc, **opts)
-        else:
-            sf, sb, lv = _fit_gbt(binned, y, **opts)
-        if verbosity > 0:
-            print(
-                f"GBTClassifier: fitted {self.n_rounds} multi-output trees "
-                f"({num_classes} classes, depth {self.max_depth})"
-            )
-        return GBTState(sf, sb, lv, edges, num_classes)
+            return _fit_gbt_bigk(binned, y, class_chunk=kc, **opts)
+        return _fit_gbt(binned, y, **opts)
 
     def predict_logits(self, state: GBTState, x):
         binned = _bin_features(self._rows(x), state.bin_edges)
@@ -157,6 +166,48 @@ def deterministic(classifier: GBTClassifier) -> GBTClassifier:
     """Mode-predicting version (the reference's ``Pipeline(...; predict_mode)``
     construction, src/rstar.jl:198-209)."""
     return replace(classifier, probabilistic=False)
+
+
+@dataclass(frozen=True)
+class ShardedGBTClassifier(GBTClassifier):
+    """Data-parallel GBT fit over the ranks of a process group (``group``;
+    default: every rank of the started one), BASELINE.md config 5's scale.
+
+    Every rank calls ``fit`` with the full training sample. The bin edges
+    come from all of it; the rows are dealt to the ranks in contiguous
+    blocks, the last padded with zero-weight rows; each level's
+    gradient/hessian histograms and the leaf sums are one SUM all-reduce of
+    the ranks' partial sums, after which split selection runs the same on
+    every rank. The fitted forest is replicated, and equals the
+    single-device fit up to the order of the float32 sums. Prediction is
+    local, as ``GBTClassifier``'s.
+    """
+
+    group: object = None
+
+    def _fit_binned(self, binned, y, num_classes: int):
+        """This rank's block of the binned rows, weighted, fitted with every
+        row reduction all-reduced over the group."""
+        group = self.group
+        nranks, rank = dist.get_world_size(group), dist.get_rank(group)
+        n = binned.shape[0]
+        n_loc = -(-n // nranks)
+        r0, r1 = min(rank * n_loc, n), min((rank + 1) * n_loc, n)
+        pad = n_loc - (r1 - r0)
+        w = torch.ones(n_loc, dtype=torch.float32, device=binned.device)
+        binned, y = binned[r0:r1], y[r0:r1]
+        if pad:
+            w[n_loc - pad:] = 0.0
+            binned = torch.cat([binned, binned.new_zeros((pad, binned.shape[1]))])
+            y = torch.cat([y, y.new_zeros(pad)])
+
+        def reduce(t):
+            t = t.contiguous()
+            dist.all_reduce(t, group=group)
+            return t
+
+        return super()._fit_binned(binned, y, num_classes, n, w=w,
+                                   reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +334,16 @@ def _route(binned, node, bf, bb):
 # ---------------------------------------------------------------------------
 
 
+def _identity(t):
+    return t
+
+
 def _fit_gbt(binned, y, *, num_classes, n_rounds, learning_rate, max_depth,
-             n_bins, reg_lambda, min_child_weight):
-    """The dense fit (the JAX package's ``_fit_gbt_core`` on one device):
-    ``(split_feature, split_bin, leaf_value)``."""
+             n_bins, reg_lambda, min_child_weight, w=None, reduce=_identity):
+    """The dense fit (the JAX package's ``_fit_gbt_core``):
+    ``(split_feature, split_bin, leaf_value)``. ``w``: (n,) row weights (0
+    for padding rows); ``reduce``: sums a row reduction across the ranks of
+    a sharded fit (the identity on one device)."""
     n, nfeat = binned.shape
     dev = binned.device
     inner, leaves, k = 2**max_depth - 1, 2**max_depth, num_classes
@@ -298,18 +355,21 @@ def _fit_gbt(binned, y, *, num_classes, n_rounds, learning_rate, max_depth,
     for r in range(n_rounds):
         p = torch.softmax(logits, dim=1)
         gh = torch.cat([p - onehot_y, p * (1.0 - p)], dim=1)  # (n, 2K)
+        if w is not None:
+            gh = gh * w[:, None]
         node = torch.zeros(n, dtype=torch.int64, device=dev)
         for depth in range(max_depth):
             n_nodes, off = 2**depth, 2**depth - 1
-            hist = _level_hist(_onehot_chunks(binned, node, n_nodes, n_bins),
-                               gh, nfeat, n_nodes, n_bins)
+            hist = reduce(_level_hist(
+                _onehot_chunks(binned, node, n_nodes, n_bins), gh, nfeat,
+                n_nodes, n_bins))
             bf, bb = _best_split(*_split_gains(hist, k, reg_lambda), n_bins,
                                  min_child_weight)
             sf[r, off:off + n_nodes] = bf
             sb[r, off:off + n_nodes] = bb
             node = _route(binned, node, bf, bb)
         # K-dim leaf values from the final node assignment
-        sums = _one_hot(node, leaves).T @ gh
+        sums = reduce(_one_hot(node, leaves).T @ gh)
         lv[r] = -learning_rate * sums[:, :k] / (sums[:, k:] + reg_lambda)
         logits += lv[r][node]
     return sf, sb, lv
@@ -341,7 +401,7 @@ def _fit_gbt(binned, y, *, num_classes, n_rounds, learning_rate, max_depth,
 
 def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
                   max_depth, n_bins, reg_lambda, min_child_weight,
-                  class_chunk):
+                  class_chunk, w=None, reduce=_identity):
     n, nfeat = binned.shape
     dev = binned.device
     inner, leaves, k, kc = 2**max_depth - 1, 2**max_depth, num_classes, class_chunk
@@ -373,7 +433,7 @@ def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
         torch.mul(p, -1.0, out=h).add_(1.0).mul_(p)  # (1 - p) * p
         mine = (y_chunk == c0 // kc).to(torch.float32)[:, None]
         p.scatter_add_(1, y_col, -mine)  # g = p - 1 at the row's own class
-        return gh
+        return gh if w is None else gh.mul_(w[:, None])
 
     for r in range(n_rounds):
         z = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -389,8 +449,8 @@ def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
                                device=dev)
             hl_sum, hr_sum = torch.zeros_like(gain), torch.zeros_like(gain)
             for i in range(nch):
-                hist = _level_hist(chunks, gh_chunk(zinv, i * kc), nfeat,
-                                   n_nodes, n_bins)
+                hist = reduce(_level_hist(chunks, gh_chunk(zinv, i * kc),
+                                          nfeat, n_nodes, n_bins))
                 gc, hlc, hrc = _split_gains(hist, kc, reg_lambda)
                 gain += gc
                 hl_sum += hlc
@@ -407,7 +467,7 @@ def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
                              device=dev)
         for i in range(nch):
             c0 = i * kc
-            sums = leaf_oh.T @ gh_chunk(zinv, c0)
+            sums = reduce(leaf_oh.T @ gh_chunk(zinv, c0))
             lv_blk[:, c0:c0 + kc] = (-learning_rate * sums[:, :kc]
                                      / (sums[:, kc:] + reg_lambda))
         lv_all[r * leaves:(r + 1) * leaves] = lv_blk

@@ -211,17 +211,23 @@ def _fold(xf, med):
     return torch.abs(xf - _fold_shift(med)[None, :])
 
 
-def _folded_cdf(xf, cdf: HistCDF, med, nbins: int) -> HistCDF:
-    """Histogram CDF of ``|xf - med|`` (folded inside K3) with its range
-    derived from the bulk CDF ``cdf`` (lo = 0, hi = max(hi - med, med -
-    lo)): no second min/max pass, no folded copy."""
+def fold_range(cdf: HistCDF, med):
+    """``(lo, hi, bad)`` of ``|x - med|`` derived from the bulk CDF ``cdf``
+    (lo = 0, hi = max(hi - med, med - lo)): no second min/max pass."""
     m = _fold_shift(med)
     hi_f = torch.maximum(cdf.hi - m, m - cdf.lo)
     hi_f = torch.where(hi_f > 0, hi_f, 1.0)
     lo_f = torch.zeros_like(hi_f)
     # degenerate columns keep hi <= lo so the tied-rank override fires
     hi_f = torch.where(cdf.hi <= cdf.lo, lo_f, hi_f)
-    return build_hist_cdf(xf, nbins, minmax=(lo_f, hi_f, cdf.bad), shift=m)
+    return lo_f, hi_f, cdf.bad
+
+
+def _folded_cdf(xf, cdf: HistCDF, med, nbins: int) -> HistCDF:
+    """Histogram CDF of ``|xf - med|`` (folded inside K3) with its range
+    from ``fold_range``: no folded copy."""
+    return build_hist_cdf(xf, nbins, minmax=fold_range(cdf, med),
+                          shift=_fold_shift(med))
 
 
 def fast_rank_fold(xf: torch.Tensor, cdf: HistCDF, med, nbins: int):

@@ -13,7 +13,9 @@ parameter, so chunking is exact. Two entry points:
   dict of ``(param_chunk,)`` tensors;
 - :func:`ess_rhat_streaming`: ESS and R-hat (kinds rank/bulk/tail/basic, fast
   or exact rank mode) through the port's ``_ess_rhat_pipeline``, which on the
-  card runs kernels K1-K4 on every chunk.
+  card runs kernels K1-K4 on every chunk; with ``mesh_cfg``, through the
+  sharded pipeline of ``parallel/`` on every rank of a ``(chains, params)``
+  mesh (kernels K3, K4 and K5 on each rank's block).
 
 The schedule on the card: two pinned host staging buffers, two device
 buffers, one copy stream beside the compute stream (the caller's current
@@ -169,7 +171,7 @@ def _tree_map(f, *trees):
 
 def stream_param_chunks(fn, source, *, nparams=None, param_chunk: int = 256,
                         return_stats: bool = False, device=None,
-                        dtype=torch.float32):
+                        dtype=torch.float32, widths=None):
     """Drive ``fn`` over parameter chunks of a host sample.
 
     ``fn(chunk) -> tree of (param_chunk,) tensors`` gets a ``(draws, chains,
@@ -183,9 +185,13 @@ def stream_param_chunks(fn, source, *, nparams=None, param_chunk: int = 256,
     ``source``: a host array / ``np.memmap`` / CPU tensor shaped ``(draws,
     chains, params...)``, or a callable ``source(start, size)`` (then
     ``nparams`` is required). ``device``: default the card (raises if there
-    is none); ``"cpu"`` runs a plain loop. Whatever is wrong with
-    ``param_chunk``, ``nparams`` or the shape of the source's first chunk is
-    raised before anything is allocated on or copied to the card.
+    is none); ``"cpu"`` runs a plain loop. ``widths``: a function ``k ->
+    w`` (``0 <= w <=`` chunk ``k``'s size) when the source gives only the
+    first ``w`` columns of chunk ``k``: the rest are zeros, and their
+    results are kept (the mesh's blocks, ``_stream_on_mesh``). Whatever is
+    wrong with ``param_chunk``, ``nparams`` or the shape of the source's
+    first chunk is raised before anything is allocated on or copied to the
+    card.
     """
     if isinstance(param_chunk, bool) or not isinstance(param_chunk, (int, np.integer)):
         raise TypeError(f"param_chunk must be an int, got {param_chunk!r}")
@@ -201,17 +207,20 @@ def stream_param_chunks(fn, source, *, nparams=None, param_chunk: int = 256,
     sizes = [min(param_chunk, nparams - s) for s in starts]
     stats = StreamStats(n_chunks=len(starts), param_chunk=param_chunk)
 
+    def width(k):
+        return sizes[k] if widths is None else widths(k)
+
     t_run = time.perf_counter()
     t0 = time.perf_counter()
-    first = np.asarray(src(0, sizes[0]))
-    _check_chunk(first, 0, sizes[0], dims)
+    first = np.asarray(src(0, width(0)))
+    _check_chunk(first, 0, width(0), dims)
     dims = tuple(first.shape[:2])
     shape = dims + (param_chunk,)
     on_card = device.type == "cuda"
 
     def read(k):
-        host = first if k == 0 else np.asarray(src(starts[k], sizes[k]))
-        _check_chunk(host, starts[k], sizes[k], dims)
+        host = first if k == 0 else np.asarray(src(starts[k], width(k)))
+        _check_chunk(host, starts[k], width(k), dims)
         return host
 
     def keep(out, k):
@@ -224,7 +233,7 @@ def stream_param_chunks(fn, source, *, nparams=None, param_chunk: int = 256,
             if k:
                 t0 = time.perf_counter()
             chunk = torch.empty(shape, dtype=dtype)
-            _gather(chunk, read(k), sizes[k])
+            _gather(chunk, read(k), width(k))
             t1 = time.perf_counter()
             results.append(keep(fn(chunk), k))
             t2 = time.perf_counter()
@@ -254,7 +263,7 @@ def stream_param_chunks(fn, source, *, nparams=None, param_chunk: int = 256,
                 """Chunk k from the source into its staging buffer (on the
                 fetch thread for k >= 1); returns the time it took."""
                 tg = time.perf_counter()
-                _gather(staging[k % 2], read(k), sizes[k])
+                _gather(staging[k % 2], read(k), width(k))
                 return time.perf_counter() - tg
 
             def enqueue_copy(k):
@@ -313,6 +322,8 @@ def ess_rhat_streaming(
     dtype=torch.float32,
     return_stats: bool = False,
     device=None,
+    mesh_cfg=None,
+    rank_impl: str | None = None,
 ):
     """ESS and R-hat of a host sample too large for device memory, an
     ``ESSRhat(ess, rhat)`` of tensors on ``device``.
@@ -332,10 +343,16 @@ def ess_rhat_streaming(
     ``"cpu"`` runs the plain versions in a plain loop. With ``return_stats=True`` also returns the
     :class:`StreamStats` of the run.
 
-    The JAX function's ``mesh_cfg`` and ``rank_impl`` (streaming onto a
-    device mesh through the sharded pipeline) have no counterpart yet: they
-    wait for the port of ``parallel/`` (ROADMAP.md, queue A) and are not
-    parameters here, rather than being accepted and ignored.
+    ``mesh_cfg``: a ``parallel.MeshConfig``; every rank of the mesh calls
+    this with the same source, and the parameters stream through the sharded
+    pipeline (``parallel.sharded``): each rank reads every chunk, keeps its
+    ``(draws, chains / k, param_chunk / m)`` block of it, and only that
+    block crosses to its device (``mesh_cfg.device``). ``param_chunk`` must
+    divide by the parameter shards. ``rank_impl`` picks the mesh's rank
+    transform and must agree with ``rank_mode``: ``"hist"`` (the default
+    under ``"fast"``) or ``"gather"`` (the default under ``"exact"``) /
+    ``"ring"``; without ``mesh_cfg`` it must be left unset. Every rank gets
+    the full results.
     """
     if kind not in ("rank", "bulk", "tail", "basic"):
         raise ValueError(
@@ -343,6 +360,15 @@ def ess_rhat_streaming(
         )
     _check_rank_mode(rank_mode)
     _check_maxlag(maxlag)
+    if mesh_cfg is None and rank_impl is not None:
+        raise ValueError("rank_impl only applies with mesh_cfg; use "
+                         "rank_mode to pick fast vs exact")
+    if mesh_cfg is not None:
+        rank_impl = _mesh_rank_impl(rank_mode, rank_impl)
+        if device is not None and resolve_device(device) != mesh_cfg.device:
+            raise ValueError(f"device={device!r} is not the mesh's device "
+                             f"{mesh_cfg.device}")
+        device = mesh_cfg.device
     device = resolve_device(device)
     dtype = _torch_dtype(dtype)
     src, nparams, pshape, dims = _make_source(source, nparams)
@@ -357,7 +383,6 @@ def ess_rhat_streaming(
     if niter <= 4:
         raise ValueError("streaming ess_rhat requires >4 draws per split "
                          "chain")
-    method = _method_name(autocov_method)
     q = tail_prob if kind == "tail" else None
 
     def checked_source(start, size):
@@ -366,20 +391,104 @@ def ess_rhat_streaming(
         _check_chunk(host, start, size, dims)
         return host
 
-    def fn(chunk):
-        return _ess_rhat_pipeline(
-            chunk, kind=kind, split_chains=split_chains,
-            maxlag=min(maxlag, niter - 4), method=method, relative=relative,
-            q=q, rank_mode=rank_mode, rank_nbins=rank_nbins,
-        )
+    if mesh_cfg is not None:
+        ess, rhat, stats = _stream_on_mesh(
+            checked_source, mesh_cfg, nparams=nparams, dims=dims,
+            param_chunk=param_chunk, dtype=dtype, kind=kind,
+            split_chains=split_chains, maxlag=min(maxlag, niter - 4),
+            autocov_method=autocov_method, relative=relative, q=q,
+            rank_impl=rank_impl, rank_nbins=rank_nbins)
+    else:
+        method = _method_name(autocov_method)
 
-    (ess, rhat), stats = stream_param_chunks(
-        fn, checked_source, nparams=nparams, param_chunk=param_chunk,
-        return_stats=True, device=device, dtype=dtype,
-    )
+        def fn(chunk):
+            return _ess_rhat_pipeline(
+                chunk, kind=kind, split_chains=split_chains,
+                maxlag=min(maxlag, niter - 4), method=method,
+                relative=relative, q=q, rank_mode=rank_mode,
+                rank_nbins=rank_nbins,
+            )
+
+        (ess, rhat), stats = stream_param_chunks(
+            fn, checked_source, nparams=nparams, param_chunk=param_chunk,
+            return_stats=True, device=device, dtype=dtype,
+        )
     if pshape is not None:
         ess = ess.reshape(pshape)
         rhat = rhat.reshape(pshape)
     if return_stats:
         return ESSRhat(ess, rhat), stats
     return ESSRhat(ess, rhat)
+
+
+def _mesh_rank_impl(rank_mode: str, rank_impl: str | None) -> str:
+    """The mesh's rank transform: resolved, and agreeing with ``rank_mode``
+    (``"hist"`` is the fast mode on a mesh, gather and ring the exact
+    transforms)."""
+    if rank_impl is None:
+        rank_impl = "hist" if rank_mode == "fast" else "gather"
+    if rank_impl not in ("gather", "ring", "hist"):
+        raise ValueError(
+            f"streaming rank_impl must be resolved, got {rank_impl!r}")
+    if (rank_mode == "fast") != (rank_impl == "hist"):
+        raise ValueError(
+            f"rank_mode={rank_mode!r} conflicts with rank_impl={rank_impl!r}: "
+            "'hist' is the fast mode on a mesh; 'gather'/'ring' are the "
+            "exact transforms")
+    return rank_impl
+
+
+def _stream_on_mesh(src, cfg, *, nparams: int, dims, param_chunk: int,
+                    dtype, kind, split_chains, maxlag, autocov_method,
+                    relative, q, rank_impl, rank_nbins):
+    """The executor over this rank's blocks: ``(ess, rhat, stats)``.
+
+    Rank ``(i, j)`` streams a parameter axis of its own, ``param_chunk / m``
+    columns a chunk: chunk ``c`` of it is columns ``[j w, (j + 1) w)`` of
+    the source's chunk ``c`` (``w = param_chunk / m``), and chains ``[i
+    c_loc, (i + 1) c_loc)``, zero-padded past the last parameter in the
+    staging buffer (a padded copy on the host would be one more pass over
+    the chunk, on one core). The
+    sharded pipeline returns each chunk's results for this rank's columns;
+    one ``all_gather`` over the parameter group at the end puts every
+    column back in its place."""
+    from .parallel.sharded import gather_params, local_ess_rhat, sharded_method
+
+    k, m = cfg.chain_shards, cfg.param_shards
+    if param_chunk % m:
+        raise ValueError(f"param_chunk ({param_chunk}) must divide by the "
+                         f"mesh's {m} parameter shards")
+    if dims[1] % k:
+        raise ValueError(f"the sample's chains ({dims[1]}) must divide "
+                         f"evenly across the mesh's {k} chain shards")
+    width, c_loc = param_chunk // m, dims[1] // k
+    i, j = cfg.chain_index, cfg.param_index
+    nchunks = -(-nparams // param_chunk)
+
+    def first_column(c):  # of this rank's chunk c, in the source
+        return c * param_chunk + j * width
+
+    def block_source(start, size):
+        # the executor pads a block narrower than ``width`` with zeros
+        if size == 0:
+            return np.zeros((dims[0], c_loc, 0), dtype=np.float32)
+        lo = first_column(start // width)
+        return src(lo, size)[:, i * c_loc:(i + 1) * c_loc]
+
+    method = sharded_method(autocov_method)
+
+    def fn(block):
+        return local_ess_rhat(
+            block, cfg, kind=kind, split_chains=split_chains, maxlag=maxlag,
+            method=method, relative=relative, q=q, rank_impl=rank_impl,
+            rank_nbins=rank_nbins)
+
+    (ess, rhat), stats = stream_param_chunks(
+        fn, block_source, nparams=nchunks * width, param_chunk=width,
+        return_stats=True, device=cfg.device, dtype=dtype,
+        widths=lambda c: min(max(nparams - first_column(c), 0), width))
+    # (2, m * chunks * w), parameter block first -> (2, chunks, m, w)
+    both = gather_params(torch.stack([ess, rhat]), cfg)
+    both = both.reshape(2, m, nchunks, width).transpose(1, 2)
+    both = both.reshape(2, nchunks * param_chunk)[:, :nparams]
+    return both[0], both[1], stats

@@ -25,7 +25,15 @@ def canonicalize(x, device=None, min_ndim: int = 1):
     promote to ``torch.get_default_dtype()``. A 1-d input gains a
     singleton chain axis; <=2-d inputs have ``pshape == ()``.
     """
-    x = to_tensor(x, device)
+    x3, pshape = canonical_dims(to_tensor(x, device), min_ndim)
+    if not x3.is_floating_point():
+        x3 = x3.to(torch.get_default_dtype())
+    return x3, pshape
+
+
+def canonical_dims(x, min_ndim: int = 1):
+    """A tensor or numpy array ``(draws[, chains[, params...]])`` reshaped to
+    ``(draws, chains, P)`` where it lies, plus the parameter shape."""
     if x.ndim < min_ndim:
         raise ValueError(
             f"samples must have at least {min_ndim} dimensions (draws, chains[, parameters...])"
@@ -35,10 +43,7 @@ def canonicalize(x, device=None, min_ndim: int = 1):
     if x.ndim == 1:
         x = x[:, None]
     pshape = tuple(x.shape[2:])
-    x3 = x.reshape(x.shape[0], x.shape[1], -1)
-    if not x3.is_floating_point():
-        x3 = x3.to(torch.get_default_dtype())
-    return x3, pshape
+    return x.reshape(x.shape[0], x.shape[1], -1), pshape
 
 
 def restore_param_shape(values: torch.Tensor, pshape: tuple) -> torch.Tensor:

@@ -809,3 +809,126 @@ def test_rstar_on_the_card(cuda_device):  # noqa: F811
     assert mtt.rstar(clf, t(x).to(cuda_device), rng=0).mean() > 0.7 * 4
     val = mtt.rstar(mtt.models.deterministic(clf), x, rng=0)
     assert isinstance(val, float) and 0.0 <= val <= 8.0
+
+
+# ---- the sharded path on a world of one rank over NCCL ------------------------
+
+
+def test_make_mesh_without_a_process_group_raises():
+    """No process group started: ``make_mesh()`` raises (it neither starts
+    one nor falls back to the CPU). Runs before the NCCL world below starts
+    and after it ends."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        mtt.parallel.make_mesh()
+
+
+@pytest.fixture(scope="class")
+def nccl_mesh():
+    """A ``(1, 1)`` mesh of a world of one rank over NCCL on card 0; the
+    group ends with the class."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield mtt.parallel.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+class TestShardedOnTheCard:
+    """Every rank transform of ``ess_rhat_sharded`` and the nested R-hat on
+    the card, against the in-core card call within PERF.md section 2's K5
+    limits (ESS 1e-3 relative, R-hat 1e-4 absolute); the hist transform
+    launches K3 and K4 twice each, every kind K5."""
+
+    @staticmethod
+    def _x(cuda_device, seed=27, shape=(2000, 16, 32)):
+        return t(_ar1(seed, shape)).to(torch.float32).to(cuda_device)
+
+    @pytest.mark.parametrize("impl", ["gather", "ring", "hist"])
+    def test_rank_impl_matches_in_core(self, nccl_mesh, cuda_device,  # noqa: F811
+                                       impl):
+        x = self._x(cuda_device)
+        mode = "fast" if impl == "hist" else "exact"
+        kernels.reset_launch_counts()
+        got = mtt.parallel.ess_rhat_sharded(x, nccl_mesh, kind="rank",
+                                            rank_impl=impl)
+        counts = kernels.launch_counts()
+        assert counts["K5"] >= 1 and counts["K1"] == 0 and counts["K2"] == 0
+        if impl == "hist":
+            assert counts["K3"] == 2 and counts["K4"] == 2
+        else:
+            assert counts["K3"] == 0 and counts["K4"] == 0
+        want = mtt.ess_rhat(x, kind="rank", rank_mode=mode)
+        assert got.ess.device == x.device and got.ess.shape == (32,)
+        assert_close(got.ess.cpu(), want.ess.cpu(), rtol=1e-3, atol=0)
+        assert_close(got.rhat.cpu(), want.rhat.cpu(), rtol=0, atol=1e-4)
+
+    @pytest.mark.parametrize("impl", ["gather", "ring", "hist"])
+    def test_nested_matches_in_core(self, nccl_mesh, cuda_device,  # noqa: F811
+                                    impl):
+        x = self._x(cuda_device, 28)
+        ids = np.repeat(np.arange(8), 2)
+        kernels.reset_launch_counts()
+        got = mtt.parallel.rhat_nested_sharded(x, ids, nccl_mesh,
+                                               rank_impl=impl)
+        counts = kernels.launch_counts()
+        assert (counts["K3"], counts["K4"]) == ((2, 2) if impl == "hist"
+                                                else (0, 0))
+        want = mtt.rhat_nested(x, ids)
+        assert_close(got.cpu(), want.cpu(), rtol=0,
+                     atol=1e-3 if impl == "hist" else 1e-4)
+
+    @pytest.mark.parametrize("impl", ["gather", "ring", "hist"])
+    def test_repeat_calls_are_bit_equal(self, nccl_mesh, cuda_device,  # noqa: F811
+                                        impl):
+        """Ranks on several cards must compute the replicated values (the
+        gather path's tail R-hat, the reduced moments) bit for bit alike:
+        on one card, two calls on the same block give the same bits (K3,
+        K5, ``torch.sort`` and the reductions are deterministic)."""
+        x = self._x(cuda_device, 31)
+        a, b = (mtt.parallel.ess_rhat_sharded(x, nccl_mesh, rank_impl=impl)
+                for _ in range(2))
+        assert torch.equal(a.ess, b.ess) and torch.equal(a.rhat, b.rhat)
+
+    def test_float64_launches_no_kernel(self, nccl_mesh,  # noqa: F811
+                                        cuda_device):
+        x = self._x(cuda_device).double()
+        kernels.reset_launch_counts()
+        got = mtt.parallel.ess_rhat_sharded(x, nccl_mesh, rank_impl="hist")
+        assert not any(kernels.launch_counts().values())
+        assert got.ess.dtype == torch.float64
+        want = mtt.ess_rhat(x.cpu(), kind="rank", rank_mode="fast")
+        assert_close(got.ess.cpu(), want.ess, rtol=1e-6, atol=0)
+
+    def test_streaming_on_the_mesh(self, nccl_mesh):
+        x = _ar1(29, (1000, 8, 40)).astype(np.float32)
+        kernels.reset_launch_counts()
+        got = mtt.ess_rhat_streaming(x, param_chunk=16, mesh_cfg=nccl_mesh)
+        counts = kernels.launch_counts()
+        assert counts["K3"] == 6 and counts["K4"] == 6 and counts["K5"] >= 3
+        want = mtt.ess_rhat_streaming(x, param_chunk=16)
+        assert got.ess.device.type == "cuda"
+        assert_close(got.ess.cpu(), want.ess.cpu(), rtol=1e-3, atol=0)
+        assert_close(got.rhat.cpu(), want.rhat.cpu(), rtol=0, atol=1e-4)
+
+    def test_sharded_gbt_equals_single(self, nccl_mesh,  # noqa: F811
+                                       cuda_device):
+        x, y, k = _gbt_rows(30)
+        xg = x.to(cuda_device)
+        kw = dict(n_rounds=10, n_bins=16)
+        s1 = mtt.models.GBTClassifier(**kw).fit(xg, y, k)
+        s2 = mtt.models.ShardedGBTClassifier(**kw).fit(xg, y, k)
+        assert torch.equal(s1.split_feature, s2.split_feature)
+        assert torch.equal(s1.split_bin, s2.split_bin)
+        assert_close(s1.leaf_value.cpu(), s2.leaf_value.cpu(), rtol=0,
+                     atol=1e-5)

@@ -9,6 +9,11 @@ a forest fitted by the JAX package and carried across predicts
 probabilities within 1e-6 and the same labels; deterministic R* equal
 where the fits are equal. Fitted splits are compared only where every split
 of every round wins by more than 1e-4 of its gain, which the test asserts.
+
+``ShardedGBTClassifier`` fits over a gloo world of 8 CPU processes
+(``tests/torch_dist.py``) and is held to the port's single-device fit as
+``tests/test_rstar.py`` holds the JAX package's: splits equal, leaf values
+within 5e-6 (float32 sums split across ranks), the same labels.
 """
 
 from types import SimpleNamespace
@@ -26,6 +31,7 @@ from mcmcdiagnostictools_jl_tpu_torch.convert import gbt_state_from_numpy
 from mcmcdiagnostictools_jl_tpu_torch.models import gbt as pgbt
 from mcmcdiagnostictools_jl_tpu_torch.models import poisson_binomial as ppb
 from mcmcdiagnostictools_jl_tpu_torch.utils import indices as pind
+from torch_dist import run_world
 from torch_parity import t
 
 
@@ -345,3 +351,89 @@ def test_many_chains_take_the_chunked_fit(rng, monkeypatch):
     dist = mtt.rstar(mtt.models.GBTClassifier(n_rounds=6, n_bins=16,
                                               class_chunk=32), t(x), rng=0)
     assert calls and 0.2 < dist.mean() < 2.5
+
+
+# ---- ShardedGBTClassifier ----------------------------------------------------
+
+
+def _gbt_inputs():
+    rng = np.random.default_rng(20261019)
+
+    def rows(n, nf=4, k=10):
+        x = rng.standard_normal((n, nf)).astype(np.float32)
+        y = rng.integers(0, k, n)
+        x[:, 0] += y * 0.4
+        return x, y
+
+    nchains = 4
+    xr = rng.standard_normal((400, nchains, 2)) * 0.1
+    xr += np.arange(nchains)[None, :, None] * 10.0
+    return {"even": rows(2000), "padded": rows(1997), "bigk": rows(600),
+            "rstar": xr}
+
+
+G = _gbt_inputs()
+SHARDED_FITS = {"even": dict(n_rounds=10, n_bins=16),
+                "padded": dict(n_rounds=6, n_bins=16),
+                "bigk": dict(n_rounds=6, n_bins=16, class_chunk=3)}
+
+
+@pytest.fixture(scope="module")
+def gbt_world(tmp_path_factory):
+    calls = [(name, "sharded_gbt_fit", [*G[name], 10], kw)
+             for name, kw in SHARDED_FITS.items()]
+    calls.append(("rstar", "sharded_rstar_mean", [G["rstar"], 0],
+                  dict(n_rounds=30, n_bins=32)))
+    return run_world(tmp_path_factory.mktemp("sharded_gbt"), 8, (8, 1),
+                     calls)[0]
+
+
+def _assert_fit_matches_single(got, name):
+    x, y = G[name]
+    clf = mtt.models.GBTClassifier(**SHARDED_FITS[name])
+    state = clf.fit(t(x), y, 10)
+    np.testing.assert_array_equal(got["split_feature"],
+                                  state.split_feature.numpy())
+    np.testing.assert_array_equal(got["split_bin"], state.split_bin.numpy())
+    np.testing.assert_allclose(got["leaf_value"], state.leaf_value.numpy(),
+                               rtol=0, atol=5e-6)
+    np.testing.assert_array_equal(got["bin_edges"], state.bin_edges.numpy())
+    np.testing.assert_array_equal(got["logits"].argmax(-1),
+                                  clf.predict(state, t(x)).numpy())
+
+
+def test_sharded_fit_matches_single(gbt_world):
+    _assert_fit_matches_single(gbt_world["even"], "even")
+
+
+def test_sharded_fit_row_padding(gbt_world):
+    """1997 rows over 8 ranks: the last rank's block ends in zero-weight
+    rows."""
+    _assert_fit_matches_single(gbt_world["padded"], "padded")
+
+
+def test_sharded_class_chunked_fit_matches_single(gbt_world):
+    _assert_fit_matches_single(gbt_world["bigk"], "bigk")
+
+
+def test_rstar_with_sharded_classifier(gbt_world):
+    assert gbt_world["rstar"] > 0.7 * G["rstar"].shape[1]
+
+
+def test_jax_sharded_forest_predicts_the_same_in_the_port():
+    """A forest fitted by the JAX package's ``ShardedGBTClassifier`` on its
+    8 virtual CPU devices, carried across."""
+    import jax
+
+    x, y = G["even"]
+    jc = jgbt.ShardedGBTClassifier(
+        n_rounds=10, n_bins=16,
+        devices=tuple(jax.local_devices(backend="cpu")[:8]))
+    jstate = jc.fit(x, y, 10)
+    state = gbt_state_from_numpy(jstate, "cpu")
+    pc = mtt.models.GBTClassifier(n_rounds=10, n_bins=16)
+    np.testing.assert_allclose(pc.predict_proba(state, t(x)).numpy(),
+                               np.asarray(jc.predict_proba(jstate, x)),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(pc.predict(state, t(x)).numpy(),
+                                  np.asarray(jc.predict(jstate, x)))

@@ -3,14 +3,18 @@
 The cases of ``tests/test_streaming.py`` (``TestESSRhatStreaming``,
 ``TestGenericExecutor``) on one seeded numpy sample through both packages,
 with ``device="cpu"`` (no card here: the schedule is a plain loop and the
-pipeline takes the kernels' plain versions). The mesh cases wait for the
-port of ``parallel/``.
+pipeline takes the kernels' plain versions). The mesh cases
+(``TestMeshStreaming``) run in one gloo world of 8 CPU processes over a 4 x 2
+mesh (``tests/torch_dist.py``), against the JAX package's streaming on its
+8 virtual CPU devices with the same layout.
 
 Tolerances: float64 in either rank mode within BASELINE.md's 1e-6 of the JAX
 package's streamed result; float32 fast mode within ESS 1e-4 relative and
 R-hat 1e-5 absolute (float32 rounding of ranks and sums, as in
 ``tests/test_torch_ess_rhat.py``); streamed against the port's own monolithic
-call 5e-6 relative (chunk width changes the tiling of float32 reductions).
+call 5e-6 relative (chunk width changes the tiling of float32 reductions),
+and on a mesh against the port's sharded call 5e-6 relative and against the
+in-core fast mode 1e-5 (as ``tests/test_streaming.py``).
 """
 
 import inspect
@@ -25,6 +29,7 @@ from mcmcdiagnostictools_jl_tpu_torch.streaming import (
     StreamStats,
     stream_param_chunks,
 )
+from torch_dist import MESH, run_world
 from torch_parity import assert_close
 
 KINDS = ["rank", "bulk", "tail", "basic"]
@@ -250,16 +255,16 @@ def test_1d_input_raises(rng):
 
 
 def test_mesh_parameters_are_not_accepted(rng):
-    """``mesh_cfg`` / ``rank_impl`` wait for ``parallel/``: they are not
-    parameters, and the docstring says why."""
+    """``rank_impl`` is not accepted without ``mesh_cfg`` (JAX's
+    ``test_rank_impl_requires_mesh``); ``mesh_cfg=None`` is the default."""
     params = inspect.signature(mtt.ess_rhat_streaming).parameters
-    assert "mesh_cfg" not in params and "rank_impl" not in params
-    assert "mesh_cfg" in mtt.ess_rhat_streaming.__doc__
+    assert params["mesh_cfg"].default is None
+    assert params["rank_impl"].default is None
     x = _sample(rng, (400, 4, 3))
-    with pytest.raises(TypeError):
-        _stream(x, rank_impl="hist")
-    with pytest.raises(TypeError):
-        _stream(x, mesh_cfg=None)
+    for rank_impl in ("hist", "gather"):
+        with pytest.raises(ValueError, match="mesh_cfg"):
+            _stream(x, rank_impl=rank_impl)
+    assert _stream(x, mesh_cfg=None).ess.shape == (3,)
 
 
 @pytest.mark.parametrize("param_chunk,err", [
@@ -397,3 +402,122 @@ def test_chunks_are_padded_to_one_width(rng):
     assert seen[2][1] == 0.0 and seen[0][1] > 0
     assert out.shape == (10,)
     assert_close(out, x.sum((0, 1)), rtol=1e-5, atol=0)
+
+
+# ---- streaming onto a mesh ---------------------------------------------------
+
+
+def _mesh_inputs():
+    rng = np.random.default_rng(20261018)
+    return {"x": _sample(rng, (800, 8, 20)),
+            "ragged": _sample(rng, (600, 4, 18)),
+            "exact": _sample(rng, (600, 8, 8)),
+            "f64": _sample(rng, (600, 8, 12), np.float64),
+            "bad": _sample(rng, (100, 4, 8))}
+
+
+MX = _mesh_inputs()
+
+
+def _mesh_calls():
+    def stream(name, data, **kw):
+        return (name, "ess_rhat_streaming", [MX[data]], dict(mesh_cfg=MESH,
+                                                             **kw))
+
+    return [
+        ("sharded-hist", "parallel.ess_rhat_sharded", [MX["x"], MESH],
+         dict(kind="rank", rank_impl="hist")),
+        stream("x", "x", param_chunk=4, rank_impl="hist"),
+        stream("ragged", "ragged", param_chunk=8),
+        ("sharded-gather", "parallel.ess_rhat_sharded", [MX["exact"], MESH],
+         dict(kind="rank", rank_impl="gather")),
+        stream("exact", "exact", param_chunk=4, rank_mode="exact"),
+        stream("ring", "exact", param_chunk=4, rank_mode="exact",
+               rank_impl="ring"),
+        *(stream(f"f64-{mode}-{kind}", "f64", param_chunk=4, kind=kind,
+                 rank_mode=mode, dtype=torch.float64)
+          for mode in ("fast", "exact") for kind in KINDS),
+        stream("raises:auto", "bad", rank_impl="auto"),
+        stream("raises:exact-hist", "bad", rank_mode="exact",
+               rank_impl="hist"),
+        stream("raises:fast-gather", "bad", rank_mode="fast",
+               rank_impl="gather"),
+        stream("raises:odd-chunk", "bad", param_chunk=3),
+    ]
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    return run_world(tmp_path_factory.mktemp("mesh_streaming"), 8, (4, 2),
+                     _mesh_calls())[0]
+
+
+@pytest.fixture(scope="module")
+def jax_mesh():
+    import jax
+
+    from mcmcdiagnostictools_jl_tpu.parallel import make_mesh
+
+    return make_mesh(4, 2, devices=jax.local_devices(backend="cpu")[:8])
+
+
+class TestMeshStreaming:
+    """Streaming onto a 4 x 2 mesh: chains sharded across the ranks while
+    the parameters stream through them."""
+
+    def test_matches_sharded_and_fast(self, mesh_world, jax_mesh):
+        x = MX["x"]
+        ess, rhat = mesh_world["x"]
+        s_ess, s_rhat = mesh_world["sharded-hist"]
+        assert_close(ess, s_ess, rtol=5e-6, atol=0)
+        assert_close(rhat, s_rhat, rtol=5e-6, atol=0)
+        c = mtt.ess_rhat(x, kind="rank", rank_mode="fast", device="cpu")
+        assert_close(ess, c.ess, rtol=1e-5, atol=0)
+        want = mdt.ess_rhat_streaming(x, param_chunk=4, mesh_cfg=jax_mesh,
+                                      rank_impl="hist")
+        assert_close(ess, want.ess, rtol=1e-4, atol=0)
+        assert_close(rhat, want.rhat, rtol=0, atol=1e-5)
+
+    def test_ragged_chunk_on_mesh(self, mesh_world, jax_mesh):
+        # 18 params, chunks of 8 (4 a parameter shard): the last chunk holds
+        # 2 parameters, both on the first parameter shard
+        ess, rhat = mesh_world["ragged"]
+        assert ess.shape == (18,) and rhat.shape == (18,)
+        assert np.all(np.isfinite(ess)) and np.all(np.isfinite(rhat))
+        want = mdt.ess_rhat_streaming(MX["ragged"], param_chunk=8,
+                                      mesh_cfg=jax_mesh)
+        assert_close(ess, want.ess, rtol=1e-4, atol=0)
+        assert_close(rhat, want.rhat, rtol=0, atol=1e-5)
+
+    def test_bad_rank_impl_raises(self, mesh_world):
+        for name, exc, match in (
+                ("raises:auto", "ValueError", "rank_impl"),
+                ("raises:exact-hist", "ValueError", "conflicts"),
+                ("raises:fast-gather", "ValueError", "conflicts"),
+                ("raises:odd-chunk", "ValueError", "param_chunk")):
+            err = mesh_world[name]
+            assert err is not None and err[0] == exc and match in err[1], name
+
+    def test_exact_mode_on_mesh_defaults_to_gather(self, mesh_world,
+                                                   jax_mesh):
+        ess, rhat = mesh_world["exact"]
+        s_ess, _ = mesh_world["sharded-gather"]
+        assert_close(ess, s_ess, rtol=5e-6, atol=0)
+        # the ring gives the gather's ranks
+        assert_close(mesh_world["ring"][0], ess, rtol=5e-6, atol=0)
+        want = mdt.ess_rhat_streaming(MX["exact"], param_chunk=4,
+                                      mesh_cfg=jax_mesh, rank_mode="exact")
+        assert_close(ess, want.ess, rtol=1e-4, atol=0)
+        assert_close(rhat, want.rhat, rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("rank_mode", ["fast", "exact"])
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_float64_matches_jax_mesh_streaming(self, mesh_world, jax_mesh,
+                                                kind, rank_mode):
+        ess, rhat = mesh_world[f"f64-{rank_mode}-{kind}"]
+        assert ess.dtype == np.float64 and ess.shape == (12,)
+        want = mdt.ess_rhat_streaming(MX["f64"], param_chunk=4, kind=kind,
+                                      rank_mode=rank_mode, mesh_cfg=jax_mesh,
+                                      dtype=np.float64)
+        assert_close(ess, want.ess)
+        assert_close(rhat, want.rhat)
