@@ -15,16 +15,26 @@ and exits nonzero, printing no result, if any phase fails:
    1e-4, K4's table equal to its cum and fm, two runs bit-equal), plain and
    folded around a shift; K4 bit-equal also with shift, fill and bad, with
    the kernel its wrapper chose by shape, and through its gather route;
+   K10 (the fold merge) and K11 (split-chain moments) on the exact tail
+   transform's inputs at (1.28M, 256), with a NaN column, a constant
+   column, heavy ties and a column whose median is NaN (75 % +inf): K10's
+   keys bit-identical to ``valley_sort_2d``'s and ``torch.sort``'s, payloads
+   equal up to ties; K11 two runs bit-equal and within 1e-6 (sums) and 1e-4
+   (R-hat) of its float64 plain version; each beside its bound, its plain
+   version and a library yardstick;
    then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
-   on that sample; checks that every kernel ran, that fast tracks exact,
-   and that the badly mixed parameter is flagged; then the same sample as
-   numpy float64 with no device, which must run K1-K4 on the card and give
-   the float32 tensor's result; prints the wall times;
+   on that sample; checks that every kernel ran (the exact call K10 and K11
+   once each), that fast tracks exact, and that the badly mixed parameter is
+   flagged; then the same sample as numpy float64 with no device, which must
+   run K1-K4 on the card and give the float32 tensor's result; prints the
+   wall times; then the exact call with ``fold_impl`` auto, sort and merge
+   in turns (ESS bit-equal, R-hat within 1e-6), walls and peak memory;
 5. card against CPU: the same calls at 2000 x 32 x 64 on the card and
-   through the plain CPU path must agree;
+   through the plain CPU path must agree, and the exact kinds ``tail`` and
+   ``rank`` with ``fold_impl="merge"`` (R-hat 1e-4);
 6. the estimator path with ``DirectKernelAutocovMethod`` (kernel K5): K5
    against its plain version, against K1's autocovariance and (with K1)
    against K6's variant A on the split sample: equal bit for bit where the
@@ -87,8 +97,9 @@ and exits nonzero, printing no result, if any phase fails:
     NCCL (the card takes one rank): ``ess_rhat_sharded(kind="rank")`` with
     the gather, ring and hist rank transforms and ``rhat_nested_sharded`` on
     16 superchains at 10k x 128 x 256, each with its launches counted from
-    0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, K1 and K2
-    never), its wall beside the in-core call's and its largest differences
+    0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, gather and
+    ring K11 once (nested: twice), K1, K2 and K10 never), its wall beside
+    the in-core call's and its largest differences
     from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
     against gather 1e-6); config 4 through ``ess_rhat_streaming(mesh_cfg=
     ...)`` against phase 11's result; ``ShardedGBTClassifier`` on phase 13's
@@ -409,6 +420,140 @@ def phase_kernels(x3: torch.Tensor) -> list:
     return [rows[3], rows[0], rows[1], rows[2]]
 
 
+def keys_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit where not NaN, NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.view(torch.int32)[~na],
+                                               b.view(torch.int32)[~nb])
+
+
+def routed_ranks(fs: torch.Tensor, forder: torch.Tensor) -> torch.Tensor:
+    """Tied-average ranks of sorted keys routed back by their payload: equal
+    for two sorts whose payloads differ only in the order of tied keys."""
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import _avg_ranks_sorted
+
+    r = _avg_ranks_sorted(fs)
+    return torch.empty_like(r).scatter_(0, forder, r)
+
+
+def phase_fold_kernels(x3: torch.Tensor) -> list:
+    """K10 and K11 on the exact tail transform's own inputs at (1.28M, 256):
+    the sort of the sample with a NaN column (1), a constant column (2), a
+    column of heavy ties (3) and a column 75 % +inf (4: its median is NaN
+    and it holds no NaN), medians as the transform takes them.
+
+    K10 against its plain version (``valley_sort_2d``) and ``torch.sort``:
+    keys bit-identical, payloads a permutation and equal up to the order of
+    tied keys (tied-average ranks routed back by payload equal); a column
+    whose median is NaN keeps its sorted order. K11 on the rank-normal
+    values in K10's order: two runs bit-equal, the sums within 1e-6 of the
+    float64 plain version relative to max(|sum|, 1) (exact fixed-point sums
+    rounded once to float32), min and max equal, and the R-hat of the
+    moments within 1e-4 of the float64 plain version's."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import seghist, valley
+    from mcmcdiagnostictools_jl_tpu_torch.ops.moments import (
+        chain_stats, stats_from_chain_moments)
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
+        _avg_ranks_sorted, _blom_normal, _unsort, sort_with_positions,
+        sorted_quantile)
+    from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
+
+    xk = with_bad_columns(x3)
+    xk[:, :, 3] = torch.round(xk[:, :, 3] * 2) / 2
+    gen = torch.Generator(device=xk.device).manual_seed(SEED)
+    u = torch.rand(xk.shape[:2], generator=gen, device=xk.device)
+    xk[:, :, 4] = torch.where(u < 0.75, torch.inf, xk[:, :, 4])
+    xs, order, bad = sort_with_positions(xk)
+    med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
+    del xk
+    n, p = xs.shape
+    check(bool(torch.isnan(med[4])) and not bool(bad[4]),
+          "column 4 should have a NaN median and no NaN")
+    rows = []
+
+    fs, forder = valley.valley_merge(xs, order, med)
+    fp, fop = valley.valley_merge_plain(xs, order, med)
+    ref_k, ref_i = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
+    torch.cuda.synchronize()
+    check(keys_equal(fs, fp) and keys_equal(fs, ref_k),
+          "K10 keys differ from valley_sort_2d's or torch.sort's")
+    arange = torch.arange(n, device=xs.device)[:, None].expand(n, p)
+    check(torch.equal(torch.sort(forder, dim=0).values, arange),
+          "K10 payload is not a permutation of the rows")
+    want = routed_ranks(ref_k, order.gather(0, ref_i))
+    check(torch.equal(routed_ranks(fs, forder), want)
+          and torch.equal(routed_ranks(fp, fop), want),
+          "K10 payloads differ beyond the order of ties")
+    nan_med = torch.isnan(med)
+    check(torch.equal(forder[:, nan_med], order[:, nan_med]),
+          "K10 moved a column whose median is NaN")
+    del fp, fop, ref_k, ref_i, want, arange
+    ms = time_ms(lambda: valley.valley_merge(xs, order, med))
+    plain_ms = time_ms(lambda: valley.valley_merge_plain(xs, order, med))
+    lib_ms = time_ms(lambda: order.gather(0, torch.sort(
+        torch.abs(xs - med[None, :]), dim=0).indices))
+    bound = roofline(24.0 * n * p)
+    print(f"[3 K10 valley_merge] keys bit-identical to valley_sort_2d and "
+          f"torch.sort, payloads equal up to ties (NaN, constant, tied and "
+          f"NaN-median columns); kernel {ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ({bound['bound_ms'] / ms:.0%}), plain "
+          f"{plain_ms:.3f} ms, torch.sort + gather {lib_ms:.3f} ms")
+    rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     **bound))
+
+    zf = _blom_normal(_avg_ranks_sorted(fs), n)
+    del fs
+    a = seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2)
+    b = seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2)
+    c = seghist.segment_moments_plain(zf.double(), forder, DRAWS, CHAINS, 2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(a, b)), "K11: two runs differ")
+    check(torch.equal(a[2].double(), c[2]) and torch.equal(a[3].double(), c[3]),
+          "K11 min/max differ")
+    err = max(max_abs_err(u, v) for u, v in zip(a[:2], c[:2]))
+    rel = max(float(((u.double() - v).abs() / v.abs().clamp(min=1.0)).max())
+              for u, v in zip(a[:2], c[:2]))
+    niter = DRAWS // 2
+
+    def rhat(m):
+        mean = m[0] / niter
+        var = (m[1] - niter * mean * mean) / (niter - 1)
+        return stats_from_chain_moments(mean, var, niter, m[2] == m[3]).rhat
+
+    rhat_err = max_abs_err(rhat(a), rhat(c))
+    check(rel <= 1e-6 and rhat_err <= 1e-4,
+          f"K11 off its float64 plain version: rel {rel:.2e}, R-hat "
+          f"{rhat_err:.2e}")
+    ms = time_ms(lambda: seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2))
+    plain_ms = time_ms(
+        lambda: seghist.segment_moments_plain(zf, forder, DRAWS, CHAINS, 2))
+    seg, valid = seghist.split_chain_ids_from_flat(forder, DRAWS, CHAINS, 2)
+    idx = seg * p + torch.arange(p, device=seg.device)
+    w = torch.where(valid, zf, 0.0)
+    nseg = CHAINS * 2
+
+    def scatter_adds():
+        zf.new_zeros(nseg * p).scatter_add_(0, idx.view(-1), w.view(-1))
+        zf.new_zeros(nseg * p).scatter_add_(0, idx.view(-1), (w * w).view(-1))
+
+    lib_ms = time_ms(scatter_adds)
+    del seg, valid, idx, w
+    old_ms = time_ms(lambda: chain_stats(split_chains_reshape(
+        _unsort(zf, forder).reshape(DRAWS, CHAINS, p), 2)))
+    bound = roofline(12.0 * n * p)
+    print(f"[3 K11 segment_moments] two runs bit-equal; sums within "
+          f"{rel:.3e} of the float64 plain version (relative, bound 1e-6), "
+          f"R-hat {rhat_err:.3e} (bound 1e-4), min/max equal; kernel "
+          f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} "
+          f"({bound['bound_ms'] / ms:.0%}), plain {plain_ms:.3f} ms, two "
+          f"scatter_add_ {lib_ms:.3f} ms, the scatter back + chain_stats it "
+          f"replaces {old_ms:.3f} ms")
+    rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     deterministic=True, ms_unsort_chain_stats=old_ms,
+                     rhat_err=rhat_err, **bound))
+    return rows
+
+
 # K1 and K5 in float32 sums of another order than their plain versions,
 # relative to the largest lag-0 value (phases 3, 6, 8 and 9)
 LAG_REL_BOUND = 1e-5
@@ -474,6 +619,8 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
         check(fast_counts[kid] >= least, f"{kid} ran {fast_counts[kid]} times "
               f"in the fast call, expected >= {least}")
     check(exact_counts["K1"] >= 1, "K1 did not run in the exact call")
+    check(exact_counts["K10"] == 1 and exact_counts["K11"] == 1,
+          "the exact call did not launch K10 and K11 once each")
 
     for res in (fast, exact):
         for v in res:
@@ -522,8 +669,36 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
     }
     print(f"[4 wall] fast {walls['fast_s']:.4f} s, exact {walls['exact_s']:.4f} s "
           f"(median of 3, {DRAWS}x{CHAINS}x{PARAMS} f32)")
-    return {"counts": fast_counts, "fast": fast, "exact": exact,
-            "numpy_float64_s": np_wall, **walls}
+
+    # the exact call's fold routes: "auto" (the merge here), "sort", "merge";
+    # the bulk ESS does not depend on the fold, and K11's integer sums do not
+    # depend on the order of the values
+    routes = {}
+    for impl in ("auto", "sort", "merge", "sort", "auto"):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = mtt.ess_rhat(x3, kind="rank", fold_impl=impl)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts = kernels.launch_counts()
+        check(counts["K11"] == 1 and counts["K10"] == (impl != "sort"),
+              f"fold_impl={impl!r}: K10 {counts['K10']}, K11 {counts['K11']}")
+        check(torch.equal(res.ess, exact.ess)
+              and float((res.rhat - exact.rhat).abs().max()) <= 1e-6,
+              f"fold_impl={impl!r} disagrees with the default")
+        wall = wall_s(lambda: mtt.ess_rhat(x3, kind="rank", fold_impl=impl))
+        routes.setdefault(impl, {"walls_s": [], "peak_gb": peak})
+        routes[impl]["walls_s"].append(wall)
+    for impl, r in routes.items():
+        print(f"[4 exact, fold_impl={impl!r}] wall {r['walls_s']} s (median "
+              f"of 3 each, in turns auto, sort, merge, sort, auto); peak "
+              f"+{r['peak_gb']:.2f} GB above the sample; ESS bit-equal, "
+              f"R-hat within 1e-6 of the default")
+    return {"counts": fast_counts, "exact_counts": exact_counts,
+            "fast": fast, "exact": exact, "numpy_float64_s": np_wall,
+            "exact_routes": routes, **walls}
 
 
 def geyer_stop_pairs(proxy: torch.Tensor, method: str, maxlag: int):
@@ -558,6 +733,7 @@ def bulk_z(x3: torch.Tensor, rank_mode: str) -> torch.Tensor:
 
 def phase_card_vs_cpu() -> None:
     import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
 
     rng = np.random.default_rng(SEED + 1)
     x_cpu = torch.from_numpy(ar1(rng, 0.5, (2000, 32, 64)))
@@ -574,6 +750,19 @@ def phase_card_vs_cpu() -> None:
             f"[5 {mode}] ESS card vs CPU", g.ess, c.ess, 1e-3,
             lambda: (geyer_stop_pairs(bulk_z(x_gpu, mode), "kernel", maxlag),
                      geyer_stop_pairs(bulk_z(x_cpu, mode), "kernel", maxlag)))
+    # the exact kinds with a tail R-hat through the merge: K10 and K11 on
+    # the card, valley_sort_2d and the plain segment sums on the CPU
+    for kind in ("tail", "rank"):
+        kernels.reset_launch_counts()
+        g = mtt.ess_rhat(x_gpu, kind=kind, fold_impl="merge")
+        counts = kernels.launch_counts()
+        c = mtt.ess_rhat(x_cpu, kind=kind, fold_impl="merge")
+        rhat_abs = float((g.rhat.cpu() - c.rhat).abs().max())
+        print(f"[5 exact {kind}, fold_impl='merge'] card vs CPU: R-hat abs "
+              f"{rhat_abs:.3e} (bound 1e-4); K10 {counts['K10']}, K11 "
+              f"{counts['K11']}")
+        check(rhat_abs <= 1e-4 and counts["K10"] == 1 and counts["K11"] == 1,
+              f"exact {kind} with the merge: card != CPU")
 
 # ---- phase 6: the estimator path with DirectKernelAutocovMethod (K5) -------
 
@@ -1817,10 +2006,11 @@ def counted_call(fn):
 
 def check_launches(tag: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` ran exactly that often (None: at least once);
-    K1 and K2 (not on the sharded path) never."""
-    shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5")}
+    K1, K2 and K10 (not on the sharded path) never."""
+    shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5",
+                                    "K10", "K11")}
     print(f"   {tag} launches: {shown}")
-    for kid, n in {"K1": 0, "K2": 0, **want}.items():
+    for kid, n in {"K1": 0, "K2": 0, "K10": 0, **want}.items():
         ok = counts[kid] >= 1 if n is None else counts[kid] == n
         check(ok, f"{tag}: {kid} ran {counts[kid]} times, expected "
               f"{'>= 1' if n is None else n}")
@@ -1858,8 +2048,9 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         tag = f"[16 ess_rhat_sharded {impl}]"
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"{mode} {in_core_walls[mode]:.4f} s")
-        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None}
-                       if impl == "hist" else {"K3": 0, "K4": 0, "K5": None})
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None, "K11": 0}
+                       if impl == "hist" else
+                       {"K3": 0, "K4": 0, "K5": None, "K11": 1})
         for v in res:
             check(v.shape == (PARAMS,) and v.device.type == "cuda"
                   and bool(torch.isfinite(v).all()),
@@ -1876,7 +2067,8 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
             "wall_s": wall, "first_call_s": first,
             "in_core_wall_s": in_core_walls[mode], "ess_rel": ess_rel,
             "rhat_abs": rhat_abs,
-            "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5")}}
+            "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5",
+                                                 "K11")}}
     ring, gather = results["ring"], results["gather"]
     rg_ess = float((ring.ess / gather.ess - 1).abs().max())
     rg_rhat = float((ring.rhat - gather.rhat).abs().max())
@@ -1898,8 +2090,9 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"exact {nested_wall:.4f} s; R-hat abs vs in-core {err:.3e} "
               f"(bound {bound:.0e}{', the fast mode' if impl == 'hist' else ''})")
-        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0}
-                       if impl == "hist" else {"K3": 0, "K4": 0, "K5": 0})
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0, "K11": 0}
+                       if impl == "hist" else
+                       {"K3": 0, "K4": 0, "K5": 0, "K11": 2})
         check(r.shape == (PARAMS,) and bool(torch.isfinite(r).all())
               and err <= bound, f"{tag}: != in-core")
         out["nested"][impl] = {"wall_s": wall, "first_call_s": first,
@@ -1988,6 +2181,7 @@ def main() -> int:
           f"({x3.numel() * 4 / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
 
     rows = phase_kernels(x3)
+    fold_rows = phase_fold_kernels(x3)
     phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
@@ -2039,14 +2233,22 @@ def main() -> int:
          "benchmarks/sort_microbench.py:171"),
         ("K9 bitonic_pod_sort", src + "sort_study.cu",
          "benchmarks/sort_microbench.py:307"),
+        ("K10 valley_merge", src + "valley_merge.cu",
+         "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:122"),
+        ("K11 segment_moments", src + "segment_moments.cu",
+         "mcmcdiagnostictools_jl_tpu/ops/seghist.py:55"),
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
+    rows += fold_rows
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
-    # phase 10 (K1-K4 in the streamed run: "streaming" in the line above)
+    # phase 10; K10, K11: the exact ess_rhat call of phase 4 (K1-K4 in the
+    # streamed run: "streaming" in the line above)
     launches = {**e2e["counts"], "K5": est["k5_launches"],
+                "K10": e2e["exact_counts"]["K10"],
+                "K11": e2e["exact_counts"]["K11"],
                 "K4z": fz["launches"], "K6a": lag["launches"]["a"],
                 "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []
@@ -2061,6 +2263,7 @@ def main() -> int:
         entry.update(row)
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
+                      "exact_fold_routes": e2e["exact_routes"],
                       "wall_numpy_float64_s": e2e["numpy_float64_s"],
                       **est["walls"],
                       "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"],

@@ -6,7 +6,10 @@
 - ``profile_calls``: where the device time of the port's flagship calls goes
   (``torch.profiler``, by kernel);
 - ``gbt_contract``: the R* GBT's histogram and leaf products at config 5's
-  shapes, one product against row blocks through ``torch.bmm``.
+  shapes, one product against row blocks through ``torch.bmm``;
+- ``ab_walls``: the flagship calls' walls and peak memory of two checkouts
+  of the port, in turns, one process a run (host walls, each call ending in
+  a synchronize).
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -87,6 +87,9 @@ def calls(x: torch.Tensor) -> dict:
     return {
         "ess_rhat fast": lambda: mtt.ess_rhat(x, kind="rank", rank_mode="fast"),
         "ess_rhat fast, FUSE_BLOM_Z": fused,
+        "ess_rhat exact": lambda: mtt.ess_rhat(x, kind="rank"),
+        "ess_rhat exact, fold_impl=sort": lambda: mtt.ess_rhat(
+            x, kind="rank", fold_impl="sort"),
         "mcse mean, K5 marker": lambda: mtt.mcse(
             x, kind="mean", autocov_method=mtt.DirectKernelAutocovMethod()),
         "gewekediag": lambda: mtt.gewekediag(x),

@@ -18,12 +18,16 @@ Estimator-ESS proxies (src/ess_rhat.jl:626-659): mean -> x, median ->
 indicator(x <= median), std -> (x - mean)^2, mad -> the median proxy of the
 folded draws, quantile(p) -> indicator(x <= quantile_p).
 
-``rank_mode="exact"`` ranks with ``torch.sort``; ``"fast"`` uses the
-histogram CDF (ops/fastrank.py) for the rank transforms and for every
-median/quantile threshold. On a CUDA float32 tensor the fused moments +
-autocovariance (or, with ``DirectKernelAutocovMethod``, the direct
-autocovariance alone) and the fast rank transform run the hand-written
-kernels (kernels/); on a CPU tensor their plain versions.
+``rank_mode="exact"`` ranks with ``torch.sort`` and takes the tail R-hat
+from the sort of ``x``: the fold ``|x - median|`` sorted (``fold_impl``: a
+stable sort, or the merge of its two sorted runs) and its split-chain
+moments read off the positions the sort carries (ops/seghist.py); ``"fast"``
+uses the histogram CDF (ops/fastrank.py) for the rank transforms and for
+every median/quantile threshold. On a CUDA float32 tensor the fused moments
++ autocovariance (or, with ``DirectKernelAutocovMethod``, the direct
+autocovariance alone), the fold merge (K10), the split-chain moments (K11)
+and the fast rank transform run the hand-written kernels (kernels/); on any
+other tensor their plain versions.
 
 Numeric contracts: the split-chain remainder-discard rule, the ``(n-1)/n``
 correction, the ``corrected=(nchains>1)`` guard, the ``min(1/tau,
@@ -55,15 +59,17 @@ from ..ops.fastrank import (
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.moments import chain_stats, fused_chain_stats_autocov
 from ..ops.ranknorm import (
+    _VALLEY_BLOCK,
     batched_median,
     batched_quantile,
     fold_around_median,
-    folded_rank_normalize,
+    folded_rank_values_sorted,
     rank_normalize,
     rank_normalize_from_sort,
     sort_with_positions,
     sorted_quantile,
 )
+from ..ops.seghist import split_chain_stats_from_sorted
 from ..utils.layout import canonicalize, maybe_scalar
 from ..utils.split import split_chains_reshape
 
@@ -135,6 +141,26 @@ _PROXY_KINDS = _ESTIMATOR_KINDS + ("quantile",)
 _RHAT_KINDS = ("rank", "bulk", "tail", "basic")
 _MARKERS = (AutocovMethod, FFTAutocovMethod, BDAAutocovMethod,
             KernelAutocovMethod, DirectKernelAutocovMethod)
+
+
+def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
+    """The fold sort of the tail and rank kinds: ``"sort"`` (a stable
+    ``torch.sort``) -> ``None``, ``"merge"`` (the valley merge) ->
+    ``"two_sort"``; ``"auto"`` merges where the kernels run (a CUDA float32
+    tensor: K10) and the flattened sample spans two of the JAX package's
+    valley blocks, and sorts elsewhere (as the JAX package does off its
+    TPU). The two give bit-identical keys; only the order of ties differs,
+    which the tied-average ranks absorb."""
+    if fold_impl == "sort":
+        return None
+    if fold_impl == "merge":
+        return "two_sort"
+    if fold_impl != "auto":
+        raise ValueError(f"unsupported fold_impl {fold_impl!r}")
+    n = x3.shape[0] * x3.shape[1]
+    if backend.use_kernels(x3) and n >= 2 * _VALLEY_BLOCK:
+        return "two_sort"
+    return None
 
 
 def _method_name(autocov_method):
@@ -244,15 +270,24 @@ def _basic_rhat(x3, split_chains: int):
     return chain_stats(split_chains_reshape(x3, split_chains)).rhat
 
 
-def _tail_rhat_exact(xs, order, med, bad, shape3, split_chains: int):
-    """Tail R-hat: rank-normal ``|x - med|`` scattered back to (draw, chain)
-    order, then split-chain moments (reference src/ess_rhat.jl:413-415)."""
-    zf = folded_rank_normalize(xs, order, med, shape3)
-    return torch.where(bad, torch.nan, _basic_rhat(zf, split_chains))
+def _tail_rhat_from_sort(xs, order, med, bad, shape3, split_chains: int,
+                         fold_merge: str | None = None):
+    """Tail R-hat (reference src/ess_rhat.jl:413-415) from the sort of
+    ``x``: the rank-normal ``|x - med|`` in fold-sorted order
+    (``fold_merge`` as ``folded_rank_values_sorted``'s ``merge``), its
+    split-chain moments straight from the positions the fold sort carries
+    (``ops/seghist.py``: kernel K11 on a CUDA float32 tensor), nothing
+    routed back to (draw, chain) order."""
+    d, c, _ = shape3
+    zf_sorted, forder = folded_rank_values_sorted(xs, order, med,
+                                                  merge=fold_merge)
+    stats = split_chain_stats_from_sorted(zf_sorted, forder, d, c,
+                                          split_chains)
+    return torch.where(bad, torch.nan, stats.rhat)
 
 
 def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
-                split_chains: int):
+                split_chains: int, fold_merge: str | None = None):
     """``(t_lo, t_hi, rhat_tail)`` of the tail kind from one histogram
     (fast) or one sort (exact): the quantiles at ``tail_prob/2`` and
     ``1 - tail_prob/2``, and the R-hat of the rank-normal ``|x - med|``."""
@@ -267,24 +302,25 @@ def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
     xs, order, bad = sort_with_positions(x3)
     t_lo, t_hi, med = (torch.where(bad, torch.nan, sorted_quantile(xs, q))
                        for q in ps)
-    return t_lo, t_hi, _tail_rhat_exact(xs, order, med, bad, x3.shape,
-                                        split_chains)
+    return t_lo, t_hi, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
+                                            split_chains, fold_merge)
 
 
 def _tail_ess_rhat(x3, *, split_chains, maxlag, method, relative, tail_prob,
-                   rank_mode, nbins):
+                   rank_mode, nbins, fold_merge=None):
     """Tail ESS (the two quantile-indicator proxies as one 2P-wide basic
     call) and tail R-hat."""
     p = x3.shape[2]
     t_lo, t_hi, rhat_tail = _tail_parts(x3, tail_prob, rank_mode, nbins,
-                                        split_chains)
+                                        split_chains, fold_merge)
     proxies = torch.cat([_indicator_leq(x3, t_lo), _indicator_leq(x3, t_hi)],
                         dim=2)
     ess2, _ = _basic_ess_rhat(proxies, split_chains, maxlag, method, relative)
     return torch.minimum(ess2[:p], ess2[p:]), rhat_tail
 
 
-def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int):
+def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int,
+                          fold_merge: str | None = None):
     """``(z_bulk, rhat_tail)`` for the rank kind."""
     if rank_mode == "fast":
         z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
@@ -292,7 +328,8 @@ def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int):
     xs, order, bad = sort_with_positions(x3)
     med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
     z = rank_normalize_from_sort(xs, order, bad).reshape(x3.shape)
-    return z, _tail_rhat_exact(xs, order, med, bad, x3.shape, split_chains)
+    return z, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
+                                   split_chains, fold_merge)
 
 
 def _bulk_transform(x3, rank_mode: str, nbins: int):
@@ -304,11 +341,14 @@ def _bulk_transform(x3, rank_mode: str, nbins: int):
 def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
                        method, relative: bool, q: float | None = None,
                        param_chunk: int | None = None,
+                       fold_merge: str | None = None,
                        rank_mode: str = "exact",
                        rank_nbins: int = DEFAULT_NBINS):
     """``(ess, rhat)`` of one kind on ``(draws, chains, P)``; for an
     estimator kind the R-hat is that of its proxy. ``q``: the tail kind's
     ``tail_prob`` (default 0.1), the quantile kind's probability.
+    ``fold_merge``: the exact tail transform's fold sort
+    (``_resolve_fold_merge``).
 
     ``param_chunk`` bounds peak memory: parameters go through in slices of
     that size (every step is per-parameter independent, so this is exact).
@@ -319,8 +359,8 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
             _ess_rhat_pipeline(
                 x3[:, :, s:s + param_chunk], kind=kind,
                 split_chains=split_chains, maxlag=maxlag, method=method,
-                relative=relative, q=q, rank_mode=rank_mode,
-                rank_nbins=rank_nbins,
+                relative=relative, q=q, fold_merge=fold_merge,
+                rank_mode=rank_mode, rank_nbins=rank_nbins,
             )
             for s in range(0, nparams, param_chunk)
         ]
@@ -335,10 +375,11 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
                                **basic)
     if kind == "tail":
         return _tail_ess_rhat(x3, **basic, tail_prob=0.1 if q is None else q,
-                              rank_mode=rank_mode, nbins=rank_nbins)
+                              rank_mode=rank_mode, nbins=rank_nbins,
+                              fold_merge=fold_merge)
     if kind == "rank":
         z_bulk, rhat_tail = _bulk_tail_transforms(x3, rank_mode, rank_nbins,
-                                                  split_chains)
+                                                  split_chains, fold_merge)
         ess_bulk, rhat_bulk = _basic_ess_rhat(z_bulk, **basic)
         return ess_bulk, torch.maximum(rhat_tail, rhat_bulk)
     if kind in _PROXY_KINDS:
@@ -349,14 +390,15 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
 
 
 def _rhat_pipeline(x3, *, kind: str, split_chains: int,
-                   rank_mode: str = "exact", rank_nbins: int = DEFAULT_NBINS):
+                   fold_merge: str | None = None, rank_mode: str = "exact",
+                   rank_nbins: int = DEFAULT_NBINS):
     if kind == "basic":
         return _basic_rhat(x3, split_chains)
     if kind == "bulk":
         return _basic_rhat(_bulk_transform(x3, rank_mode, rank_nbins),
                            split_chains)
     z_bulk, rhat_tail = _bulk_tail_transforms(x3, rank_mode, rank_nbins,
-                                              split_chains)
+                                              split_chains, fold_merge)
     if kind == "tail":
         return rhat_tail
     if kind == "rank":
@@ -408,8 +450,8 @@ def _canonical_input(samples, device, min_ndim: int = 1):
 def ess(samples, *, kind="bulk", relative: bool = False,
         autocov_method="auto", split_chains: int = 2, maxlag: int = 250,
         tail_prob: float = 0.1, param_chunk: int | None = None,
-        rank_mode: str = "exact", rank_nbins: int = DEFAULT_NBINS,
-        device=None):
+        fold_impl: str = "auto", rank_mode: str = "exact",
+        rank_nbins: int = DEFAULT_NBINS, device=None):
     """Effective sample size of ``samples`` shaped
     ``(draws[, chains[, params...]])`` (reference ``ess``,
     src/ess_rhat.jl:215-311).
@@ -419,9 +461,15 @@ def ess(samples, *, kind="bulk", relative: bool = False,
     ``Quantile(p)``. ``relative=True`` returns ESS / (draws * chains). A
     Python float for <=2-d input, else a tensor shaped like the parameter
     dims, on the sample's device. A tensor is computed where it lives; other
-    input (numpy) goes to ``device`` (default: the CPU).
+    input (numpy, lists) goes to ``device``, by default the current card
+    (float64 as float32 there); ``device="cpu"`` computes on the host.
     ``rank_mode="fast"`` replaces every sort (rank transforms, median and
     quantile thresholds) with the histogram CDF over ``rank_nbins`` bins.
+    ``fold_impl``: the exact tail transform's sort of ``|x - median|``:
+    ``"sort"`` (``torch.sort``), ``"merge"`` (the merge of its two sorted
+    runs: kernel K10 on a CUDA float32 tensor), or ``"auto"`` (the merge
+    where K10 runs and the sample has at least 16,384 draws x chains, else
+    the sort); the results agree up to summation order.
     ``autocov_method``: ``"auto"`` (the fused K1 path), a marker
     (``DirectKernelAutocovMethod()`` runs K5), a method name or a callable.
     """
@@ -435,13 +483,14 @@ def ess(samples, *, kind="bulk", relative: bool = False,
     vals = _ess_array(x3, kind, q, split_chains=split_chains, maxlag=maxlag,
                       relative=relative, autocov_method=autocov_method,
                       rank_mode=rank_mode, rank_nbins=rank_nbins,
-                      param_chunk=param_chunk)
+                      param_chunk=param_chunk,
+                      fold_merge=_resolve_fold_merge(x3, fold_impl))
     return maybe_scalar(vals, pshape)
 
 
 def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
-         rank_mode: str = "exact", rank_nbins: int = DEFAULT_NBINS,
-         device=None):
+         fold_impl: str = "auto", rank_mode: str = "exact",
+         rank_nbins: int = DEFAULT_NBINS, device=None):
     """R-hat of ``samples`` shaped ``(draws[, chains[, params...]])``
     (reference ``rhat``, src/ess_rhat.jl:313-420). ``kind``: ``"rank"``
     (default), ``"bulk"``, ``"tail"`` or ``"basic"``. Devices and outputs as
@@ -451,6 +500,7 @@ def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
     _check_rank_mode(rank_mode)
     x3, pshape = _canonical_input(samples, device)
     vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
+                          fold_merge=_resolve_fold_merge(x3, fold_impl),
                           rank_mode=rank_mode, rank_nbins=rank_nbins)
     return maybe_scalar(vals, pshape)
 
@@ -458,8 +508,8 @@ def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
 def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
              autocov_method="auto", split_chains: int = 2, maxlag: int = 250,
              tail_prob: float = 0.1, param_chunk: int | None = None,
-             rank_mode: str = "exact", rank_nbins: int = DEFAULT_NBINS,
-             device=None):
+             fold_impl: str = "auto", rank_mode: str = "exact",
+             rank_nbins: int = DEFAULT_NBINS, device=None):
     """Joint ESS and R-hat, an ``ESSRhat(ess, rhat)`` (reference
     ``ess_rhat``, src/ess_rhat.jl:422-487,604-624): ``"rank"`` gives the
     bulk ESS and max(bulk, tail) R-hat, ``"tail"`` the tail pair, plus
@@ -470,20 +520,22 @@ def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
     _check_rank_mode(rank_mode)
     x3, pshape = _canonical_input(samples, device)
     _check_maxlag(maxlag)
+    fold_merge = _resolve_fold_merge(x3, fold_impl)
     niter = x3.shape[0] // split_chains
     if niter <= 4:
         _warn_short(niter)
         ess_vals = torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
                               device=x3.device)
         rhat_vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                                   rank_mode=rank_mode, rank_nbins=rank_nbins)
+                                   fold_merge=fold_merge, rank_mode=rank_mode,
+                                   rank_nbins=rank_nbins)
         return ESSRhat(maybe_scalar(ess_vals, pshape),
                        maybe_scalar(rhat_vals, pshape))
     ess_vals, rhat_vals = _ess_rhat_pipeline(
         x3, kind=kind, split_chains=split_chains,
         maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
         relative=relative, q=tail_prob, param_chunk=param_chunk,
-        rank_mode=rank_mode, rank_nbins=rank_nbins,
+        fold_merge=fold_merge, rank_mode=rank_mode, rank_nbins=rank_nbins,
     )
     return ESSRhat(maybe_scalar(ess_vals, pshape),
                    maybe_scalar(rhat_vals, pshape))
@@ -493,7 +545,8 @@ def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,
                maxlag: int = 250, relative: bool = False,
                autocov_method="auto", rank_mode: str = "exact",
                rank_nbins: int = DEFAULT_NBINS,
-               param_chunk: int | None = None):
+               param_chunk: int | None = None,
+               fold_merge: str | None = None):
     """ESS of one kind on canonical ``(draws, chains, P)``, ``(P,)``: the
     core of ``ess``, shared with ``mcse``."""
     _check_rank_mode(rank_mode)
@@ -506,7 +559,7 @@ def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,
     ess_vals, _ = _ess_rhat_pipeline(
         x3, kind=estimator, split_chains=split_chains,
         maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
-        relative=relative, q=q, param_chunk=param_chunk, rank_mode=rank_mode,
-        rank_nbins=rank_nbins,
+        relative=relative, q=q, param_chunk=param_chunk,
+        fold_merge=fold_merge, rank_mode=rank_mode, rank_nbins=rank_nbins,
     )
     return ess_vals

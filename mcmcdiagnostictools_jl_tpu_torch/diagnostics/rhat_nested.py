@@ -75,22 +75,30 @@ def _rhat_nested_basic(x3, perm, nsuper: int, split_chains: int):
     """Two-level within/between reduction (src/rhat_nested.jl:127-188),
     batched over parameters."""
     samples = split_chains_reshape(x3[:, perm, :], split_chains)
-    niter, nchains, nparams = samples.shape
-    m = nchains // nsuper  # (split) chains per superchain
-    s = samples.reshape(niter, nsuper, m, nparams)
-    chain_mean = s.mean(0)  # (S, m, P)
-    centered = s - chain_mean[None]
+    niter, _, nparams = samples.shape
+    chain_mean = samples.mean(0)
+    centered = samples - chain_mean[None]
     chain_var = (centered * centered).sum(0) / (niter - 1)
-    wk = chain_var.mean(1)  # (S, P)
-    superchain_mean = chain_mean.mean(1)
-    dm = chain_mean - superchain_mean[:, None]
+    # an all-identical slice is NaN whatever the rounding of the sums
+    degenerate = (samples == samples[0, 0][None, None]).reshape(
+        -1, nparams).all(0)
+    return _nested_from_moments(chain_mean, chain_var, nsuper, degenerate)
+
+
+def _nested_from_moments(chain_mean, chain_var, nsuper: int, degenerate):
+    """Nested R-hat from split-chain means and variances ``(C, P)``,
+    superchains contiguous (chain-major split chains), NaN where
+    ``degenerate``."""
+    nchains, nparams = chain_mean.shape
+    m = nchains // nsuper  # (split) chains per superchain
+    cm = chain_mean.reshape(nsuper, m, nparams)
+    wk = chain_var.reshape(nsuper, m, nparams).mean(1)  # (S, P)
+    superchain_mean = cm.mean(1)
+    dm = cm - superchain_mean[:, None]
     # corrected=(m > 1), src/rhat_nested.jl:175
     bk = (dm * dm).sum(1) / (m - 1) if m > 1 else torch.zeros_like(wk)
     var_within = (wk + bk).mean(0)  # (P,)
     ds = superchain_mean - superchain_mean.mean(0)[None]
     var_between = (ds * ds).sum(0) / (nsuper - 1)
-    # an all-identical slice is NaN whatever the rounding of the sums
-    degenerate = (samples == samples[0, 0][None, None]).reshape(
-        -1, nparams).all(0)
     var_between = torch.where(degenerate, torch.nan, var_between)
     return torch.sqrt(1.0 + var_between / var_within)

@@ -11,6 +11,8 @@
 | K7 | ``sort_study.pass_strided`` | ``benchmarks/sort_microbench.py::bench_dma_pass`` |
 | K8 | ``sort_study.pass_contig`` | ``benchmarks/sort_microbench.py::bench_dma_contig`` |
 | K9 | ``sort_study.bitonic_pod_sort`` | ``benchmarks/sort_microbench.py::bench_phase_a`` |
+| K10 | ``valley.valley_merge`` | ``ops/ranknorm.py::valley_sort_2d`` (XLA, not a Pallas kernel) |
+| K11 | ``seghist.segment_moments`` | ``ops/seghist.py::weighted_segment_moments`` (XLA, not a Pallas kernel) |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
@@ -20,7 +22,8 @@ K4 also counts its z-mode launches (``blom_n``) on their own, reported as
 launch does.
 """
 
-from . import autocov, fastrank, lagloop_study, moments_autocov, sort_study
+from . import (autocov, fastrank, lagloop_study, moments_autocov, seghist,
+               sort_study, valley)
 
 # name -> (wrapper, counter attribute)
 COUNTERS = {
@@ -35,6 +38,8 @@ COUNTERS = {
     "K7": (sort_study.pass_strided, "launches"),
     "K8": (sort_study.pass_contig, "launches"),
     "K9": (sort_study.bitonic_pod_sort, "launches"),
+    "K10": (valley.valley_merge, "launches"),
+    "K11": (seghist.segment_moments, "launches"),
 }
 
 

@@ -8,14 +8,26 @@ one ``torch.sort`` along the joint (draw, chain) axis. Reference conventions
 around the per-parameter median. A NaN in a parameter slice poisons that
 slice.
 
-The TPU's workarounds for its bitonic sort (``valley_sort_2d``, the
-``fold_impl`` plumbing, the seghist routing) are not ported: a GPU sorts
-with ``torch.sort`` and scatters values back to (draw, chain) order cheaply.
+The tail transform reuses the sort of ``x``: along sorted ``x`` the folded
+keys ``|x - med|`` fall, then rise, so ``folded_rank_values_sorted`` sorts
+them either with a stable ``torch.sort`` or, with ``merge="two_sort"``, as
+the merge of two sorted runs (kernel K10 on a CUDA float32 tensor, the JAX
+package's two-axis ``valley_sort_2d`` on any other). It returns the values in
+fold-sorted order with their original positions, and the tail R-hat takes
+its split-chain moments straight from them (``ops/seghist.py``): nothing is
+scattered back to (draw, chain) order.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
+
+__all__ = ["_VALLEY_BLOCK", "valley_sort_2d", "folded_rank_values_sorted",
+           "sort_with_positions", "rank_normalize", "rank_normalize_from_sort",
+           "sorted_quantile", "batched_quantile", "batched_median",
+           "fold_around_median"]
 
 
 def _flatten_sample(x3: torch.Tensor) -> torch.Tensor:
@@ -31,9 +43,11 @@ def _has_nan_cols(xf: torch.Tensor) -> torch.Tensor:
 def sort_with_positions(x3: torch.Tensor):
     """One sort of the flattened sample: ``(xs, order, bad)`` — ascending
     values ``(N, P)`` (NaN last), the original row of each, and the
-    ``(P,)`` NaN-poisoned columns."""
+    ``(P,)`` NaN-poisoned columns. The sort is stable: tied values keep
+    their row order on every device, and that is the order in which a
+    column whose median is NaN (every folded key NaN) is ranked."""
     xf = _flatten_sample(x3)
-    xs, order = torch.sort(xf, dim=0)
+    xs, order = torch.sort(xf, dim=0, stable=True)
     return xs, order, _has_nan_cols(xf)
 
 
@@ -94,20 +108,24 @@ def sorted_quantile(xs: torch.Tensor, p: float) -> torch.Tensor:
     return xs[lo] + g * (xs[hi] - xs[lo])
 
 
-def folded_rank_values_sorted(xs, order, med):
+def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     """Rank-normal values of ``|x - med|`` in fold-sorted order, with the
-    original flat row of each: ``(zf_sorted, forder)``."""
-    folded = torch.abs(xs - med[None, :])
-    fs, fidx = torch.sort(folded, dim=0)
-    forder = order.gather(0, fidx)
+    original flat row of each: ``(zf_sorted, forder)``, from the sort of
+    ``x`` (``xs``, ``order``) and the column medians ``med``.
+
+    ``merge``: ``None`` sorts the folded keys with a stable ``torch.sort``;
+    ``"two_sort"`` merges the valley (``kernels.valley.valley_merge``: K10 on
+    a CUDA float32 tensor, ``valley_sort_2d`` on any other). The keys are
+    bit-identical either way and only the order of tied keys differs, which
+    the tied-average ranks absorb. A column whose median is NaN keeps its
+    ``xs`` order in both.
+    """
+    if merge == "two_sort":
+        fs, forder = valley_merge(xs, order, med)
+    else:
+        fs, fidx = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
+        forder = order.gather(0, fidx)
     return _blom_normal(_avg_ranks_sorted(fs), xs.shape[0]), forder
-
-
-def folded_rank_normalize(xs, order, med, shape3) -> torch.Tensor:
-    """``rank_normalize(|x - med|)`` back in ``(draws, chains, P)`` order,
-    reusing the sort of ``x`` (the tail transform, src/ess_rhat.jl:413)."""
-    zf_sorted, forder = folded_rank_values_sorted(xs, order, med)
-    return _unsort(zf_sorted, forder).reshape(shape3)
 
 
 def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:

@@ -21,7 +21,13 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
   - ``"hist"`` (opt-in, approximate like ``rank_mode="fast"``): local
     histograms by kernel K3, one SUM all-reduce of the bin moments, then the
     local lookup by kernel K4 against the global CDF: no element leaves its
-    rank.
+    rank;
+
+- in gather and ring, the split-chain moments of a transform that only an
+  R-hat reads (the tail R-hat; both transforms of the nested R-hat) come
+  straight off the sort that ranked it, by the positions it carries
+  (``ops/seghist.py``, kernel K11 on a CUDA float32 block): only the bulk
+  values, whose ESS needs it, go back to (draw, chain) order.
 
 Results come back on every rank as full ``(P,)`` tensors (one ``all_gather``
 over the ``params`` group), as JAX returns global arrays. Ranks compute the
@@ -44,10 +50,10 @@ from ..diagnostics.ess_rhat import (
     _check_maxlag,
     _indicator_leq,
     _method_name,
-    _tail_rhat_exact,
+    _tail_rhat_from_sort,
 )
 from ..diagnostics.rhat_nested import (
-    _rhat_nested_basic,
+    _nested_from_moments,
     _validate_superchain_ids,
 )
 from ..kernels.fastrank import hist_moments, pack_tables
@@ -63,13 +69,16 @@ from ..ops.fastrank import (
 )
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.ranknorm import (
+    _avg_ranks_sorted,
+    _blom_normal,
     _unsort,
-    fold_around_median,
+    folded_rank_values_sorted,
     rank_normalize,
     rank_normalize_from_sort,
     sort_with_positions,
     sorted_quantile,
 )
+from ..ops.seghist import split_chain_moments
 from ..utils.layout import maybe_scalar
 from ..utils.split import split_chains_reshape
 from .mesh import MeshConfig, canonical_host, shard_canonical
@@ -133,14 +142,19 @@ def gather_params(values: torch.Tensor, cfg: MeshConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _all_same(samples: torch.Tensor, group) -> torch.Tensor:
-    """``(P,)`` True where every element of the ``(n, c, P)`` slices, on
-    every rank, is one value: the global min equals the global max, from one
+def _global_degenerate(vmin, vmax, group) -> torch.Tensor:
+    """``(P,)`` True where the global min equals the global max, from one
     MAX all-reduce of the local max and -min. A slice holding a NaN is NaN
     whatever this says."""
-    flags = _max(torch.stack([samples.amax((0, 1)), -samples.amin((0, 1))]),
-                 group)
+    flags = _max(torch.stack([vmax, -vmin]), group)
     return flags[0] == -flags[1]
+
+
+def _all_same(samples: torch.Tensor, group) -> torch.Tensor:
+    """``(P,)`` True where every element of the ``(n, c, P)`` slices, on
+    every rank, is one value."""
+    return _global_degenerate(samples.amin((0, 1)), samples.amax((0, 1)),
+                              group)
 
 
 def _chain_moments(samples: torch.Tensor):
@@ -226,8 +240,8 @@ def _gather_kernel(xb, cfg, kind, basic, q):
     # both transforms; the tail R-hat is the same on every rank
     xs, order, bad = sort_with_positions(full)
     med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
-    rhat_tail = _tail_rhat_exact(xs, order, med, bad, full.shape,
-                                 basic["split_chains"])
+    rhat_tail = _tail_rhat_from_sort(xs, order, med, bad, full.shape,
+                                     basic["split_chains"])
     if kind == "tail":
         t_lo, t_hi = (torch.where(bad, torch.nan, sorted_quantile(xs, p))
                       for p in _tail_probs(q))
@@ -249,7 +263,7 @@ def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     the NaN-poisoned columns."""
     d, c_loc, p = xb.shape
     xf = xb.reshape(d * c_loc, p)
-    xs, order = torch.sort(xf, dim=0)
+    xs, order = torch.sort(xf, dim=0, stable=True)
     g = cfg.chain_group
     bad = _max(torch.isnan(xf).any(0).to(xf.dtype), g) > 0
     cl, ce, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
@@ -259,18 +273,29 @@ def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     return xs, order, z_sorted, torch.where(bad[None], torch.nan, quants), bad
 
 
-def _ring_fold(xs, order, med, cfg: MeshConfig, shape3):
-    """Rank-normal values of ``|x - med|`` in this rank's (draw, chain)
-    order: a second local sort and ring pass, then one scatter back (the
-    in-core tail path's route; a scatter of unique rows is deterministic,
-    where the JAX package's segment sums by split-chain id would add
-    atomically)."""
-    fs, fidx = torch.sort(torch.abs(xs - med[None, :]), dim=0)
+def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
+    """Rank-normal values of ``|x - med|`` in this rank's fold-sorted order,
+    with their local flat positions: a second local (stable) sort and ring
+    pass over the ``ntot`` elements of the chain group."""
+    fs, fidx = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
     cl, ce, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
                                  cfg.chain_shards)
-    zf = rank_normal_from_counts(cl, ce, math.prod(shape3[:2])
-                                 * cfg.chain_shards, xs.dtype)
-    return _unsort(zf, order.gather(0, fidx)).reshape(shape3)
+    return (rank_normal_from_counts(cl, ce, ntot, xs.dtype),
+            order.gather(0, fidx))
+
+
+def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,
+                    cfg: MeshConfig):
+    """Tail R-hat by a second ring pass on the folded values: this rank's
+    split-chain moments straight off its fold sort, the cross-chain algebra
+    in SUM / MAX all-reduces."""
+    d, c_loc, _ = shape3
+    zf, forder = _ring_fold(xs, order, med, cfg,
+                            d * c_loc * cfg.chain_shards)
+    cm, cv, vmin, vmax = split_chain_moments(zf, forder, d, c_loc, split)
+    w, var_plus = _pooled(cm, cv, d // split,
+                          _global_degenerate(vmin, vmax, cfg.chain_group), cfg)
+    return torch.where(bad, torch.nan, torch.sqrt(var_plus / w))
 
 
 def _ring_kernel(xb, cfg, kind, basic, q):
@@ -280,11 +305,12 @@ def _ring_kernel(xb, cfg, kind, basic, q):
     xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, ps)
 
     def tail_rhat():
-        return _split_rhat(_ring_fold(xs, order, quants[-1], cfg, xb.shape),
-                           split, cfg, bad)
+        return _ring_tail_rhat(xs, order, quants[-1], bad, xb.shape, split,
+                               cfg)
 
     if kind == "tail":
         return _tail_ess(xb, quants[0], quants[1], cfg, basic), tail_rhat()
+    # the ESS needs the bulk values in (draw, chain) order: one scatter
     z = torch.where(bad[None], torch.nan, _unsort(z_sorted, order))
     ess, rhat_bulk = _sharded_basic(z.reshape(d, c_loc, p), cfg, **basic)
     if kind == "bulk":
@@ -494,35 +520,49 @@ def _nested_split(z3, nsuper_local: int, split: int, cfg: MeshConfig):
 
 
 def _nested_gather(xb, cfg, kind, nsuper: int, split: int):
-    """The rank kinds from the gathered sample, the same on every rank (the
-    in-core transforms and reduction)."""
+    """The rank kinds from one sort of the gathered sample, the same on
+    every rank: both transforms' split-chain moments straight off the sort,
+    neither routed back to (draw, chain) order."""
     full = _all_gather_chains(xb, cfg)
-    ident = torch.arange(full.shape[1], device=full.device)
+    d, c, _ = full.shape
+    xs, order, bad = sort_with_positions(full)
 
-    def nested(z3):
-        return _rhat_nested_basic(z3, ident, nsuper, split)
-
-    if kind == "bulk":
-        return nested(rank_normalize(full))
-    tail = nested(rank_normalize(fold_around_median(full)))
-    if kind == "tail":
-        return tail
-    return torch.maximum(nested(rank_normalize(full)), tail)
-
-
-def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int):
-    """Ranks by the ring merge-count."""
-    xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, (0.5,))
-
-    def nested(z3):
-        r = _nested_split(z3, nsuper_local, split, cfg)
+    def nested(values_sorted, positions):
+        cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions, d,
+                                                  c, split)
+        r = _nested_from_moments(cm, cv, nsuper, vmin == vmax)
         return torch.where(bad, torch.nan, r)
 
     if kind != "tail":
-        bulk = nested(_unsort(z_sorted, order).reshape(xb.shape))
+        bulk = nested(_blom_normal(_avg_ranks_sorted(xs), xs.shape[0]), order)
         if kind == "bulk":
             return bulk
-    tail = nested(_ring_fold(xs, order, quants[0], cfg, xb.shape))
+    med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
+    tail = nested(*folded_rank_values_sorted(xs, order, med))
+    if kind == "tail":
+        return tail
+    return torch.maximum(bulk, tail)
+
+
+def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int):
+    """Ranks by the ring merge-count; both transforms' split-chain moments
+    straight off this rank's sorts."""
+    d, c_loc, _ = xb.shape
+    xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, (0.5,))
+
+    def nested(values_sorted, positions):
+        cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions, d,
+                                                  c_loc, split)
+        r = _nested_rhat_dist(cm, cv, nsuper_local, cfg,
+                              _global_degenerate(vmin, vmax, cfg.chain_group))
+        return torch.where(bad, torch.nan, r)
+
+    if kind != "tail":
+        bulk = nested(z_sorted, order)
+        if kind == "bulk":
+            return bulk
+    tail = nested(*_ring_fold(xs, order, quants[0], cfg,
+                              d * c_loc * cfg.chain_shards))
     if kind == "tail":
         return tail
     return torch.maximum(bulk, tail)

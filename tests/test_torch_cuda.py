@@ -27,7 +27,14 @@ that only where an ESS within 1e-3 moved an interval rank); the classical
 suite on the card tracks the CPU to 1e-3 (Geweke z, abs + rel), 1e-4
 (Heidelberger p-values, abs; decisions equal), 1e-4 relative (PSRF), and
 Raftery's run lengths exactly (the dependence factor within 1 float64
-ULP). Float32 matrix products run in full float32:
+ULP). K10's keys are bit-identical to ``valley_sort_2d``'s and
+``torch.sort``'s, its payloads equal up to the order of tied keys (the
+tied-average ranks routed back by payload are equal); K11's two runs are
+bit-equal (fixed-point integer sums) and its sums within 1e-6 of the float64
+plain version relative to max(|sum|, 1) (the float32 rounding of an exact
+sum), min and max equal, the R-hat of its moments within 1e-4; the exact
+calls through K10 and K11 track the CPU to 1e-4 R-hat. Float32 matrix
+products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default), and
 the Gelman test checks that it is.
 """
@@ -48,7 +55,9 @@ from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop, sort_micr
 from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as kfr
 from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as k6
 from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as k1
+from mcmcdiagnostictools_jl_tpu_torch.kernels import seghist as k11
 from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as k789
+from mcmcdiagnostictools_jl_tpu_torch.kernels import valley as k10
 from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as fr
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
 from torch_parity import assert_close, cuda_device, t  # noqa: F401  (fixture)
@@ -671,6 +680,13 @@ def test_streaming_sources_on_the_card(cuda_device, tmp_path):  # noqa: F811
 
 # ---- float64 on the card, numpy input, discretediag and R* -------------------
 
+def _inf_heavy(v):
+    """Parameter 5 at +inf in 3 of every 4 draws: a NaN median, no NaN."""
+    v = v.clone()
+    v[torch.arange(v.shape[0], device=v.device) % 4 != 0, :, 5] = torch.inf
+    return v
+
+
 _F64_CALLS = [
     lambda v: mtt.ess_rhat(v, kind="rank", rank_mode="fast"),
     lambda v: mtt.ess_rhat(v, kind="rank"),
@@ -683,6 +699,8 @@ _F64_CALLS = [
     lambda v: mtt.gelmandiag(v),
     lambda v: mtt.rafterydiag(v, r=0.05),
     lambda v: mtt.bfmi(v[:, 0, 0]),
+    lambda v: mtt.ess_rhat(v, kind="rank", fold_impl="merge"),
+    lambda v: mtt.rhat(_inf_heavy(v), kind="tail", fold_impl="merge"),
 ]
 
 
@@ -932,3 +950,121 @@ class TestShardedOnTheCard:
         assert torch.equal(s1.split_bin, s2.split_bin)
         assert_close(s1.leaf_value.cpu(), s2.leaf_value.cpu(), rtol=0,
                      atol=1e-5)
+
+
+# ---- K10 and K11: the exact tail transform's fold merge and moments --------
+
+def _fold_inputs(n, p, seed, device):
+    """The sort of an ``(n, p)`` sample (NaN column 1, constant 2, heavy
+    ties 3, 75 % +inf 4: a NaN median and no NaN) and its medians, as the
+    tail transform makes them."""
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
+        sort_with_positions, sorted_quantile)
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 1, p)).astype(np.float32)
+    x[::97, 0, 1] = np.nan
+    x[:, 0, 2] = 0.75
+    x[:, 0, 3] = np.round(x[:, 0, 3] * 2) / 2
+    x[rng.random(n) < 0.75, 0, 4] = np.inf
+    xs, order, bad = sort_with_positions(torch.from_numpy(x).to(device))
+    return xs, order, torch.where(bad, torch.nan,
+                                  sorted_quantile(xs, 0.5))
+
+
+def _keys_equal(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.view(torch.int32)[~na],
+                                               b.view(torch.int32)[~nb])
+
+
+def _routed(fs, forder):
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import _avg_ranks_sorted
+
+    r = _avg_ranks_sorted(fs)
+    return torch.empty_like(r).scatter_(0, forder, r)
+
+
+@pytest.mark.parametrize("n,p", [(1, 5), (127, 5), (128, 33), (4099, 37),
+                                 (50_000, 64), (300_001, 70)])
+def test_k10_matches_valley_sort_2d(cuda_device, n, p):  # noqa: F811
+    xs, order, med = _fold_inputs(n, p, n + p, cuda_device)
+    before = k10.valley_merge.launches
+    fs, forder = k10.valley_merge(xs, order, med)
+    assert k10.valley_merge.launches == before + 1
+    fp, fop = k10.valley_merge_plain(xs, order, med)
+    ref_k, ref_i = torch.sort(torch.abs(xs - med[None]), dim=0, stable=True)
+    torch.cuda.synchronize()
+    assert _keys_equal(fs, fp) and _keys_equal(fs, ref_k)
+    rows = torch.arange(n, device=cuda_device)[:, None].expand(n, p)
+    assert torch.equal(torch.sort(forder, dim=0).values, rows)
+    want = _routed(ref_k, order.gather(0, ref_i))
+    assert torch.equal(_routed(fs, forder), want)
+    assert torch.equal(_routed(fp, fop), want)
+    nan_med = torch.isnan(med)
+    assert torch.equal(forder[:, nan_med], order[:, nan_med])
+
+
+@pytest.mark.parametrize("ndraws,nchains,split,p", [
+    (1001, 4, 2, 7), (999, 3, 3, 33), (500, 1, 2, 5), (2000, 32, 2, 64),
+    (20, 4000, 2, 3),  # 8000 split chains: the global accumulators
+    (3, 5, 4, 2)])     # fewer draws than splits: no draw kept
+def test_k11_bit_equal_runs_and_float64_plain(cuda_device, ndraws, nchains,  # noqa: F811
+                                              split, p):
+    rng = np.random.default_rng(ndraws + nchains + p)
+    n = ndraws * nchains
+    v = torch.from_numpy(rng.standard_normal((n, p)).astype(np.float32))
+    order = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(p)],
+                                      axis=1))
+    v, order = v.to(cuda_device), order.to(cuda_device)
+    a = k11.segment_moments(v, order, ndraws, nchains, split)
+    b = k11.segment_moments(v, order, ndraws, nchains, split)
+    c = k11.segment_moments_plain(v.double(), order, ndraws, nchains, split)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for x, y in zip(a[:2], c[:2]):
+        assert x.dtype == torch.float32 and x.shape == (nchains * split, p)
+        rel = (x.double() - y).abs() / y.abs().clamp(min=1.0)
+        assert float(rel.max()) <= 1e-6
+    assert torch.equal(a[2].double(), c[2]) and torch.equal(a[3].double(), c[3])
+
+
+def test_k11_values_outside_its_range_give_nan(cuda_device):  # noqa: F811
+    v = torch.randn((400, 3), device=cuda_device)
+    v[7, 1] = 9.0
+    order = torch.arange(400, device=cuda_device)[:, None].repeat(1, 3)
+    s, s2, lo, hi = k11.segment_moments(v, order, 100, 4, 2)
+    assert bool(torch.isnan(s[:, 1]).all()) and bool(torch.isnan(lo[1]))
+    assert bool(torch.isfinite(s[:, [0, 2]]).all())
+
+
+@pytest.mark.parametrize("kind", ["tail", "rank"])
+def test_exact_call_runs_k10_and_k11_and_matches_cpu(cuda_device, kind):  # noqa: F811
+    x = torch.from_numpy(_ar1(5, (2000, 32, 64)).astype(np.float32))
+    x[:, :, 3] = torch.round(x[:, :, 3])
+    c = mtt.ess_rhat(x, kind=kind, fold_impl="merge")
+    runs = {}
+    for impl in ("auto", "merge", "sort"):
+        kernels.reset_launch_counts()
+        runs[impl] = mtt.ess_rhat(x.to(cuda_device), kind=kind,
+                                  fold_impl=impl)
+        counts = kernels.launch_counts()
+        assert counts["K10"] == (impl != "sort") and counts["K11"] == 1
+        assert_close(runs[impl].rhat.cpu(), c.rhat, rtol=0, atol=1e-4)
+    for impl in ("merge", "sort"):
+        assert torch.equal(runs[impl].ess, runs["auto"].ess)
+        assert torch.equal(runs[impl].rhat, runs["auto"].rhat)
+
+
+def test_fold_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F811
+    xs = torch.zeros((64, 8), device=cuda_device)
+    order = torch.zeros((64, 8), dtype=torch.int64, device=cuda_device)
+    med = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        k10.valley_merge(xs, order.int(), med)
+    with pytest.raises(ValueError):
+        k10.valley_merge(xs.t().contiguous().t(), order, med)
+    with pytest.raises(ValueError):
+        k11.segment_moments(xs, order, 10, 8, 2)  # 80 rows, not 64
+    with pytest.raises(NotImplementedError):
+        k11.segment_moments(xs.half(), order, 8, 8, 2)
