@@ -16,12 +16,15 @@ and exits nonzero, printing no result, if any phase fails:
    folded around a shift; K4 bit-equal also with shift, fill and bad, with
    the kernel its wrapper chose by shape, and through its gather route;
    K10 (the fold merge) and K11 (split-chain moments) on the exact tail
-   transform's inputs at (1.28M, 256), with a NaN column, a constant
-   column, heavy ties and a column whose median is NaN (75 % +inf): K10's
-   keys bit-identical to ``valley_sort_2d``'s and ``torch.sort``'s, payloads
-   equal up to ties; K11 two runs bit-equal and within 1e-6 (sums) and 1e-4
-   (R-hat) of its float64 plain version; each beside its bound, its plain
-   version and a library yardstick;
+   transform's inputs, its rows (256, 1.28M), with a NaN row, a constant
+   row, heavy ties and a row whose median is NaN (75 % +inf): K10's keys
+   bit-identical to ``valley_sort_2d``'s and ``torch.sort(dim=1)``'s,
+   payloads a permutation and equal up to ties, the NaN-median row unmoved;
+   K11 two runs bit-equal and within 1e-6 (sums) and 1e-4 (R-hat) of its
+   float64 plain version, and on the ring route's (1.28M, 256) layout
+   (transposed views) bit-equal to the rows; each beside its bound, its
+   plain version and a library yardstick; then the sample into rows and the
+   bulk values back to (draw, chain) order, each two ways, timed;
    then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
@@ -105,7 +108,8 @@ and exits nonzero, printing no result, if any phase fails:
     ...)`` against phase 11's result; ``ShardedGBTClassifier`` on phase 13's
     rows: the same forest.
 
-The line before the last two is the card's name and power limit, the
+Before them a line gives the run's total time, the build included. The
+line before the last two is the card's name and power limit, the
 second-to-last line the kernels' JSON record (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same, that
 call's), the last line ``{"ok": true, "device": {...}}``. Only PyTorch and
@@ -428,34 +432,40 @@ def keys_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def routed_ranks(fs: torch.Tensor, forder: torch.Tensor) -> torch.Tensor:
-    """Tied-average ranks of sorted keys routed back by their payload: equal
+    """Tied-average ranks of sorted rows routed back by their payload: equal
     for two sorts whose payloads differ only in the order of tied keys."""
     from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import _avg_ranks_sorted
 
     r = _avg_ranks_sorted(fs)
-    return torch.empty_like(r).scatter_(0, forder, r)
+    return torch.empty_like(r).scatter_(1, forder, r)
 
 
-def phase_fold_kernels(x3: torch.Tensor) -> list:
-    """K10 and K11 on the exact tail transform's own inputs at (1.28M, 256):
-    the sort of the sample with a NaN column (1), a constant column (2), a
-    column of heavy ties (3) and a column 75 % +inf (4: its median is NaN
-    and it holds no NaN), medians as the transform takes them.
+def phase_fold_kernels(x3: torch.Tensor) -> dict:
+    """K10 and K11 on the exact tail transform's own inputs, the sorted rows
+    (256, 1.28M) of the sample with a NaN row (1), a constant row (2), a row
+    of heavy ties (3) and a row 75 % +inf (4: its median is NaN and it holds
+    no NaN), medians as the transform takes them.
 
-    K10 against its plain version (``valley_sort_2d``) and ``torch.sort``:
-    keys bit-identical, payloads a permutation and equal up to the order of
-    tied keys (tied-average ranks routed back by payload equal); a column
-    whose median is NaN keeps its sorted order. K11 on the rank-normal
-    values in K10's order: two runs bit-equal, the sums within 1e-6 of the
-    float64 plain version relative to max(|sum|, 1) (exact fixed-point sums
-    rounded once to float32), min and max equal, and the R-hat of the
-    moments within 1e-4 of the float64 plain version's."""
+    K10 against its plain version (``valley_sort_2d``) and ``torch.sort``
+    along the rows: keys bit-identical, payloads a permutation and equal up
+    to the order of tied keys (tied-average ranks routed back by payload
+    equal); a row whose median is NaN keeps its sorted order. K11 on the
+    rank-normal values in K10's order: two runs bit-equal, the sums within
+    1e-6 of the float64 plain version relative to max(|sum|, 1) (exact
+    fixed-point sums rounded once to float32), min and max equal, the R-hat
+    of the moments within 1e-4 of the float64 plain version's, and the ring
+    route's layout (the same values as (N, P), passed transposed) bit-equal
+    to the rows. Then the layout's own copies, each two ways, timed: the
+    sample into rows (the port's two-pass transpose, ``.t().contiguous()``)
+    and the bulk values back to (draw, chain) order (the port's scatter
+    along the rows + transpose, one scatter straight into the row-major
+    output)."""
     from mcmcdiagnostictools_jl_tpu_torch.kernels import seghist, valley
     from mcmcdiagnostictools_jl_tpu_torch.ops.moments import (
         chain_stats, stats_from_chain_moments)
     from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
-        _avg_ranks_sorted, _blom_normal, _unsort, sort_with_positions,
-        sorted_quantile)
+        _avg_ranks_sorted, _blom_normal, _rows, _transpose, _unsort,
+        sort_with_positions, sorted_quantile)
     from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
 
     xk = with_bad_columns(x3)
@@ -466,38 +476,39 @@ def phase_fold_kernels(x3: torch.Tensor) -> list:
     xs, order, bad = sort_with_positions(xk)
     med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
     del xk
-    n, p = xs.shape
+    p, n = xs.shape
     check(bool(torch.isnan(med[4])) and not bool(bad[4]),
-          "column 4 should have a NaN median and no NaN")
+          "row 4 should have a NaN median and no NaN")
     rows = []
 
     fs, forder = valley.valley_merge(xs, order, med)
     fp, fop = valley.valley_merge_plain(xs, order, med)
-    ref_k, ref_i = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
+    ref_k, ref_i = torch.sort(torch.abs(xs - med[:, None]), dim=1, stable=True)
     torch.cuda.synchronize()
-    check(keys_equal(fs, fp) and keys_equal(fs, ref_k),
+    check(fs.shape == (p, n) and keys_equal(fs, fp) and keys_equal(fs, ref_k),
           "K10 keys differ from valley_sort_2d's or torch.sort's")
-    arange = torch.arange(n, device=xs.device)[:, None].expand(n, p)
-    check(torch.equal(torch.sort(forder, dim=0).values, arange),
-          "K10 payload is not a permutation of the rows")
-    want = routed_ranks(ref_k, order.gather(0, ref_i))
+    arange = torch.arange(n, device=xs.device).expand(p, n)
+    check(torch.equal(torch.sort(forder, dim=1).values, arange),
+          "K10 payload is not a permutation of each row's")
+    want = routed_ranks(ref_k, order.gather(1, ref_i))
     check(torch.equal(routed_ranks(fs, forder), want)
           and torch.equal(routed_ranks(fp, fop), want),
           "K10 payloads differ beyond the order of ties")
     nan_med = torch.isnan(med)
-    check(torch.equal(forder[:, nan_med], order[:, nan_med]),
-          "K10 moved a column whose median is NaN")
+    check(torch.equal(forder[nan_med], order[nan_med]),
+          "K10 moved a row whose median is NaN")
     del fp, fop, ref_k, ref_i, want, arange
     ms = time_ms(lambda: valley.valley_merge(xs, order, med))
     plain_ms = time_ms(lambda: valley.valley_merge_plain(xs, order, med))
-    lib_ms = time_ms(lambda: order.gather(0, torch.sort(
-        torch.abs(xs - med[None, :]), dim=0).indices))
+    lib_ms = time_ms(lambda: order.gather(1, torch.sort(
+        torch.abs(xs - med[:, None]), dim=1).indices))
     bound = roofline(24.0 * n * p)
-    print(f"[3 K10 valley_merge] keys bit-identical to valley_sort_2d and "
-          f"torch.sort, payloads equal up to ties (NaN, constant, tied and "
-          f"NaN-median columns); kernel {ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.3f} ({bound['bound_ms'] / ms:.0%}), plain "
-          f"{plain_ms:.3f} ms, torch.sort + gather {lib_ms:.3f} ms")
+    print(f"[3 K10 valley_merge] rows ({p}, {n}): keys bit-identical to "
+          f"valley_sort_2d and torch.sort(dim=1), payloads equal up to ties "
+          f"(NaN, constant, tied and NaN-median rows); kernel {ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.3f} ({bound['bound_ms'] / ms:.0%}), "
+          f"plain {plain_ms:.3f} ms, torch.sort(dim=1) + gather "
+          f"{lib_ms:.3f} ms")
     rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      **bound))
 
@@ -527,8 +538,17 @@ def phase_fold_kernels(x3: torch.Tensor) -> list:
     ms = time_ms(lambda: seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2))
     plain_ms = time_ms(
         lambda: seghist.segment_moments_plain(zf, forder, DRAWS, CHAINS, 2))
+    # the ring route's layout: (N, P) blocks, passed as transposed views
+    zf_t, forder_t = zf.t().contiguous().t(), forder.t().contiguous().t()
+    d = seghist.segment_moments(zf_t, forder_t, DRAWS, CHAINS, 2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(a, d)),
+          "K11 on the (N, P) layout differs from the rows'")
+    ring_ms = time_ms(
+        lambda: seghist.segment_moments(zf_t, forder_t, DRAWS, CHAINS, 2))
+    del zf_t, forder_t, d
     seg, valid = seghist.split_chain_ids_from_flat(forder, DRAWS, CHAINS, 2)
-    idx = seg * p + torch.arange(p, device=seg.device)
+    idx = seg * p + torch.arange(p, device=seg.device)[:, None]
     w = torch.where(valid, zf, 0.0)
     nseg = CHAINS * 2
 
@@ -544,14 +564,47 @@ def phase_fold_kernels(x3: torch.Tensor) -> list:
     print(f"[3 K11 segment_moments] two runs bit-equal; sums within "
           f"{rel:.3e} of the float64 plain version (relative, bound 1e-6), "
           f"R-hat {rhat_err:.3e} (bound 1e-4), min/max equal; kernel "
-          f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} "
+          f"{ms:.3f} ms on rows, {ring_ms:.3f} ms on the (N, P) layout "
+          f"(bit-equal), bound {bound['bound_ms']:.3f} "
           f"({bound['bound_ms'] / ms:.0%}), plain {plain_ms:.3f} ms, two "
           f"scatter_add_ {lib_ms:.3f} ms, the scatter back + chain_stats it "
           f"replaces {old_ms:.3f} ms")
     rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     deterministic=True, ms_unsort_chain_stats=old_ms,
-                     rhat_err=rhat_err, **bound))
-    return rows
+                     deterministic=True, ms_sample_major=ring_ms,
+                     ms_unsort_chain_stats=old_ms, rhat_err=rhat_err, **bound))
+    del zf, forder
+
+    # the sample into rows and the bulk values back to (draw, chain) order:
+    # the port's two-pass transpose against PyTorch's one copy, and the
+    # scatter along the rows + transpose against one scatter straight into
+    # the row-major output
+    xf = x3.reshape(n, p)
+    check(torch.equal(_rows(x3), xf.t().contiguous()), "_rows differs")
+    rows_ms = time_ms(lambda: _rows(x3))
+    rows_t_ms = time_ms(lambda: xf.t().contiguous())
+    z = _blom_normal(_avg_ranks_sorted(xs), n)
+
+    def direct():
+        out = z.new_empty((n, p))
+        out.t().scatter_(1, order, z)
+        return out
+
+    check(torch.equal(_unsort(z, order), direct()), "the two ways back differ")
+    unsort_ms = time_ms(lambda: _unsort(z, order))
+    direct_ms = time_ms(direct)
+    back_ms = time_ms(lambda: _transpose(z))
+    back_t_ms = time_ms(lambda: z.t().contiguous())
+    print(f"[3 layout] into rows: two-pass transpose (the port's) "
+          f"{rows_ms:.3f} ms, .t().contiguous() {rows_t_ms:.3f} ms; back to "
+          f"(N, P): scatter along the rows + two-pass transpose (the port's) "
+          f"{unsort_ms:.3f} ms, scatter straight into the row-major output "
+          f"{direct_ms:.3f} ms; the transpose alone {back_ms:.3f} ms, "
+          f".t().contiguous() {back_t_ms:.3f} ms")
+    return {"rows": rows, "layout_ms": {
+        "rows_two_pass": rows_ms, "rows_t_contiguous": rows_t_ms,
+        "unsort_rows_then_transpose": unsort_ms,
+        "unsort_direct_scatter": direct_ms, "transpose_back_two_pass": back_ms,
+        "transpose_back_t_contiguous": back_t_ms}}
 
 
 # K1 and K5 in float32 sums of another order than their plain versions,
@@ -2167,6 +2220,7 @@ def phase_sharded_gbt(single, rows: torch.Tensor, y: np.ndarray, state,
 
 
 def main() -> int:
+    started = time.perf_counter()
     dev = phase_device()
     # (fails outside the repo)
     from mcmcdiagnostictools_jl_tpu_torch.benchmarks import profile_calls
@@ -2181,7 +2235,7 @@ def main() -> int:
           f"({x3.numel() * 4 / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
 
     rows = phase_kernels(x3)
-    fold_rows = phase_fold_kernels(x3)
+    fold = phase_fold_kernels(x3)
     phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
@@ -2240,7 +2294,7 @@ def main() -> int:
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
-    rows += fold_rows
+    rows += fold["rows"]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
@@ -2264,6 +2318,7 @@ def main() -> int:
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
                       "exact_fold_routes": e2e["exact_routes"],
+                      "exact_layout_ms": fold["layout_ms"],
                       "wall_numpy_float64_s": e2e["numpy_float64_s"],
                       **est["walls"],
                       "fast_vs_exact_max_rel_dev": est["fast_vs_exact_max_rel_dev"],
@@ -2272,6 +2327,8 @@ def main() -> int:
                       "discretediag": discrete, "rstar_dense": rstar_dense,
                       "rstar_config5": rstar_bigk, "float64": float64,
                       "sharded": sharded}))
+    print(f"[total] {time.perf_counter() - started:.1f} s, the build "
+          "included")
     print(dev["smi"])
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,19 @@
 // split-chain ids of `split_chain_ids_from_flat` (:30) and the min / max of
 // `split_chain_stats_from_sorted` (:87).
 //
-// Input: values (n, p) float32 in any row order (the fold-sorted rank-normal
-// values of the tail R-hat) and pos (n, p) int64, the original flat position
-// draw * nchains + chain of each value. Each element's split chain follows
-// from its position by the remainder rule (niter = ndraws / split, d =
-// ndraws % split: splits k < d own draws [k (niter+1), k (niter+1) + niter),
-// the draw after each is discarded; splits k >= d own [k niter + d, (k+1)
-// niter + d)); segment chain * split + k; no id array exists. Output: sum and
-// sumsq (nseg, p) float32 over the valid elements of each segment, and vmin,
-// vmax (p,) over the valid elements of each column (+inf / -inf if none).
+// Input: values float32 in any order along each parameter (the fold-sorted
+// rank-normal values of the tail R-hat) and pos int64, the original flat
+// position draw * nchains + chain of each value, both (p, n) by the strides
+// the caller gives: entry j of parameter c at c * stride_p + j * stride_n.
+// One of the strides is 1: the exact rank mode's rows (p, n) have stride_n =
+// 1, the ring route's sample-major (n, p) blocks stride_p = 1. Each element's
+// split chain follows from its position by the remainder rule (niter = ndraws
+// / split, d = ndraws % split: splits k < d own draws [k (niter+1), k
+// (niter+1) + niter), the draw after each is discarded; splits k >= d own [k
+// niter + d, (k+1) niter + d)); segment chain * split + k; no id array
+// exists. Output: sum and sumsq (nseg, p) float32 over the valid elements of
+// each segment, and vmin, vmax (p,) over the valid elements of each column
+// (+inf / -inf if none).
 //
 // Deterministic: every value is added as a fixed-point 64-bit integer
 // (value * 2^s1, value^2 * 2^s2, rounded to nearest), and integer addition
@@ -27,25 +31,35 @@
 // the float32 rounding of the exact sum.
 //
 // Three launches: init (the min/max words), the accumulation, and finish
-// (integers to float32). A block of the accumulation owns `cb` columns and a
-// chunk of rows: thread t reads column t % cb of rows t / cb, t / cb + 256 /
-// cb, ..., so a warp reads whole rows' sectors of values and positions, with
-// kUnroll rows' loads in flight before their adds (one at a time, the loads
-// waited on the atomics and the kernel ran at half the rate). It adds into
-// the block's (nseg, cb) 64-bit accumulators in shared memory, each add in
-// two native 32-bit atomics (the low word's carry goes into the high word,
-// as K3 does: a 64-bit atomic add on shared memory is a CAS loop), the four
-// words of an accumulator pair in four planes so that the lanes of a warp
-// fall on banks by column and segment; at its end the block adds each
-// nonzero accumulator into the global (nseg, p) ones by one native 64-bit
-// atomic. `cb` is the widest of 32, 16, ..., 1 whose accumulators fit in
-// kSmemBudget; past nseg = kSmemBudget / 16 the elements add into the global
-// accumulators directly.
+// (integers to float32). A block of the accumulation owns `cb` parameters and
+// a chunk of their entries, rstep = 256 / cb threads a parameter, and its
+// lanes run along the contiguous axis: with stride_n = 1 thread t reads
+// entries t % rstep, t % rstep + rstep, ... of parameter t / rstep (a warp
+// reads 32 / rstep parameters' stretches of rstep consecutive entries), with
+// stride_p = 1 entries t / cb, ... of parameter t % cb (a warp reads whole
+// sectors of 32 neighbouring parameters); kUnroll entries' loads are in
+// flight before their adds (one at a time, the loads waited on the atomics
+// and the kernel ran at half the rate). It adds into the block's (nseg, cb)
+// 64-bit accumulators in shared memory, each add in two native 32-bit atomics
+// (the low word's carry goes into the high word, as K3 does: a 64-bit atomic
+// add on shared memory is a CAS loop), the four words of an accumulator pair
+// in four planes, a parameter's segments together where the lanes of a warp
+// share few parameters (stride_n = 1: their banks follow the segments) and a
+// segment's parameters together where they are 32 parameters (stride_p = 1:
+// their banks follow the parameters); at its end the block adds each nonzero
+// accumulator into the global (nseg, p) ones by one native 64-bit atomic.
+// `cb` is the widest of 32, 16, ..., 1 whose accumulators fit in kSmemBudget;
+// past nseg = kSmemBudget / 16 the elements add into the global accumulators
+// directly.
 //
 // What bounds it on an H100: the bytes, 12 read an element (1.17 ms at
 // (1.28M, 256)); the division of each position by nchains and of its draw by
 // the split length are 32-bit integer divisions, well inside the instruction
-// rate.
+// rate. On rows the shared atomics of a warp's lanes fall on banks by their
+// segments, which the fold order makes random, where on (n, p) they fall by
+// parameter; the two layouts ran alike (chip_smoke.py phase 3, two runs:
+// 2.080 and 2.048 ms on rows, 1.992 and 2.080 on (n, p)). Lanes by parameter
+// on rows, each reading its own row, ran slower.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,11 +117,12 @@ __global__ void seg_init_kernel(int p, unsigned* __restrict__ lohi) {
   lohi[2 * p + c] = 0u;              // out-of-range flag
 }
 
-template <bool kShared>
+template <bool kShared, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 seg_accumulate_kernel(const float* __restrict__ values,
                       const long long* __restrict__ pos, int n, int p,
-                      SplitRule rule, int nseg, int cb, int rows_per_chunk,
+                      long long stride_p, long long stride_n, SplitRule rule,
+                      int nseg, int cb, int rows_per_chunk,
                       float scale1, double scale2,
                       unsigned long long* __restrict__ acc,
                       unsigned* __restrict__ lohi) {
@@ -115,7 +130,9 @@ seg_accumulate_kernel(const float* __restrict__ values,
   extern __shared__ __align__(16) unsigned s_acc[];
   __shared__ unsigned s_lohi[3][32];
   const int t = threadIdx.x;
-  const int cl = t % cb, r0 = t / cb, rstep = kThreads / cb;
+  const int rstep = kThreads / cb;
+  const int cl = kRows ? t / rstep : t % cb;
+  const int r0 = kRows ? t % rstep : t / cb;
   const int c0 = blockIdx.x * cb;
   const int c = c0 + cl;
   const int row_lo = blockIdx.y * rows_per_chunk;
@@ -140,7 +157,7 @@ seg_accumulate_kernel(const float* __restrict__ values,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const long long row = row0 + (long long)u * rstep;
-        const size_t at = (size_t)row * p + c;
+        const long long at = c * stride_p + row * stride_n;
         qs[u] = row < row_hi ? pos[at] : -1;
         vals[u] = row < row_hi ? values[at] : 0.f;
       }
@@ -156,7 +173,7 @@ seg_accumulate_kernel(const float* __restrict__ values,
         const long long b = __double2ll_rn((double)v * (double)v * scale2);
         if (kShared) {
           const int plane = nseg * cb;
-          unsigned* w = s_acc + seg * cb + cl;
+          unsigned* w = s_acc + (kRows ? cl * nseg + seg : seg * cb + cl);
           add64(w, w + plane, a);
           add64(w + 2 * plane, w + 3 * plane, b);
         } else {
@@ -173,7 +190,8 @@ seg_accumulate_kernel(const float* __restrict__ values,
   __syncthreads();
   if (kShared) {
     for (int i = t; i < nseg * cb; i += kThreads) {
-      const int seg = i / cb, col = c0 + i % cb;
+      const int seg = kRows ? i % nseg : i / cb;
+      const int col = c0 + (kRows ? i / nseg : i % cb);
       if (col >= p) continue;
       const int plane = nseg * cb;
       const unsigned long long a =
@@ -219,12 +237,14 @@ int frac_bits(int n, double bound) {
 
 }  // namespace
 
-// values: (n, p) float32; pos: (n, p) int64 flat positions, n = ndraws *
-// nchains < 2^31. Scratch: acc (nseg, p, 2) int64, lohi (3, p) uint32.
-// Output: sum, sumsq (nseg, p) float32, vmin, vmax (p,) float32, nseg =
-// nchains * split. Returns cudaGetLastError().
+// values: float32, pos: int64 flat positions, both (p, n) by the strides
+// stride_p, stride_n (one of them 1), n = ndraws * nchains < 2^31. Scratch:
+// acc (nseg, p, 2) int64, lohi (3, p) uint32. Output: sum, sumsq (nseg, p)
+// float32, vmin, vmax (p,) float32, nseg = nchains * split. Returns
+// cudaGetLastError().
 extern "C" int mdt_segment_moments(const float* values, const long long* pos,
                                    int ndraws, int nchains, int split, int p,
+                                   long long stride_p, long long stride_n,
                                    unsigned long long* acc, unsigned* lohi,
                                    float* sum, float* sumsq, float* vmin,
                                    float* vmax, int num_sms, void* stream) {
@@ -255,18 +275,20 @@ extern "C" int mdt_segment_moments(const float* values, const long long* pos,
   const dim3 grid(groups, chunks);
   const float scale1 = ldexpf(1.f, s1);
   const double scale2 = ldexp(1.0, s2);
+  const size_t smem = shared ? (size_t)nseg * cb * 16 : 0;
+  auto kernel = shared ? (stride_n == 1 ? seg_accumulate_kernel<true, true>
+                                        : seg_accumulate_kernel<true, false>)
+                       : (stride_n == 1 ? seg_accumulate_kernel<false, true>
+                                        : seg_accumulate_kernel<false, false>);
   if (shared) {
-    const size_t smem = (size_t)nseg * cb * 16;
-    err = cudaFuncSetAttribute(seg_accumulate_kernel<true>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    seg_accumulate_kernel<true><<<grid, kThreads, smem, st>>>(
-        values, pos, n, p, rule, nseg, cb, rows, scale1, scale2, acc, lohi);
-  } else {
-    seg_accumulate_kernel<false><<<grid, kThreads, 0, st>>>(
-        values, pos, n, p, rule, nseg, cb, rows, scale1, scale2, acc, lohi);
   }
+  kernel<<<grid, kThreads, smem, st>>>(values, pos, n, p, stride_p, stride_n,
+                                       rule, nseg, cb, rows, scale1, scale2,
+                                       acc, lohi);
   const long long total = (long long)nseg * p;
   seg_finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       acc, lohi, nseg, p, ldexp(1.0, -s1), ldexp(1.0, -s2), sum, sumsq, vmin,

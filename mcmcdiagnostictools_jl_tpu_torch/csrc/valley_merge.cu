@@ -5,62 +5,66 @@
 // Pallas kernel: the two-axis bitonic-merge decomposition that sorts the
 // folded sample |xs - med| in two short sorts.
 //
-// Input: xs (n, p) float32, each column ascending in torch.sort's order (NaN
-// last); order (n, p) int64, the payload riding with xs (the original flat
-// row of each value); med (p,) float32. Output: fs (n, p), |xs - med| of each
-// column ascending in the same order (NaN last), and forder (n, p), the
-// payload carried with it: the keys of valley_sort_2d(|xs - med|, order),
-// bit for bit, with the payload of tied keys in another order.
+// Input: rows. xs (p, n) float32, each row ascending in torch.sort's order
+// (NaN last); order (p, n) int64, the payload riding with xs (the original
+// flat position of each value); med (p,) float32. Output: fs (p, n), |xs -
+// med| of each row ascending in the same order (NaN last), and forder (p, n),
+// the payload carried with it: the keys of valley_sort_2d(|xs - med|, order)
+// on rows, bit for bit, with the payload of tied keys in another order.
 //
-// In xs order the folded keys fall, then rise: with k = #{xs < med}, rows
-// k-1, k-2, ..., 0 give the run A of keys med - xs, ascending, and rows
-// k, ..., n-1 the run B of keys xs - med, ascending, the NaN rows of xs at
-// its end. So the sort is one merge of A and B: O(n) work, one read of xs and
-// order and one write of fs and forder. A column whose med is NaN has every
-// key NaN and k = 0, and keeps its xs order (B alone). Ties go to A first.
+// Along an ascending row the folded keys fall, then rise: with k = #{xs <
+// med}, entries k-1, k-2, ..., 0 give the run A of keys med - xs, ascending,
+// and entries k, ..., n-1 the run B of keys xs - med, ascending, the NaN
+// entries of xs at its end. So the sort is one merge of A and B: O(n) work,
+// one read of xs and order and one write of fs and forder. A row whose med is
+// NaN has every key NaN and k = 0, and keeps its xs order (B alone). Ties go
+// to A first.
 //
 // Three launches, merge path style:
-// 1. valley_split_kernel: k of each column, by binary search on xs;
-// 2. valley_partition_kernel: for every tile boundary t = b * kTile and
-//    column, how many of the first t outputs come from A (a binary search on
-//    the two runs in device memory); tile b then reads A[i_b, i_{b+1}) and
-//    B[t_b - i_b, t_{b+1} - i_{b+1}): kTile rows of the column in all;
-// 3. valley_merge_kernel: a block (grid x: tiles, y: column groups) owns
-//    kCols = 32 columns and one tile of kTile output rows, stages its keys
-//    and payloads in shared memory, and each thread merges kPer outputs of
-//    one column sequentially after a short search within the tile.
+// 1. valley_split_kernel: k of each row, by binary search on xs;
+// 2. valley_partition_kernel: for every tile boundary t = b * kTile of every
+//    row, how many of the first t outputs come from A (a binary search on
+//    the two runs in device memory);
+// 3. valley_merge_kernel: a block owns kTile outputs of one row. Its share
+//    of the runs is two contiguous stretches of the row, A[i_b, i_{b+1})
+//    (read backwards) and B[t_b - i_b, t_{b+1} - i_{b+1}): kTile entries in
+//    all. The block copies the 16-byte chunks that cover them, keys and
+//    payloads, into shared memory by cp.async (whole sectors, every copy in
+//    flight at once, no registers held), each thread finds its diagonal of
+//    the tile by a binary search there and merges kPer outputs into
+//    registers, and the block writes the tile back through shared memory as
+//    16-byte stores of consecutive entries.
 //
-// What bounds it on an H100: the bytes, 12 read and 12 written an element
-// (2.35 ms at (1.28M, 256)). The layout is the sample's row-major (n, p):
-// a column is strided by p floats. Writes go out along rows (the 32 lanes of
-// a warp are 32 neighbouring columns of one output row: 128 bytes of fs, 256
-// of forder). Reads follow each column's own runs, so the lanes of a warp
-// read rows that differ by the columns' offsets; columns of similar
-// distributions sit at similar rows, and the L1 keeps the sectors that the
-// neighbouring lanes fetch for one another.
+// What bounds it on an H100: the bytes, 12 read and 12 written an entry
+// (2.35 ms at (256, 1.28M)). Every read and write is a whole 16-byte chunk
+// of one row except at the two ends of each stretch; the chunks at the ends
+// are read by the two neighbouring blocks (16 bytes more a stretch).
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
-constexpr int kCols = 32;               // columns a block: a warp's lanes
-constexpr int kWarps = 8;
-// output rows a block, per column (kernels/valley.py's _TILE): 98.7 KB of
-// staging, two blocks an SM
-constexpr int kTile = 256;
-constexpr int kPer = kTile / kWarps;    // outputs a thread merges
-constexpr int kStride = kTile + 1;      // padded row of the staging arrays
-constexpr size_t kSmemBytes =
-    (size_t)kCols * kStride * (sizeof(float) + sizeof(long long));
+constexpr int kThreads = 256;
+constexpr int kPer = 8;                  // outputs a thread merges
+// outputs of one row a block (kernels/valley.py's _TILE): 24.6 KB of
+// shared memory
+constexpr int kTile = 2048;
+static_assert(kTile == kThreads * kPer, "a thread merges kPer outputs");
+// the chunks that cover a stretch of m entries hold at most m + 6 (floats,
+// 4 a chunk) or m + 2 (int64, 2 a chunk): two stretches a tile
+constexpr int kKeySlots = kTile + 16;
+constexpr int kPosSlots = kTile + 8;
 
 // torch.sort's ascending order with NaN last: `a` goes no later than `b`
 __device__ __forceinline__ bool key_le(float a, float b) {
   return isnan(b) || (!isnan(a) && a <= b);
 }
 
-__device__ __forceinline__ float fold(const float* xs, long long row, int p,
-                                      int c, float m) {
-  return fabsf(xs[(size_t)row * p + c] - m);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
 __global__ void valley_split_kernel(const float* __restrict__ xs, int n,
@@ -68,24 +72,23 @@ __global__ void valley_split_kernel(const float* __restrict__ xs, int n,
                                     int* __restrict__ ksplit) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= p) return;
+  const float* row = xs + (size_t)c * n;
   const float m = med[c];
-  int lo = 0, hi = n;  // first row with !(xs < med): NaN rows never count
+  int lo = 0, hi = n;  // first entry with !(xs < med): NaN entries never count
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (xs[(size_t)mid * p + c] < m) lo = mid + 1; else hi = mid;
+    if (row[mid] < m) lo = mid + 1; else hi = mid;
   }
   ksplit[c] = lo;
 }
 
-// The number of A elements among the first t outputs of column c, A before
-// B on equal keys.
-__device__ int merge_path(const float* xs, int n, int p, int c, float m,
-                          int k, int t) {
+// The number of A entries among the first t outputs of a row, A before B
+// on equal keys.
+__device__ int merge_path(const float* row, int n, float m, int k, int t) {
   int lo = max(0, t - (n - k)), hi = min(t, k);
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);  // A[mid] against B[t - mid - 1]
-    if (key_le(fold(xs, (long long)k - 1 - mid, p, c, m),
-               fold(xs, (long long)k + t - mid - 1, p, c, m)))
+    if (key_le(fabsf(row[k - 1 - mid] - m), fabsf(row[k + t - mid - 1] - m)))
       lo = mid + 1;
     else
       hi = mid;
@@ -99,69 +102,143 @@ __global__ void valley_partition_kernel(const float* __restrict__ xs, int n,
                                         int nbounds, int* __restrict__ splits) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)nbounds * p) return;
-  const int b = (int)(idx / p), c = (int)(idx - (long long)b * p);
+  const int c = (int)(idx / nbounds), b = (int)(idx - (long long)c * nbounds);
   const int t = (int)min((long long)b * kTile, (long long)n);
-  splits[idx] = merge_path(xs, n, p, c, med[c], ksplit[c], t);
+  splits[idx] = merge_path(xs + (size_t)c * n, n, med[c], ksplit[c], t);
 }
 
-__global__ void __launch_bounds__(kCols * kWarps)
+// The 16-byte chunks (of `per` entries) that cover the entries [lo, hi):
+// the first chunk and the count, none if the stretch is empty.
+struct Chunks {
+  long long first;
+  int count;
+};
+
+__device__ __forceinline__ Chunks cover(long long lo, long long hi, int per) {
+  if (hi <= lo) return {0, 0};
+  const long long first = lo / per;
+  return {first, (int)((hi - 1) / per - first + 1)};
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 valley_merge_kernel(const float* __restrict__ xs,
-                    const long long* __restrict__ order, int n, int p,
+                    const long long* __restrict__ order, int n, int ntiles,
                     const float* __restrict__ med,
                     const int* __restrict__ ksplit,
                     const int* __restrict__ splits, float* __restrict__ fs,
                     long long* __restrict__ forder) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* s_pos = reinterpret_cast<long long*>(smem);
-  float* s_key = reinterpret_cast<float*>(s_pos + kCols * kStride);
-  const int lane = threadIdx.x, w = threadIdx.y;
-  const int c = blockIdx.y * kCols + lane;
-  const bool live = c < p;  // lanes past the last column stage nothing
-  const int b = blockIdx.x;
+  __shared__ __align__(16) float s_key[kKeySlots];
+  __shared__ __align__(16) long long s_pos[kPosSlots];
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x / ntiles;
+  const int b = blockIdx.x - c * ntiles;
+  const long long base = (long long)c * n;  // the row's first entry
   const int t0 = b * kTile;
   const int tlen = min(kTile, n - t0);
-  const int k = live ? ksplit[c] : 0;
-  const float m = live ? med[c] : 0.f;
-  const int i0 = live ? splits[(size_t)b * p + c] : 0;
-  const int na = live ? splits[(size_t)(b + 1) * p + c] - i0 : 0;
-  const int nb = tlen - na;
+  const int k = ksplit[c];
+  const float m = med[c];
+  const int* sp = splits + (size_t)c * (ntiles + 1);
+  const int i0 = sp[b], na = sp[b + 1] - i0, nb = tlen - na;
   const int j0 = t0 - i0;
-  float* key = s_key + lane * kStride;
-  long long* pos = s_pos + lane * kStride;
-  // stage the tile: A ascending (rows k-1-i0 down), then B (rows k+j0 up)
-  for (int e = w; live && e < tlen; e += kWarps) {
-    const long long row = e < na ? (long long)k - 1 - i0 - e
-                                 : (long long)k + j0 + (e - na);
-    const size_t at = (size_t)row * p + c;
-    key[e] = fabsf(xs[at] - m);
-    pos[e] = order[at];
+  // absolute entries: A[i] = base + k - 1 - i0 - i, B[j] = base + k + j0 + j
+  const long long a_hi = base + k - i0, a_lo = a_hi - na;
+  const long long b_lo = base + k + j0, b_hi = b_lo + nb;
+
+  // stage: chunk u of A's cover, then of B's, lands at slot u of the buffer
+  const Chunks ka = cover(a_lo, a_hi, 4), kb = cover(b_lo, b_hi, 4);
+  const Chunks pa = cover(a_lo, a_hi, 2), pb = cover(b_lo, b_hi, 2);
+  const float4* xs4 = reinterpret_cast<const float4*>(xs);
+  const longlong2* ord2 = reinterpret_cast<const longlong2*>(order);
+  for (int u = tid; u < ka.count + kb.count; u += kThreads) {
+    const long long q = u < ka.count ? ka.first + u : kb.first + (u - ka.count);
+    cp_async16(s_key + 4 * u, xs4 + q);
   }
-  __syncthreads();  // a column's rows were staged by all 8 warps
-  const int s = w * kPer;
-  if (!live || s >= tlen) return;
-  int lo = max(0, s - nb), hi = min(s, na);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (key_le(key[mid], key[na + s - mid - 1])) lo = mid + 1; else hi = mid;
+  for (int u = tid; u < pa.count + pb.count; u += kThreads) {
+    const long long q = u < pa.count ? pa.first + u : pb.first + (u - pa.count);
+    cp_async16(s_pos + 2 * u, ord2 + q);
   }
-  int ia = lo, ib = s - lo;
-  const int e_end = min(s + kPer, tlen);
-  for (int e = s; e < e_end; ++e) {
-    const bool take_a =
-        ib >= nb || (ia < na && key_le(key[ia], key[na + ib]));
-    const int src = take_a ? ia++ : na + ib++;
-    const size_t at = (size_t)(t0 + e) * p + c;
-    fs[at] = key[src];
-    forder[at] = pos[src];
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  // slot of A[i] = a_key - i, of B[j] = b_key + j (keys; a_pos, b_pos: payload)
+  const int a_key = na ? (int)(a_hi - 1 - 4 * ka.first) : 0;
+  const int b_key = nb ? 4 * ka.count + (int)(b_lo - 4 * kb.first) : 0;
+  const int a_pos = na ? (int)(a_hi - 1 - 2 * pa.first) : 0;
+  const int b_pos = nb ? 2 * pa.count + (int)(b_lo - 2 * pb.first) : 0;
+
+  // merge: thread tid owns outputs [s, s + kPer) of the tile
+  const int s = tid * kPer;
+  float out_key[kPer] = {};
+  long long out_pos[kPer] = {};
+  if (s < tlen) {
+    int lo = max(0, s - nb), hi = min(s, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (key_le(fabsf(s_key[a_key - mid] - m),
+                 fabsf(s_key[b_key + s - mid - 1] - m)))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int ia = lo, ib = s - lo;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      if (s + e < tlen) {
+        const float x = ia < na ? fabsf(s_key[a_key - ia] - m) : 0.f;
+        const float y = ib < nb ? fabsf(s_key[b_key + ib] - m) : 0.f;
+        const bool take_a = ib >= nb || (ia < na && key_le(x, y));
+        out_key[e] = take_a ? x : y;
+        out_pos[e] = s_pos[take_a ? a_pos - ia : b_pos + ib];
+        ia += take_a;
+        ib += !take_a;
+      }
+    }
+  }
+  __syncthreads();  // every thread has read its runs: reuse the buffers
+  if (s < tlen) {
+    float4* k4 = reinterpret_cast<float4*>(s_key + s);
+    k4[0] = make_float4(out_key[0], out_key[1], out_key[2], out_key[3]);
+    k4[1] = make_float4(out_key[4], out_key[5], out_key[6], out_key[7]);
+    longlong2* p2 = reinterpret_cast<longlong2*>(s_pos + s);
+#pragma unroll
+    for (int e = 0; e < kPer / 2; ++e)
+      p2[e] = make_longlong2(out_pos[2 * e], out_pos[2 * e + 1]);
+  }
+  __syncthreads();
+
+  // write the tile's outputs [g0, g1) as 16-byte stores, scalars at the ends
+  const long long g0 = base + t0, g1 = g0 + tlen;
+  const Chunks ok = cover(g0, g1, 4), op = cover(g0, g1, 2);
+  for (int u = tid; u < ok.count; u += kThreads) {
+    const long long e0 = 4 * (ok.first + u);
+    const int at = (int)(e0 - g0);
+    if (e0 >= g0 && e0 + 4 <= g1) {
+      reinterpret_cast<float4*>(fs)[ok.first + u] =
+          make_float4(s_key[at], s_key[at + 1], s_key[at + 2], s_key[at + 3]);
+    } else {
+      for (int e = 0; e < 4; ++e)
+        if (e0 + e >= g0 && e0 + e < g1) fs[e0 + e] = s_key[at + e];
+    }
+  }
+  for (int u = tid; u < op.count; u += kThreads) {
+    const long long e0 = 2 * (op.first + u);
+    const int at = (int)(e0 - g0);
+    if (e0 >= g0 && e0 + 2 <= g1) {
+      reinterpret_cast<longlong2*>(forder)[op.first + u] =
+          make_longlong2(s_pos[at], s_pos[at + 1]);
+    } else {
+      for (int e = 0; e < 2; ++e)
+        if (e0 + e >= g0 && e0 + e < g1) forder[e0 + e] = s_pos[at + e];
+    }
   }
 }
 
 }  // namespace
 
-// xs: (n, p) float32, columns ascending (NaN last); order: (n, p) int64;
-// med: (p,) float32. Scratch: ksplit (p,) int32, splits (ceil(n / kTile) +
-// 1, p) int32. Output: fs (n, p) float32, forder (n, p) int64. 1 <= n <
-// 2^31 - 2 kTile. Returns cudaGetLastError().
+// xs: (p, n) float32, rows ascending (NaN last); order: (p, n) int64; both
+// 16-byte aligned; med: (p,) float32. Scratch: ksplit (p,) int32, splits (p,
+// ceil(n / kTile) + 1) int32. Output: fs (p, n) float32, forder (p, n) int64,
+// 16-byte aligned. 1 <= n < 2^31 - kTile, p (ceil(n / kTile) + 1) < 2^31.
+// Returns cudaGetLastError().
 extern "C" int mdt_valley_merge(const float* xs, const long long* order,
                                 int n, int p, const float* med, int* ksplit,
                                 int* splits, float* fs, long long* forder,
@@ -172,12 +249,7 @@ extern "C" int mdt_valley_merge(const float* xs, const long long* order,
   const long long nsplits = (long long)(ntiles + 1) * p;
   valley_partition_kernel<<<(unsigned)((nsplits + 255) / 256), 256, 0, st>>>(
       xs, n, p, med, ksplit, ntiles + 1, splits);
-  cudaError_t err = cudaFuncSetAttribute(
-      valley_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ntiles, (p + kCols - 1) / kCols);
-  valley_merge_kernel<<<grid, dim3(kCols, kWarps), kSmemBytes, st>>>(
-      xs, order, n, p, med, ksplit, splits, fs, forder);
+  valley_merge_kernel<<<(unsigned)((long long)ntiles * p), kThreads, 0, st>>>(
+      xs, order, n, ntiles, med, ksplit, splits, fs, forder);
   return (int)cudaGetLastError();
 }

@@ -18,16 +18,19 @@ Estimator-ESS proxies (src/ess_rhat.jl:626-659): mean -> x, median ->
 indicator(x <= median), std -> (x - mean)^2, mad -> the median proxy of the
 folded draws, quantile(p) -> indicator(x <= quantile_p).
 
-``rank_mode="exact"`` ranks with ``torch.sort`` and takes the tail R-hat
-from the sort of ``x``: the fold ``|x - median|`` sorted (``fold_impl``: a
-stable sort, or the merge of its two sorted runs) and its split-chain
-moments read off the positions the sort carries (ops/seghist.py); ``"fast"``
-uses the histogram CDF (ops/fastrank.py) for the rank transforms and for
-every median/quantile threshold. On a CUDA float32 tensor the fused moments
-+ autocovariance (or, with ``DirectKernelAutocovMethod``, the direct
-autocovariance alone), the fold merge (K10), the split-chain moments (K11)
-and the fast rank transform run the hand-written kernels (kernels/); on any
-other tensor their plain versions.
+``rank_mode="exact"`` ranks with ``torch.sort`` along the sample's rows
+``(P, draws * chains)`` (one transposing copy in, the bulk values scattered
+along the rows and transposed back to ``(draws, chains, P)``) and takes the
+tail R-hat from the sort of ``x``: the fold ``|x - median|`` sorted
+(``fold_impl``: a stable sort, or the merge of its two sorted runs) and its
+split-chain moments read off the positions the sort carries
+(ops/seghist.py); ``"fast"`` uses the histogram CDF (ops/fastrank.py) for
+the rank transforms and for every median/quantile threshold. On a CUDA
+float32 tensor the fused moments + autocovariance (or, with
+``DirectKernelAutocovMethod``, the direct autocovariance alone), the fold
+merge (K10), the split-chain moments (K11) and the fast rank transform run
+the hand-written kernels (kernels/); on any other tensor their plain
+versions.
 
 Numeric contracts: the split-chain remainder-discard rule, the ``(n-1)/n``
 correction, the ``corrected=(nchains>1)`` guard, the ``min(1/tau,

@@ -32,7 +32,8 @@ from ..ops.fastrank import (
     hist_quantile,
     hist_rank_value,
 )
-from ..ops.ranknorm import _flatten_sample, _has_nan_cols, sorted_quantile
+from ..ops.ranknorm import (_flatten_sample, _has_nan_cols, _rows,
+                             sorted_quantile)
 from ..ops.special import betaincinv
 from ..utils.layout import maybe_scalar
 from .ess_rhat import (
@@ -147,16 +148,15 @@ def _mcse_quantile_exact(x3, p: float, *, split_chains: int = 2,
         _warn_short(niter)
         return torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
                           device=x3.device)
-    xf = _flatten_sample(x3)
-    xs = torch.sort(xf, dim=0).values
-    bad = _has_nan_cols(xf)
+    xs = torch.sort(_rows(x3), dim=1).values  # (P, N), NaN last
+    bad = torch.isnan(xs[:, -1])
     thr = torch.where(bad, torch.nan, sorted_quantile(xs, p))
     s_eff, _ = _basic_ess_rhat(_indicator_leq(x3, thr), split_chains,
                                min(maxlag, niter - 4),
                                _method_name(autocov_method), relative)
-    l, u = _beta_interval_ranks(s_eff, p, xf.shape[0])
-    x_l = xs.gather(0, (l.long() - 1)[None])[0]
-    x_u = xs.gather(0, (u.long() - 1)[None])[0]
+    l, u = _beta_interval_ranks(s_eff, p, xs.shape[1])
+    x_l = xs.gather(1, (l.long() - 1)[:, None])[:, 0]
+    x_u = xs.gather(1, (u.long() - 1)[:, None])[:, 0]
     out = (x_u - x_l) / 2.0
     return torch.where(torch.isnan(s_eff) | bad, torch.nan, out)
 

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "mdt_sort_chunk": (_P, _P, _L, _I, _I, _I, _P, _P),
     "mdt_sort_wide": (_P, _P, _L, _I, _L, _I, _I, _P),
     "mdt_valley_merge": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
-    "mdt_segment_moments": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                            _P),
+    "mdt_segment_moments": (_P, _P, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P,
+                            _P, _I, _P),
 }
 
 

@@ -11,6 +11,9 @@ The tail R-hat needs only per-split-chain sums of the rank-normal folded
 sample, which do not depend on order: the fold sort carries each value's
 original flat position ``draw * nchains + chain``, and the split chain follows
 from it by a formula, so nothing is scattered back to (draw, chain) order.
+Values and positions are ``(P, N)``: the exact rank mode's rows, or the
+ring route's ``(N, P)`` blocks as their transposed views; the kernel reads
+either by the strides the wrapper passes.
 
 ``segment_moments`` launches the kernel for a CUDA float32 tensor and runs
 ``segment_moments_plain`` for any other, never falling back from one to the
@@ -48,12 +51,12 @@ def split_chain_ids_from_flat(order: torch.Tensor, ndraws: int, nchains: int,
 
 def weighted_segment_moments(values: torch.Tensor, seg: torch.Tensor,
                              valid: torch.Tensor, nseg: int):
-    """``(sum, sumsq)``, each ``(nseg, P)``: per column, the sums of the
-    valid ``values`` ``(N, P)`` and of their squares by segment ``seg``
-    (segments differ per column). A plain segment sum (``index_add_``)."""
-    n, p = values.shape
+    """``(sum, sumsq)``, each ``(nseg, P)``: per parameter, the sums of the
+    valid ``values`` ``(P, N)`` and of their squares by segment ``seg``
+    (segments differ per parameter). A plain segment sum (``index_add_``)."""
+    p, n = values.shape
     w = torch.where(valid, values, 0)
-    idx = (seg * p + torch.arange(p, device=seg.device)).reshape(-1)
+    idx = (seg * p + torch.arange(p, device=seg.device)[:, None]).reshape(-1)
     sums = values.new_zeros(nseg * p).index_add_(0, idx, w.reshape(-1))
     sumsq = values.new_zeros(nseg * p).index_add_(0, idx, (w * w).reshape(-1))
     return sums.reshape(nseg, p), sumsq.reshape(nseg, p)
@@ -62,31 +65,36 @@ def weighted_segment_moments(values: torch.Tensor, seg: torch.Tensor,
 def segment_moments_plain(values: torch.Tensor, order: torch.Tensor,
                           ndraws: int, nchains: int, split: int):
     """Plain PyTorch version of K11: ``(sum, sumsq, vmin, vmax)``, the
-    per-split-chain sums ``(nchains * split, P)`` of ``values`` ``(N, P)``
-    and of their squares, by the flat positions ``order``, and each column's
-    min and max over the values of the draws the split keeps."""
+    per-split-chain sums ``(nchains * split, P)`` of ``values`` ``(P, N)``
+    and of their squares, by the flat positions ``order`` ``(P, N)``, and
+    each parameter's min and max over the values of the draws the split
+    keeps."""
     seg, valid = split_chain_ids_from_flat(order, ndraws, nchains, split)
     sums, sumsq = weighted_segment_moments(values, seg, valid, nchains * split)
-    vmin = torch.where(valid, values, torch.inf).amin(0)
-    vmax = torch.where(valid, values, -torch.inf).amax(0)
+    vmin = torch.where(valid, values, torch.inf).amin(1)
+    vmax = torch.where(valid, values, -torch.inf).amax(1)
     return sums, sumsq, vmin, vmax
 
 
 def segment_moments(values: torch.Tensor, order: torch.Tensor, ndraws: int,
                     nchains: int, split: int):
     """K11: the output of ``segment_moments_plain``, deterministic (two runs
-    bit-equal) and exact to the float32 rounding of each sum. A CUDA tensor
-    must be float32 and contiguous, its ``order`` int64, ``N = ndraws *
-    nchains < 2^31``, and its values inside (-8, 8) (rank-normal values are:
-    a column holding another comes out NaN)."""
+    bit-equal) and exact to the float32 rounding of each sum. On the card
+    ``values`` must be float32 and ``order`` int64, both ``(P, N)`` with the
+    same strides, one of them 1 (rows, or the transpose of a contiguous
+    ``(N, P)``), ``N = ndraws * nchains < 2^31``, and the values inside (-8,
+    8) (rank-normal values are: a parameter holding another comes out
+    NaN)."""
     if not backend.use_kernels(values):
         return segment_moments_plain(values, order, ndraws, nchains, split)
-    n, p = values.shape
-    if (not values.is_contiguous() or order.shape != values.shape
-            or order.dtype != torch.int64 or not order.is_contiguous()
-            or order.device != values.device):
-        raise ValueError("segment_moments needs contiguous float32 values "
-                         "(N, P) and int64 order (N, P) on one device")
+    p, n = values.shape
+    sp, sn = values.stride()
+    if (order.shape != values.shape or order.stride() != (sp, sn)
+            or order.dtype != torch.int64 or order.device != values.device
+            or not ((sn == 1 and sp >= n) or (sp == 1 and sn >= p))):
+        raise ValueError("segment_moments needs float32 values (P, N) and "
+                         "int64 order (P, N) on one device, with equal "
+                         "strides, rows or columns contiguous")
     nseg = nchains * split
     if n != ndraws * nchains or not 1 <= n < 2**31 or split < 1:
         raise ValueError(f"segment_moments: {n} rows for {ndraws} draws x "
@@ -102,7 +110,7 @@ def segment_moments(values: torch.Tensor, order: torch.Tensor, ndraws: int,
         vmax = torch.empty_like(vmin)
         code = lib.mdt_segment_moments(
             values.data_ptr(), order.data_ptr(), ndraws, nchains, split, p,
-            acc.data_ptr(), lohi.data_ptr(), sums.data_ptr(),
+            sp, sn, acc.data_ptr(), lohi.data_ptr(), sums.data_ptr(),
             sumsq.data_ptr(), vmin.data_ptr(), vmax.data_ptr(),
             torch.cuda.get_device_properties(dev).multi_processor_count,
             torch.cuda.current_stream(dev).cuda_stream,

@@ -1,21 +1,24 @@
 """Sort-based rank transforms, the exact rank mode (counterpart of the JAX
 package's ``ops/ranknorm.py``).
 
-On the canonical ``(draws, chains, P)`` layout, batched over parameters with
-one ``torch.sort`` along the joint (draw, chain) axis. Reference conventions
-(src/utils.jl:148-193): tied ("average") ranks, the Blom alpha=3/8 transform
-``(r - 3/8) / (n + 1/4)``, the inverse normal CDF, type-7 quantiles, folding
-around the per-parameter median. A NaN in a parameter slice poisons that
-slice.
+The public functions take the canonical ``(draws, chains, P)`` layout. Inside,
+the flattened sample ``(N, P)`` (``N = draws * chains``, flat row ``draw *
+chains + chain``) is transposed once into ``(P, N)``, so that each
+parameter's joint sample is one contiguous row: the sort, the tied-rank
+scans, the fold merge (K10) and the split-chain moments (K11) all run along
+the last, contiguous axis. Reference conventions (src/utils.jl:148-193):
+tied ("average") ranks, the Blom alpha=3/8 transform ``(r - 3/8) / (n +
+1/4)``, the inverse normal CDF, type-7 quantiles, folding around the
+per-parameter median. A NaN in a parameter slice poisons that slice.
 
-The tail transform reuses the sort of ``x``: along sorted ``x`` the folded
+The tail transform reuses the sort of ``x``: along a sorted row the folded
 keys ``|x - med|`` fall, then rise, so ``folded_rank_values_sorted`` sorts
 them either with a stable ``torch.sort`` or, with ``merge="two_sort"``, as
 the merge of two sorted runs (kernel K10 on a CUDA float32 tensor, the JAX
-package's two-axis ``valley_sort_2d`` on any other). It returns the values in
-fold-sorted order with their original positions, and the tail R-hat takes
-its split-chain moments straight from them (``ops/seghist.py``): nothing is
-scattered back to (draw, chain) order.
+package's two-axis ``valley_sort_2d`` written for rows on any other). It
+returns the values in fold-sorted order with their original flat rows, and
+the tail R-hat takes its split-chain moments straight from them
+(``ops/seghist.py``): nothing is scattered back to (draw, chain) order.
 """
 
 from __future__ import annotations
@@ -40,38 +43,69 @@ def _has_nan_cols(xf: torch.Tensor) -> torch.Tensor:
     return torch.isnan(xf).any(0)
 
 
+# rows a block of the two-pass transpose (picked from 8-128 on an H100): 2.5
+# ms each way at (1.28M, 256) against 11.1 and 5.3 ms for
+# ``.t().contiguous()`` (chip_smoke.py phase 3; PERF.md, Findings PR 10)
+_TBLOCK = 16
+
+
+def _transpose(x: torch.Tensor) -> torch.Tensor:
+    """``(a, b) -> (b, a)``, contiguous, in two copies that each read and
+    write whole sectors: blocks of ``_TBLOCK`` rows to ``(a / _TBLOCK, b,
+    _TBLOCK)`` (a block's rows are read together), then the blocks into
+    place (runs of ``_TBLOCK`` on both sides). PyTorch's one transposing
+    copy reads or writes 4 bytes a sector. The rows past the last whole
+    block go in one small copy."""
+    a, b = x.shape
+    out = x.new_empty((b, a))
+    m = a - a % _TBLOCK
+    if m:
+        y = x[:m].reshape(m // _TBLOCK, _TBLOCK, b).transpose(1, 2).contiguous()
+        out[:, :m].view(b, m // _TBLOCK, _TBLOCK).copy_(y.transpose(0, 1))
+    if m < a:
+        out[:, m:] = x[m:].t()
+    return out
+
+
+def _rows(x3: torch.Tensor) -> torch.Tensor:
+    """``(draws, chains, P) -> (P, N)``, contiguous: each parameter's joint
+    sample one row, in flat row order."""
+    return _transpose(_flatten_sample(x3))
+
+
 def sort_with_positions(x3: torch.Tensor):
-    """One sort of the flattened sample: ``(xs, order, bad)`` — ascending
-    values ``(N, P)`` (NaN last), the original row of each, and the
-    ``(P,)`` NaN-poisoned columns. The sort is stable: tied values keep
-    their row order on every device, and that is the order in which a
-    column whose median is NaN (every folded key NaN) is ranked."""
-    xf = _flatten_sample(x3)
-    xs, order = torch.sort(xf, dim=0, stable=True)
-    return xs, order, _has_nan_cols(xf)
+    """One sort of the sample's rows: ``(xs, order, bad)`` — ``xs`` ``(P,
+    N)``, each row ascending (NaN last), ``order`` the original flat row
+    ``draw * chains + chain`` of each value, and the ``(P,)`` NaN-poisoned
+    rows (a NaN sorts last). The sort is stable: tied values keep their flat
+    order on every device, and that is the order in which a row whose median
+    is NaN (every folded key NaN) is ranked."""
+    xs, order = torch.sort(_rows(x3), dim=1, stable=True)
+    return xs, order, torch.isnan(xs[:, -1])
 
 
 def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
-    """Tied ("average") 1-based ranks of presorted ``(N, P)`` values, in
-    sorted order: each run of equal values gets the mean of its positions
-    (run start and end by cummax / reverse cummin over the run boundaries).
-
-    The scans run along the last, contiguous axis of the transposed values:
-    PyTorch's scan along an outer axis gives each column to one thread, which
-    took ~0.5 s per scan at (1.28M, 256) on an H100.
-    """
-    xt = xs.t().contiguous()
-    p, n = xt.shape
-    idx = torch.arange(n, dtype=torch.int32, device=xs.device).expand(p, n)
-    neq_prev = xt[:, 1:] != xt[:, :-1]
-    edge = torch.ones((p, 1), dtype=torch.bool, device=xs.device)
-    first_of_group = torch.cat([edge, neq_prev], dim=1)
-    last_of_group = torch.cat([neq_prev, edge], dim=1)
-    start = torch.cummax(torch.where(first_of_group, idx, 0), dim=1).values
-    end = torch.where(last_of_group, idx, n - 1).flip(1)
+    """Tied ("average") 1-based ranks of the presorted rows ``xs`` ``(P,
+    N)``, in sorted order: each run of equal values gets the mean of its
+    1-based positions, (first + last) / 2, the first by a cummax and the
+    last by a reverse cummin over the run boundaries, along the contiguous
+    axis. Entry ``j`` starts a run where it differs from entry ``j - 1``
+    (``first``), and ends one where entry ``j + 1`` starts one, so the
+    reverse scan reads ``first`` flipped as bytes (reversed position ``r``
+    is entry ``n - 1 - r``) and one int32 result is flipped back."""
+    p, n = xs.shape
+    pos = torch.arange(1, n + 1, dtype=torch.int32, device=xs.device)
+    first = torch.empty((p, n), dtype=torch.bool, device=xs.device)
+    first[:, 0] = True
+    torch.ne(xs[:, 1:], xs[:, :-1], out=first[:, 1:])
+    start = torch.cummax(torch.where(first, pos, 1), dim=1).values
+    # reversed position r >= 1 (entry n - 1 - r) ends a run where entry
+    # n - r starts one; r = 0, the last entry, always does: the fill's n
+    first_rev = first.flip(1)
+    end = torch.full((p, n), n, dtype=torch.int32, device=xs.device)
+    torch.where(first_rev[:, :-1], pos.flip(0)[1:], pos[-1], out=end[:, 1:])
     end = torch.cummin(end, dim=1).values.flip(1)
-    ranks = (start.to(xs.dtype) + end.to(xs.dtype)) * 0.5 + 1.0
-    return ranks.t().contiguous()
+    return start.add_(end).to(xs.dtype) * 0.5
 
 
 def _blom_normal(ranks: torch.Tensor, n: int) -> torch.Tensor:
@@ -79,15 +113,21 @@ def _blom_normal(ranks: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _unsort(values_sorted: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Scatter sorted values back to their original rows."""
-    return torch.empty_like(values_sorted).scatter_(0, order, values_sorted)
+    """``(N, P)`` row-major, value ``values_sorted[p, j]`` at row ``order[p,
+    j]`` of column ``p``: the sorted rows ``(P, N)`` scattered along each row
+    (a row's scattered writes fill its sectors while they sit in the L2),
+    then transposed. A scatter straight into the row-major output writes 4
+    bytes to a new sector each time: 24 ms against 10 at (1.28M, 256) on an
+    H100 (PERF.md, Findings PR 10)."""
+    return _transpose(torch.empty_like(values_sorted).scatter_(
+        1, order, values_sorted))
 
 
 def rank_normalize_from_sort(xs, order, bad):
     """Flat ``(N, P)`` rank-normal sample in original row order, from a
     ``sort_with_positions`` result."""
-    z = _unsort(_blom_normal(_avg_ranks_sorted(xs), xs.shape[0]), order)
-    return torch.where(bad[None, :], torch.nan, z)
+    z = _blom_normal(_avg_ranks_sorted(xs), xs.shape[1])
+    return _unsort(z.masked_fill_(bad[:, None], torch.nan), order)
 
 
 def rank_normalize(x3: torch.Tensor) -> torch.Tensor:
@@ -98,42 +138,42 @@ def rank_normalize(x3: torch.Tensor) -> torch.Tensor:
 
 
 def sorted_quantile(xs: torch.Tensor, p: float) -> torch.Tensor:
-    """Type-7 quantile from presorted ``(N, P)`` values: linear
+    """Type-7 quantile ``(P,)`` of presorted rows ``xs`` ``(P, N)``: linear
     interpolation at ``h = (N-1) p`` (Julia ``Statistics.quantile``)."""
-    n = xs.shape[0]
+    n = xs.shape[1]
     h = (n - 1) * torch.tensor(p, dtype=xs.dtype)  # host scalar, xs's dtype
     lo = min(max(int(torch.floor(h)), 0), n - 1)
     hi = min(lo + 1, n - 1)
     g = (h - lo).to(xs.device)
-    return xs[lo] + g * (xs[hi] - xs[lo])
+    return xs[:, lo] + g * (xs[:, hi] - xs[:, lo])
 
 
 def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     """Rank-normal values of ``|x - med|`` in fold-sorted order, with the
-    original flat row of each: ``(zf_sorted, forder)``, from the sort of
-    ``x`` (``xs``, ``order``) and the column medians ``med``.
+    original flat row of each: ``(zf_sorted, forder)``, both ``(P, N)``,
+    from the sort of ``x`` (``xs``, ``order``) and the row medians ``med``.
 
-    ``merge``: ``None`` sorts the folded keys with a stable ``torch.sort``;
-    ``"two_sort"`` merges the valley (``kernels.valley.valley_merge``: K10 on
-    a CUDA float32 tensor, ``valley_sort_2d`` on any other). The keys are
-    bit-identical either way and only the order of tied keys differs, which
-    the tied-average ranks absorb. A column whose median is NaN keeps its
-    ``xs`` order in both.
+    ``merge``: ``None`` sorts the folded keys with a stable ``torch.sort``
+    along each row; ``"two_sort"`` merges the valley
+    (``kernels.valley.valley_merge``: K10 on a CUDA float32 tensor,
+    ``valley_sort_2d`` on any other). The keys are bit-identical either way
+    and only the order of tied keys differs, which the tied-average ranks
+    absorb. A row whose median is NaN keeps its ``xs`` order in both.
     """
     if merge == "two_sort":
         fs, forder = valley_merge(xs, order, med)
     else:
-        fs, fidx = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
-        forder = order.gather(0, fidx)
-    return _blom_normal(_avg_ranks_sorted(fs), xs.shape[0]), forder
+        fs, fidx = torch.sort(torch.abs(xs - med[:, None]), dim=1, stable=True)
+        forder = order.gather(1, fidx)
+    return _blom_normal(_avg_ranks_sorted(fs), xs.shape[1]), forder
 
 
 def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:
     """Per-parameter type-7 quantile over the joint (draw, chain) sample,
     ``(P,)``, NaN where the parameter slice holds a NaN."""
-    xf = _flatten_sample(x3)
-    q = sorted_quantile(torch.sort(xf, dim=0).values, p)
-    return torch.where(_has_nan_cols(xf), torch.nan, q)
+    xs = torch.sort(_rows(x3), dim=1).values
+    return torch.where(torch.isnan(xs[:, -1]), torch.nan,
+                       sorted_quantile(xs, p))
 
 
 def batched_median(x3: torch.Tensor) -> torch.Tensor:

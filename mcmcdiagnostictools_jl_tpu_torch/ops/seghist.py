@@ -10,7 +10,8 @@ routed back to (draw, chain) order.
 
 Layout contract (``utils/split.py``): flat position ``draw * nchains +
 chain``; the remainder-discard rule of the split; split-chain id ``chain *
-split + k`` (chain-major, as ``split_chains_reshape`` lays them out).
+split + k`` (chain-major, as ``split_chains_reshape`` lays them out);
+values and positions ``(P, N)``, one row a parameter.
 
 ``split_chain_stats_from_sorted`` runs kernel K11 (``kernels/seghist.py``)
 on a CUDA float32 tensor and its plain version (``split_chain_ids_from_flat``
@@ -33,13 +34,13 @@ __all__ = ["split_chain_ids_from_flat", "weighted_segment_moments",
 def split_chain_moments(values_sorted, order_sorted, ndraws: int,
                         nchains: int, split: int):
     """``(chain_mean, chain_var, vmin, vmax)``: the split chains' means and
-    unbiased variances ``(nchains * split, P)`` of ``values_sorted`` ``(N,
-    P)`` in any row order, ``order_sorted`` the flat original position of
-    each, and each column's min and max over the draws the split keeps."""
+    unbiased variances ``(nchains * split, P)`` of ``values_sorted`` ``(P,
+    N)`` in any order along each row (the ring route passes its ``(N, P)``
+    blocks transposed), ``order_sorted`` the flat original position of each,
+    and each parameter's min and max over the draws the split keeps."""
     niter = ndraws // split
-    sums, sumsq, vmin, vmax = segment_moments(
-        values_sorted.contiguous(), order_sorted.contiguous(), ndraws,
-        nchains, split)
+    sums, sumsq, vmin, vmax = segment_moments(values_sorted, order_sorted,
+                                              ndraws, nchains, split)
     chain_mean = sums / niter
     chain_var = (sumsq - niter * chain_mean * chain_mean) / (niter - 1)
     return chain_mean, chain_var, vmin, vmax

@@ -15,9 +15,11 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
 - the rank transforms (``rank_impl``):
 
   - ``"gather"``: one ``all_gather`` of the chain blocks, one ``torch.sort``
-    of the full sample on every rank, this rank's chains sliced back out;
+    of the full sample on every rank, this rank's chains sliced back out
+    (the in-core helpers of ``ops/ranknorm.py``, on rows ``(P, N)``);
   - ``"ring"``: tied ranks by the ring merge-count of ``ring_rank.py``,
-    O(N_local) memory;
+    O(N_local) memory, on this rank's block as ``(N_local, P)`` (its own
+    sort along dim 0; the shared helpers take it transposed);
   - ``"hist"`` (opt-in, approximate like ``rank_mode="fast"``): local
     histograms by kernel K3, one SUM all-reduce of the bin moments, then the
     local lookup by kernel K4 against the global CDF: no element leaves its
@@ -71,7 +73,7 @@ from ..ops.geyer import geyer_ess_from_rho
 from ..ops.ranknorm import (
     _avg_ranks_sorted,
     _blom_normal,
-    _unsort,
+    _transpose,
     folded_rank_values_sorted,
     rank_normalize,
     rank_normalize_from_sort,
@@ -273,6 +275,17 @@ def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     return xs, order, z_sorted, torch.where(bad[None], torch.nan, quants), bad
 
 
+def _ring_moments(values, positions, d: int, c_loc: int, split: int):
+    """``split_chain_moments`` of this rank's ``(N_local, P)`` sorts. The
+    rank-normal values come laid out as rows (``ring_rank_counts`` works on
+    the transpose), the positions sample-major: the values go to the
+    positions' layout (a two-pass transpose), and both are passed
+    transposed, as the ``(P, N)`` the moments take."""
+    if values.stride() != positions.stride():
+        values = _transpose(values.t())
+    return split_chain_moments(values.t(), positions.t(), d, c_loc, split)
+
+
 def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
     """Rank-normal values of ``|x - med|`` in this rank's fold-sorted order,
     with their local flat positions: a second local (stable) sort and ring
@@ -292,7 +305,7 @@ def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,
     d, c_loc, _ = shape3
     zf, forder = _ring_fold(xs, order, med, cfg,
                             d * c_loc * cfg.chain_shards)
-    cm, cv, vmin, vmax = split_chain_moments(zf, forder, d, c_loc, split)
+    cm, cv, vmin, vmax = _ring_moments(zf, forder, d, c_loc, split)
     w, var_plus = _pooled(cm, cv, d // split,
                           _global_degenerate(vmin, vmax, cfg.chain_group), cfg)
     return torch.where(bad, torch.nan, torch.sqrt(var_plus / w))
@@ -311,7 +324,8 @@ def _ring_kernel(xb, cfg, kind, basic, q):
     if kind == "tail":
         return _tail_ess(xb, quants[0], quants[1], cfg, basic), tail_rhat()
     # the ESS needs the bulk values in (draw, chain) order: one scatter
-    z = torch.where(bad[None], torch.nan, _unsort(z_sorted, order))
+    z = torch.empty_like(z_sorted).scatter_(0, order, z_sorted)
+    z = torch.where(bad[None], torch.nan, z)
     ess, rhat_bulk = _sharded_basic(z.reshape(d, c_loc, p), cfg, **basic)
     if kind == "bulk":
         return ess, rhat_bulk
@@ -534,7 +548,7 @@ def _nested_gather(xb, cfg, kind, nsuper: int, split: int):
         return torch.where(bad, torch.nan, r)
 
     if kind != "tail":
-        bulk = nested(_blom_normal(_avg_ranks_sorted(xs), xs.shape[0]), order)
+        bulk = nested(_blom_normal(_avg_ranks_sorted(xs), xs.shape[1]), order)
         if kind == "bulk":
             return bulk
     med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
@@ -551,8 +565,8 @@ def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int):
     xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, (0.5,))
 
     def nested(values_sorted, positions):
-        cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions, d,
-                                                  c_loc, split)
+        cm, cv, vmin, vmax = _ring_moments(values_sorted, positions, d,
+                                           c_loc, split)
         r = _nested_rhat_dist(cm, cv, nsuper_local, cfg,
                               _global_degenerate(vmin, vmax, cfg.chain_group))
         return torch.where(bad, torch.nan, r)

@@ -27,10 +27,13 @@ that only where an ESS within 1e-3 moved an interval rank); the classical
 suite on the card tracks the CPU to 1e-3 (Geweke z, abs + rel), 1e-4
 (Heidelberger p-values, abs; decisions equal), 1e-4 relative (PSRF), and
 Raftery's run lengths exactly (the dependence factor within 1 float64
-ULP). K10's keys are bit-identical to ``valley_sort_2d``'s and
-``torch.sort``'s, its payloads equal up to the order of tied keys (the
-tied-average ranks routed back by payload are equal); K11's two runs are
-bit-equal (fixed-point integer sums) and its sums within 1e-6 of the float64
+ULP). K10 reads the exact mode's rows ``(P, N)``: its keys are
+bit-identical to ``valley_sort_2d``'s and to ``torch.sort(dim=1)``'s, its
+payloads a permutation of each row's and equal up to the order of tied keys
+(the tied-average ranks routed back by payload are equal), a row whose
+median is NaN unmoved; K11 takes rows and the ring route's transposed
+``(N, P)`` blocks: two runs bit-equal (fixed-point integer sums), the two
+layouts bit-equal, and its sums within 1e-6 of the float64
 plain version relative to max(|sum|, 1) (the float32 rounding of an exact
 sum), min and max equal, the R-hat of its moments within 1e-4; the exact
 calls through K10 and K11 track the CPU to 1e-4 R-hat. Float32 matrix
@@ -955,9 +958,9 @@ class TestShardedOnTheCard:
 # ---- K10 and K11: the exact tail transform's fold merge and moments --------
 
 def _fold_inputs(n, p, seed, device):
-    """The sort of an ``(n, p)`` sample (NaN column 1, constant 2, heavy
-    ties 3, 75 % +inf 4: a NaN median and no NaN) and its medians, as the
-    tail transform makes them."""
+    """The sort of an ``(n, p)`` sample into rows ``(p, n)`` (NaN row 1,
+    constant 2, heavy ties 3, 75 % +inf 4: a NaN median and no NaN) and its
+    medians, as the tail transform makes them."""
     from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
         sort_with_positions, sorted_quantile)
 
@@ -982,27 +985,29 @@ def _routed(fs, forder):
     from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import _avg_ranks_sorted
 
     r = _avg_ranks_sorted(fs)
-    return torch.empty_like(r).scatter_(0, forder, r)
+    return torch.empty_like(r).scatter_(1, forder, r)
 
 
 @pytest.mark.parametrize("n,p", [(1, 5), (127, 5), (128, 33), (4099, 37),
-                                 (50_000, 64), (300_001, 70)])
+                                 (8191, 6), (50_000, 64), (300_001, 70)])
 def test_k10_matches_valley_sort_2d(cuda_device, n, p):  # noqa: F811
     xs, order, med = _fold_inputs(n, p, n + p, cuda_device)
     before = k10.valley_merge.launches
     fs, forder = k10.valley_merge(xs, order, med)
     assert k10.valley_merge.launches == before + 1
+    assert fs.shape == forder.shape == (p, n)
     fp, fop = k10.valley_merge_plain(xs, order, med)
-    ref_k, ref_i = torch.sort(torch.abs(xs - med[None]), dim=0, stable=True)
+    ref_k, ref_i = torch.sort(torch.abs(xs - med[:, None]), dim=1, stable=True)
     torch.cuda.synchronize()
     assert _keys_equal(fs, fp) and _keys_equal(fs, ref_k)
-    rows = torch.arange(n, device=cuda_device)[:, None].expand(n, p)
-    assert torch.equal(torch.sort(forder, dim=0).values, rows)
-    want = _routed(ref_k, order.gather(0, ref_i))
+    flat = torch.arange(n, device=cuda_device).expand(p, n)
+    assert torch.equal(torch.sort(forder, dim=1).values, flat)
+    want = _routed(ref_k, order.gather(1, ref_i))
     assert torch.equal(_routed(fs, forder), want)
     assert torch.equal(_routed(fp, fop), want)
     nan_med = torch.isnan(med)
-    assert torch.equal(forder[:, nan_med], order[:, nan_med])
+    assert (n < 100 or bool(nan_med[4]))
+    assert torch.equal(forder[nan_med], order[nan_med])
 
 
 @pytest.mark.parametrize("ndraws,nchains,split,p", [
@@ -1013,15 +1018,18 @@ def test_k11_bit_equal_runs_and_float64_plain(cuda_device, ndraws, nchains,  # n
                                               split, p):
     rng = np.random.default_rng(ndraws + nchains + p)
     n = ndraws * nchains
-    v = torch.from_numpy(rng.standard_normal((n, p)).astype(np.float32))
-    order = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(p)],
-                                      axis=1))
+    v = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32))
+    order = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(p)]))
     v, order = v.to(cuda_device), order.to(cuda_device)
     a = k11.segment_moments(v, order, ndraws, nchains, split)
     b = k11.segment_moments(v, order, ndraws, nchains, split)
+    # the ring route's layout: (N, P) blocks passed transposed
+    d = k11.segment_moments(v.t().contiguous().t(), order.t().contiguous().t(),
+                            ndraws, nchains, split)
     c = k11.segment_moments_plain(v.double(), order, ndraws, nchains, split)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(a, d))
     for x, y in zip(a[:2], c[:2]):
         assert x.dtype == torch.float32 and x.shape == (nchains * split, p)
         rel = (x.double() - y).abs() / y.abs().clamp(min=1.0)
@@ -1030,9 +1038,9 @@ def test_k11_bit_equal_runs_and_float64_plain(cuda_device, ndraws, nchains,  # n
 
 
 def test_k11_values_outside_its_range_give_nan(cuda_device):  # noqa: F811
-    v = torch.randn((400, 3), device=cuda_device)
-    v[7, 1] = 9.0
-    order = torch.arange(400, device=cuda_device)[:, None].repeat(1, 3)
+    v = torch.randn((3, 400), device=cuda_device)
+    v[1, 7] = 9.0
+    order = torch.arange(400, device=cuda_device).repeat(3, 1)
     s, s2, lo, hi = k11.segment_moments(v, order, 100, 4, 2)
     assert bool(torch.isnan(s[:, 1]).all()) and bool(torch.isnan(lo[1]))
     assert bool(torch.isfinite(s[:, [0, 2]]).all())
@@ -1057,14 +1065,21 @@ def test_exact_call_runs_k10_and_k11_and_matches_cpu(cuda_device, kind):  # noqa
 
 
 def test_fold_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa: F811
-    xs = torch.zeros((64, 8), device=cuda_device)
-    order = torch.zeros((64, 8), dtype=torch.int64, device=cuda_device)
+    xs = torch.zeros((8, 64), device=cuda_device)
+    order = torch.zeros((8, 64), dtype=torch.int64, device=cuda_device)
     med = torch.zeros(8, device=cuda_device)
     with pytest.raises(ValueError):
         k10.valley_merge(xs, order.int(), med)
     with pytest.raises(ValueError):
         k10.valley_merge(xs.t().contiguous().t(), order, med)
+    with pytest.raises(ValueError):  # rows off a 16-byte boundary
+        k10.valley_merge(torch.zeros(8 * 64 + 1, device=cuda_device)[1:]
+                         .view(8, 64), order, med)
     with pytest.raises(ValueError):
-        k11.segment_moments(xs, order, 10, 8, 2)  # 80 rows, not 64
+        k11.segment_moments(xs, order, 10, 8, 2)  # 80 entries, not 64
+    with pytest.raises(ValueError):  # neither rows nor columns contiguous
+        k11.segment_moments(xs[:, ::2], order[:, ::2], 4, 8, 2)
+    with pytest.raises(ValueError):  # values and positions strided apart
+        k11.segment_moments(xs, order.t().contiguous().t(), 8, 8, 2)
     with pytest.raises(NotImplementedError):
         k11.segment_moments(xs.half(), order, 8, 8, 2)

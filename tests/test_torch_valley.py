@@ -2,15 +2,23 @@
 ``valley_sort_2d``, ``folded_rank_values_sorted(merge=)`` and the public
 ``fold_impl`` of ``ess``, ``rhat`` and ``ess_rhat``.
 
-- ``valley_sort_2d`` at a block of 16 rows with N off a multiple of 16: keys
-  bit-identical to the JAX package's ``valley_sort_2d`` and to
-  ``torch.sort``'s, payloads equal up to the order of tied keys (checked by
-  routing the tied-average ranks back by payload), with heavy ties, +-inf,
-  a NaN column (its median NaN), a constant column and a column whose
-  median is NaN for being mostly +inf;
+The port works on rows ``(P, N)``, one a parameter; the JAX package on
+``(N, P)``, so each comparison takes the JAX function on the transpose.
+
+- ``valley_sort_2d`` on rows at a block of 16 entries with N off a multiple
+  of 16, and K10's plain version at the JAX package's block of 8192 with N
+  below and above one block and off K10's tile of 2048: keys bit-identical
+  to the JAX package's ``valley_sort_2d`` on the transpose and to
+  ``torch.sort``'s, payloads a permutation and equal up to the order of
+  tied keys (checked by routing the tied-average ranks back by payload),
+  with heavy ties, +-inf, a NaN row (its median NaN), a constant row and a
+  row whose median is NaN for being mostly +inf;
+- the tied-average ranks on rows against the JAX package's
+  ``_avg_ranks_sorted`` on the transpose, float64 within 1e-12;
 - every kind with a tail R-hat (``tail``, ``rank``) x ``fold_impl`` in
   ``auto`` / ``sort`` / ``merge``, float64 on the CPU, within BASELINE.md's
-  1e-6 of the JAX package at the same ``fold_impl``;
+  1e-6 of the JAX package at the same ``fold_impl``, and every exact kind of
+  ``ess``, ``rhat`` and ``ess_rhat`` with each ``fold_impl``;
 - the JAX package's ``ValueError`` for an unknown ``fold_impl``;
 - the port's two routes agree on a column whose median is NaN although it
   holds no NaN (75 % of it +inf: the type-7 median is inf + g (inf - inf)).
@@ -41,8 +49,8 @@ FOLD_IMPLS = ["auto", "sort", "merge"]
 
 
 def _sample(rng, n, p):
-    """``(n, 1, p)``: normal columns, then heavy ties, +-inf, a NaN
-    column, a constant column and a mostly +inf column."""
+    """``(n, 1, p)``: normal parameters, then heavy ties, +-inf, a NaN
+    parameter, a constant one and a mostly +inf one."""
     x = rng.standard_normal((n, 1, p))
     x[:, 0, 1] = np.round(x[:, 0, 1] * 2) / 2
     x[:3, 0, 2] = [np.inf, -np.inf, np.inf]
@@ -53,11 +61,12 @@ def _sample(rng, n, p):
 
 
 def _sorted_fold(x):
-    """``(xs, order, med, folded)`` through the port's own sort, ``med``
-    NaN where the column holds a NaN, as the tail transform makes them."""
+    """``(xs, order, med, folded)``, rows ``(P, N)``, through the port's own
+    sort, ``med`` NaN where the row holds a NaN, as the tail transform makes
+    them."""
     xs, order, bad = rn.sort_with_positions(t(x))
     med = torch.where(bad, torch.nan, rn.sorted_quantile(xs, 0.5))
-    return xs, order, med, torch.abs(xs - med[None, :])
+    return xs, order, med, torch.abs(xs - med[:, None])
 
 
 def _keys_equal(a, b):
@@ -68,11 +77,33 @@ def _keys_equal(a, b):
 
 
 def _routed_ranks(fs, forder):
-    """Tied-average ranks of the sorted keys, routed back by payload: equal
-    for two sorts that differ only in the payload order of tied keys."""
+    """Tied-average ranks of the sorted keys ``(P, N)``, routed back by
+    payload: equal for two sorts that differ only in the payload order of
+    tied keys."""
     r = rn._avg_ranks_sorted(torch.as_tensor(np.array(fs)))
     idx = torch.as_tensor(np.array(forder)).long()
-    return torch.empty_like(r).scatter_(0, idx, r)
+    return torch.empty_like(r).scatter_(1, idx, r)
+
+
+def _check_valley_sort(fs, forder, order, med, folded, s):
+    """``(fs, forder)``, a sort of the valleys ``folded`` ``(P, N)`` carrying
+    ``order``, against the JAX package's ``valley_sort_2d`` at block ``s``
+    on the transpose and against a stable ``torch.sort`` along the rows."""
+    jfs, jorder = jrn.valley_sort_2d(jnp.asarray(folded.numpy().T),
+                                     jnp.asarray(order.numpy().T), s=s)
+    jfs, jorder = np.asarray(jfs).T, np.asarray(jorder).T
+    ref_k, ref_i = torch.sort(folded, dim=1, stable=True)
+    _keys_equal(fs.numpy(), jfs)
+    _keys_equal(fs.numpy(), ref_k.numpy())
+    # payloads: the entries of each row once, tied keys in any order
+    np.testing.assert_array_equal(np.sort(forder.numpy(), 1),
+                                  np.sort(order.numpy(), 1))
+    clean = ~torch.isnan(med)  # the JAX sorts order all-NaN keys freely
+    want = _routed_ranks(ref_k, order.gather(1, ref_i))
+    assert torch.equal(_routed_ranks(fs, forder), want)
+    assert torch.equal(_routed_ranks(jfs, jorder)[clean], want[clean])
+    # a row whose median is NaN keeps its sorted order
+    assert torch.equal(forder[~clean], order[~clean])
 
 
 @pytest.mark.parametrize("n", [16 * 7 + 5, 1000, 16])
@@ -80,20 +111,34 @@ def test_valley_sort_2d_matches_jax_and_torch_sort(n):
     rng = np.random.default_rng(n)
     xs, order, med, folded = _sorted_fold(_sample(rng, n, 6))
     fs, forder = rn.valley_sort_2d(folded, order, s=16)
-    jfs, jorder = jrn.valley_sort_2d(jnp.asarray(folded.numpy()),
-                                     jnp.asarray(order.numpy()), s=16)
-    ref_k, ref_i = torch.sort(folded, dim=0, stable=True)
-    _keys_equal(fs.numpy(), np.asarray(jfs))
-    _keys_equal(fs.numpy(), ref_k.numpy())
-    # payloads: the rows of each column once, tied keys in any order
-    np.testing.assert_array_equal(np.sort(forder.numpy(), 0),
-                                  np.sort(order.numpy(), 0))
-    clean = ~torch.isnan(med)  # the JAX sorts order all-NaN keys freely
-    want = _routed_ranks(ref_k, order.gather(0, ref_i))
-    assert torch.equal(_routed_ranks(fs, forder), want)
-    assert torch.equal(_routed_ranks(jfs, jorder)[:, clean], want[:, clean])
-    # a column whose median is NaN keeps its sorted order
-    assert torch.equal(forder[:, ~clean], order[:, ~clean])
+    _check_valley_sort(fs, forder, order, med, folded, s=16)
+
+
+# N below one valley block (8192), above it, and off K10's tile (2048)
+@pytest.mark.parametrize("n", [5000, 8192 + 2048 * 3 + 77, 2 * 8192 + 1])
+def test_valley_merge_plain_matches_jax_on_the_transpose(n):
+    rng = np.random.default_rng(n + 7)
+    xs, order, med, folded = _sorted_fold(_sample(rng, n, 6))
+    assert bool(torch.isnan(med[3])) and bool(torch.isnan(med[5]))
+    fs, forder = valley.valley_merge_plain(xs, order, med)
+    assert fs.shape == forder.shape == (6, n)
+    _check_valley_sort(fs, forder, order, med, folded,
+                       s=valley._VALLEY_BLOCK)
+
+
+@pytest.mark.parametrize("n,p", [(1, 3), (2, 1), (257, 6), (4000, 5)])
+def test_avg_ranks_on_rows_match_jax_on_the_transpose(n, p):
+    rng = np.random.default_rng(n * p)
+    x = np.round(rng.standard_normal((p, n)) * 3) / 2  # heavy ties
+    x[0, : n // 3] = np.inf
+    if p > 2:
+        x[2] = 0.5
+        x[1, n // 2] = np.nan
+    xs = np.sort(x, axis=1)
+    got = rn._avg_ranks_sorted(t(xs))
+    want = np.asarray(jrn._avg_ranks_sorted(jnp.asarray(xs.T))).T
+    assert got.dtype == torch.float64 and got.shape == (p, n)
+    assert_close(got, want, rtol=0, atol=1e-12)
 
 
 def test_valley_merge_on_the_cpu_is_its_plain_version():
@@ -114,7 +159,7 @@ def test_folded_routes_give_the_same_values_by_position():
     routed = []
     for merge in (None, "two_sort"):
         zf, forder = rn.folded_rank_values_sorted(xs, order, med, merge=merge)
-        routed.append(torch.empty_like(zf).scatter_(0, forder, zf))
+        routed.append(torch.empty_like(zf).scatter_(1, forder, zf))
     assert torch.equal(routed[0], routed[1])
 
 
@@ -204,13 +249,40 @@ def test_tile_agrees_with_the_cuda_source():
 
 
 def test_main_sort_keeps_tied_rows_in_order():
-    """The sort of the sample is stable, so a NaN-median column (every
-    folded key NaN) is ranked in one row order on every device."""
+    """The sort of the sample is stable, so a NaN-median row (every folded
+    key NaN) is ranked in one flat order on every device."""
     x = np.zeros((50, 2, 2))
     x[::3, :, 0] = np.inf
     x[:, :, 1] = np.round(np.random.default_rng(1).standard_normal((50, 2)))
     xs, order, _ = rn.sort_with_positions(t(x))
+    assert xs.shape == order.shape == (2, 100)
     for c in range(2):
-        for v in torch.unique(xs[:, c]):
-            rows = order[:, c][xs[:, c] == v]
-            assert torch.equal(rows, torch.sort(rows).values)
+        for v in torch.unique(xs[c]):
+            flat = order[c][xs[c] == v]
+            assert torch.equal(flat, torch.sort(flat).values)
+
+
+ESS_KINDS = ["bulk", "tail", "basic", "mean", "median", "std", "mad",
+             "quantile"]
+
+
+@pytest.mark.parametrize("fold_impl", FOLD_IMPLS)
+@pytest.mark.parametrize("kind", ESS_KINDS)
+def test_every_exact_ess_kind_with_fold_impl_matches_jax(rng, kind,
+                                                         fold_impl):
+    x = _chains(rng, (301, 4, 3))
+    jkind, tkind = ((mdt.Quantile(0.3), mtt.Quantile(0.3))
+                    if kind == "quantile" else (kind, kind))
+    assert_close(mtt.ess(x, kind=tkind, fold_impl=fold_impl, device="cpu"),
+                 mdt.ess(x, kind=jkind, fold_impl=fold_impl))
+
+
+@pytest.mark.parametrize("fold_impl", FOLD_IMPLS)
+@pytest.mark.parametrize("kind", ["rank", "bulk", "tail", "basic"])
+@pytest.mark.parametrize("call", ["rhat", "ess_rhat"])
+def test_every_exact_rhat_kind_with_fold_impl_matches_jax(rng, call, kind,
+                                                          fold_impl):
+    x = _chains(rng, (301, 4, 3)) * 0.5 - 1.0
+    got = getattr(mtt, call)(x, kind=kind, fold_impl=fold_impl, device="cpu")
+    want = getattr(mdt, call)(x, kind=kind, fold_impl=fold_impl)
+    assert_close(got, want)
