@@ -106,13 +106,37 @@ and exits nonzero, printing no result, if any phase fails:
     from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
     against gather 1e-6); config 4 through ``ess_rhat_streaming(mesh_cfg=
     ...)`` against phase 11's result; ``ShardedGBTClassifier`` on phase 13's
-    rows: the same forest.
+    rows: the same forest;
+17. sign-bit NaNs, run in phase 16's world on the flagship sample with one
+    column of ``0xffc00000`` NaNs and one such NaN in another column (the
+    card's radix sort puts it first): the exact ``ess_rhat(kind="rank")``
+    with ``fold_impl`` sort and merge, ``ess`` median and mad, ``mcse`` of
+    ``Quantile(0.25)``, ``ess_rhat_streaming`` in exact mode and
+    ``ess_rhat_sharded`` gather and ring: those columns NaN, every other
+    column bit-equal to the same sample's with ``+nan`` there; where the
+    sort put the NaN, and the NaN-row test's time beside ``isnan().any``;
+18. HMC on the card (``models.hmc_sample``, float32): BASELINE.md config 2
+    (eight schools, 8 chains x 10 params x 1000 draws, step 0.2, 16
+    leapfrog steps at most) with the properties of
+    ``tests/test_integration.py::TestEightSchools`` (R-hat < 1.05, ESS >
+    100, 0 < MCSE < posterior sd) and its MCSEs and BFMI; Cauchy at 128
+    chains x 256 dims x 1000 draws (step 0.25) with those of
+    ``TestCauchyHeavyTails`` (accept > 0.6, median tail-ESS < 0.8 x median
+    bulk-ESS, median bulk-ESS > 50, BFMI < 1), and on its trace the fast
+    and exact ``ess_rhat`` (K1-K4; K1, K10, K11) and ``mcse`` with
+    ``PallasAutocovMethod`` (K5), each with its launches counted from 0;
+    the deterministic core on the same float64 draws on the card and on the
+    CPU (1e-8); the sampler's walls and rates, and over 20 draws of each
+    target its device operations a leapfrog step and the card's idle share;
+    ``utils.profiling.trace`` around one fast ``ess_rhat``: the trace file
+    holds a K1 kernel and the annotated region.
 
 Before them a line gives the run's total time, the build included. The
 line before the last two is the card's name and power limit, the
 second-to-last line the kernels' JSON record (each with its time, its plain
 version's, its bound and, where one PyTorch call computes the same, that
-call's), the last line ``{"ok": true, "device": {...}}``. Only PyTorch and
+call's; ``hmc_launches``: its launches in phase 18's diagnostics on the
+Cauchy trace), the last line ``{"ok": true, "device": {...}}``. Only PyTorch and
 numpy are used.
 """
 
@@ -2219,6 +2243,295 @@ def phase_sharded_gbt(single, rows: torch.Tensor, y: np.ndarray, state,
     return {"fit_s": wall, "single_fit_s": fit_s, "leaf_value_max_abs": lv}
 
 
+# ---- phase 17: sign-bit NaNs in the exact rank mode -------------------------
+
+NAN_COL, NAN_MIX_COL = 5, 6  # all sign-bit NaN; one among numbers
+
+
+def with_nans(x3: torch.Tensor, bits: int) -> torch.Tensor:
+    """A copy of the sample whose column NAN_COL holds only the float32 NaN
+    with these bits, and column NAN_MIX_COL one such NaN among numbers."""
+    nan = torch.tensor([bits], dtype=torch.int32).view(torch.float32)
+    x = x3.clone()
+    x[:, :, NAN_COL] = nan.to(x.device)
+    x[DRAWS // 3, CHAINS // 2, NAN_MIX_COL] = nan.to(x.device)[0]
+    return x
+
+
+def phase_signed_nans(x3: torch.Tensor) -> dict:
+    """The exact calls on the flagship sample with sign-bit NaNs
+    (``0xffc00000``, which the card's radix sort may put first) in two
+    columns, run on a world of one rank over NCCL: ``ess_rhat(kind="rank")``
+    with ``fold_impl`` sort and merge, ``ess`` of the median and mad kinds,
+    ``mcse`` of ``Quantile(0.25)``, ``ess_rhat_streaming`` in exact mode and
+    ``ess_rhat_sharded`` (gather, ring). Those two columns must be NaN, and
+    every other column bit-equal to the same sample's with ``+nan``
+    (``0x7fc00000``) in their place. Also where the card's sort put the NaNs
+    and what the NaN-row test costs beside the JAX package's rule."""
+    from mcmcdiagnostictools_jl_tpu_torch import parallel
+    from mcmcdiagnostictools_jl_tpu_torch.ops import ranknorm
+
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    neg, pos = with_nans(x3, -0x400000), with_nans(x3, 0x7FC00000)
+    check(int(neg[0, 0, NAN_COL].view(torch.int32)) == -0x400000
+          and int(pos[0, 0, NAN_COL].view(torch.int32)) == 0x7FC00000,
+          "NaN bits not as written")
+    xs, _, bad = ranknorm.sort_with_positions(neg)
+    ends = {c: (bool(torch.isnan(xs[c, 0])), bool(torch.isnan(xs[c, -1])))
+            for c in (NAN_COL, NAN_MIX_COL)}
+    order = ("first" if ends[NAN_MIX_COL] == (True, False) else
+             "last" if ends[NAN_MIX_COL] == (False, True) else "elsewhere")
+    print(f"[17 order] the card's sort puts the sign-bit NaN among numbers "
+          f"(column {NAN_MIX_COL}) {order}: ends (first, last) NaN {ends}")
+    check(bad.tolist() == [c in (NAN_COL, NAN_MIX_COL) for c in range(PARAMS)],
+          "sort_with_positions missed a NaN row")
+    helper_ms = time_ms(lambda: ranknorm._nan_rows(xs))
+    any_ms = time_ms(lambda: torch.isnan(xs).any(1))
+    del xs
+    print(f"[17 cost] the NaN-row test on the sorted rows (256, 1.28M): two "
+          f"ends {helper_ms:.4f} ms, isnan(xs).any(1) (the JAX package's "
+          f"rule) {any_ms:.4f} ms")
+    cfg = parallel.make_mesh()
+    host = {"neg": neg.cpu().numpy(), "pos": pos.cpu().numpy()}
+    calls = {
+        "ess_rhat rank, fold sort":
+            lambda x: mtt.ess_rhat(x, kind="rank", fold_impl="sort"),
+        "ess_rhat rank, fold merge":
+            lambda x: mtt.ess_rhat(x, kind="rank", fold_impl="merge"),
+        "ess median": lambda x: mtt.ess(x, kind="median"),
+        "ess mad": lambda x: mtt.ess(x, kind="mad"),
+        "mcse Quantile(0.25)": lambda x: mtt.mcse(x, kind=mtt.Quantile(0.25)),
+        "ess_rhat_streaming exact, chunks of 64":
+            lambda x: mtt.ess_rhat_streaming(host[x], rank_mode="exact",
+                                             param_chunk=64),
+        "ess_rhat_sharded gather":
+            lambda x: parallel.ess_rhat_sharded(x, cfg, rank_impl="gather"),
+        "ess_rhat_sharded ring":
+            lambda x: parallel.ess_rhat_sharded(x, cfg, rank_impl="ring"),
+    }
+    keep = torch.ones(PARAMS, dtype=torch.bool)
+    keep[[NAN_COL, NAN_MIX_COL]] = False
+    out = {"order": order, "nan_rows_ms": helper_ms, "isnan_any_ms": any_ms}
+    for name, fn in calls.items():
+        args = ("neg", "pos") if "streaming" in name else (neg, pos)
+        t0 = time.perf_counter()
+        got, want = (fn(a) for a in args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            check(bool(torch.isnan(g[~keep]).all()),
+                  f"[17 {name}]: a sign-bit NaN column is not NaN")
+            check(bool(torch.isfinite(g[keep]).all())
+                  and torch.equal(g[keep], w[keep]),
+                  f"[17 {name}]: the other columns differ from +nan's")
+        print(f"[17 {name}] columns {NAN_COL}, {NAN_MIX_COL} NaN, the other "
+              f"{int(keep.sum())} bit-equal to the +nan sample's ({wall:.2f} s "
+              "for both)")
+        out[name] = wall
+    return out
+
+
+# ---- phase 18: HMC on the card, then the diagnostics on its trace -----------
+
+HMC_MAX_LEAPFROG = 16
+HMC_PROFILE_DRAWS = 20
+
+
+def hmc_run(tag: str, smi: str, logpdf, chains: int, dim: int, draws: int,
+            step: float, seed: int):
+    """``models.hmc_sample`` from a seeded generator on the card, float32:
+    ``(trace, wall s)``; prints the sampler's rates."""
+    from mcmcdiagnostictools_jl_tpu_torch import models
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    init = 0.5 * torch.randn((chains, dim), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = models.hmc_sample(logpdf, init, gen, num_samples=draws,
+                           step_size=step, max_leapfrog=HMC_MAX_LEAPFROG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tr.samples.shape == (draws, chains, dim)
+          and tr.energy.shape == (draws, chains)
+          and all(v.device.type == "cuda" and v.dtype == torch.float32
+                  for v in tr)
+          and bool(torch.isfinite(tr.energy).all()),
+          f"{tag}: bad trace")
+    steps = draws * HMC_MAX_LEAPFROG
+    acc = tr.accept_rate
+    print(f"{tag} {draws} draws x {chains} chains x {dim}: sampler wall "
+          f"{wall:.2f} s, {draws / wall:.1f} draws/s, "
+          f"{steps * chains / wall:.4g} gradient evaluations/s (one a chain "
+          f"a leapfrog step; {steps / wall:.1f} batched gradients/s); accept "
+          f"{float(acc.min()):.3f}..{float(acc.max()):.3f} ({smi})")
+    return tr, wall
+
+
+def phase_hmc(smi: str) -> dict:
+    """HMC on the card at full width, then the diagnostics on its trace:
+    BASELINE.md config 2 (eight schools, 8 chains x 10 params x 1000
+    draws, as ``benchmarks/suite.py:config2``) with
+    ``tests/test_integration.py::TestEightSchools``'s properties; Cauchy at
+    the flagship's 128 chains x 256 params x 1000 draws with
+    ``TestCauchyHeavyTails``'s, and the fast and exact ``ess_rhat`` (K1-K4;
+    K10, K11) and ``mcse`` with ``PallasAutocovMethod`` (K5) on it, each
+    with its launches counted from 0; the deterministic core on the same
+    float64 draws on the card and on the CPU (1e-8); the sampler's device
+    operations per leapfrog step and the card's idle share over 20 draws;
+    ``utils.profiling.trace`` around one fast ``ess_rhat``."""
+    import glob
+    import os
+    import tempfile
+
+    from mcmcdiagnostictools_jl_tpu_torch import models
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import profile_calls
+    from mcmcdiagnostictools_jl_tpu_torch.models.hmc import hmc_transitions
+    from mcmcdiagnostictools_jl_tpu_torch.utils import profiling
+
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+
+    out = {}
+    # config 2: eight schools
+    tr, wall = hmc_run("[18 config 2, eight schools]", smi,
+                       models.eight_schools_logpdf, 8, 10, 1000, 0.2, SEED)
+    x, schools_last = tr.samples, tr.samples[-1]
+    t0 = time.perf_counter()
+    r = mtt.ess_rhat(x)
+    se = {k: mtt.mcse(x, kind=kind) for k, kind in (
+        ("mean", "mean"), ("std", "std"), ("q25", mtt.Quantile(0.25)))}
+    b = mtt.bfmi(tr.energy)
+    torch.cuda.synchronize()
+    diag_s = time.perf_counter() - t0
+    sd = x.reshape(-1, 10).std(0)
+    print(f"[18 config 2] R-hat max {float(r.rhat.max()):.4f} (< 1.05), ESS "
+          f"min {float(r.ess.min()):.1f} (> 100), MCSE mean / sd max "
+          f"{float((se['mean'] / sd).max()):.4f} (in (0, 1)), MCSE std min "
+          f"{float(se['std'].min()):.4g}, MCSE q25 min "
+          f"{float(se['q25'].min()):.4g}; BFMI {[round(float(v), 3) for v in b]}"
+          f"; diagnostics {diag_s:.3f} s ({smi})")
+    check(bool((r.rhat < 1.05).all()) and bool((r.ess > 100).all()),
+          "config 2: not converged")
+    check(bool((se["mean"] > 0).all()) and bool((se["mean"] < sd).all()),
+          "config 2: MCSE not within (0, posterior sd)")
+    check(all(bool((v > 0).all() & torch.isfinite(v).all())
+              for v in se.values()) and bool(torch.isfinite(b).all()),
+          "config 2: MCSE or BFMI not finite and positive")
+    out["config2"] = {"sampler_wall_s": wall, "draws_per_s": 1000 / wall,
+                      "diagnostics_s": diag_s,
+                      "rhat_max": float(r.rhat.max()),
+                      "ess_min": float(r.ess.min())}
+
+    # Cauchy at the flagship's widths
+    tr, wall = hmc_run("[18 Cauchy]", smi, models.cauchy_logpdf, CHAINS,
+                       PARAMS, 1000, 0.25, SEED + 1)
+    x = tr.samples
+    check(bool((tr.accept_rate > 0.6).all()), "Cauchy: an accept rate <= 0.6")
+    launches, walls = {}, {}
+    for name, fn, want in (
+            ("ess_rhat fast", lambda: mtt.ess_rhat(x, kind="rank",
+                                                   rank_mode="fast"),
+             ("K1", "K2", "K3", "K4")),
+            ("ess_rhat exact", lambda: mtt.ess_rhat(x, kind="rank"),
+             ("K1", "K10", "K11")),
+            ("mcse mean, PallasAutocovMethod",
+             lambda: mtt.mcse(x, kind="mean",
+                              autocov_method=mtt.PallasAutocovMethod()),
+             ("K5",))):
+        res, counts, first, w = counted_call(fn)
+        for v in (res if isinstance(res, tuple) else (res,)):
+            check(v.shape == (PARAMS,) and bool(torch.isfinite(v).all()),
+                  f"Cauchy {name}: bad output")
+        shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K10",
+                                        "K11")}
+        print(f"[18 Cauchy {name}] launches {shown}; wall {w:.4f} s (median "
+              f"of 3; first call {first:.3f} s) ({smi})")
+        for kid in want:
+            check(counts[kid] >= 1, f"Cauchy {name}: {kid} did not launch")
+        for kid, n in shown.items():
+            launches[kid] = launches.get(kid, 0) + n
+        walls[name] = w
+    bulk, tail = mtt.ess(x, kind="bulk"), mtt.ess(x, kind="tail")
+    b = mtt.bfmi(tr.energy)
+    mb, mt = float(bulk.median()), float(tail.median())
+    print(f"[18 Cauchy] median bulk-ESS {mb:.1f} (> 50), median tail-ESS "
+          f"{mt:.1f} (< 0.8 x bulk), BFMI max {float(b.max()):.3f} (< 1)")
+    check(mt < 0.8 * mb and mb > 50, "Cauchy: tail-ESS does not lag bulk-ESS")
+    check(bool((b < 1).all()), "Cauchy: a BFMI >= 1")
+    out["cauchy"] = {"sampler_wall_s": wall, "draws_per_s": 1000 / wall,
+                     "grad_evals_per_s": 1000 * HMC_MAX_LEAPFROG * CHAINS
+                     / wall, "diagnostics_walls_s": walls,
+                     "median_bulk_ess": mb, "median_tail_ess": mt,
+                     "bfmi_max": float(b.max()),
+                     "accept_min": float(tr.accept_rate.min())}
+
+    # the deterministic core, card against CPU, on the same float64 draws
+    g = torch.Generator().manual_seed(SEED)
+    dims = (16, PARAMS)
+    inputs = (0.5 * torch.randn(dims, dtype=torch.float64, generator=g),
+              torch.randn((50,) + dims, dtype=torch.float64, generator=g),
+              torch.randint(1, HMC_MAX_LEAPFROG + 1, (50, 16), generator=g),
+              torch.rand((50, 16), dtype=torch.float64, generator=g))
+    kw = dict(step_size=0.25, max_leapfrog=HMC_MAX_LEAPFROG)
+    cpu = hmc_transitions(models.cauchy_logpdf, *inputs, **kw)
+    card = hmc_transitions(models.cauchy_logpdf,
+                           *(v.cuda() for v in inputs), **kw)
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+    print(f"[18 core, card vs CPU] 16 chains x {PARAMS} x 50 draws, float64: "
+          f"max abs diff {diff:.3e} (bound 1e-8)")
+    check(diff <= 1e-8, "the HMC core differs between the card and the CPU")
+    out["core_card_vs_cpu"] = diff
+
+    # the sampler's device operations per leapfrog step and idle share,
+    # from the last state of each run
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out["profile"] = {}
+    for name, logpdf, init in (("Cauchy", models.cauchy_logpdf, x[-1]),
+                               ("config 2", models.eight_schools_logpdf,
+                                schools_last)):
+        shape = (HMC_PROFILE_DRAWS,) + tuple(init.shape)
+        draws = (torch.randn(shape, device="cuda", generator=gen),
+                 torch.randint(1, HMC_MAX_LEAPFROG + 1, shape[:2],
+                               device="cuda", generator=gen),
+                 torch.rand(shape[:2], device="cuda", generator=gen))
+        prof = profile_calls.profile_call(
+            lambda: hmc_transitions(logpdf, init.contiguous(), *draws, **kw))
+        per_step = prof["launches"] / (HMC_PROFILE_DRAWS * HMC_MAX_LEAPFROG)
+        print(f"[18 profile] {HMC_PROFILE_DRAWS} {name} draws: wall "
+              f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.2f} ms, "
+              f"idle {prof['idle'] * 100:.1f} %, {prof['launches']} device "
+              f"operations, {per_step:.1f} a leapfrog step; top "
+              + ", ".join(f"{n[:40]} {ms:.2f} ms x{c}"
+                          for n, ms, c in prof["kernels"][:4]) + f" ({smi})")
+        out["profile"][name] = {"wall_ms": prof["wall_ms"],
+                                "device_ms": prof["device_ms"],
+                                "idle": prof["idle"],
+                                "launches_per_leapfrog_step": per_step}
+
+    # utils.profiling.trace around one fast ess_rhat
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            with profiling.annotate("mdt.smoke.fast_ess_rhat"):
+                mtt.ess_rhat(x, kind="rank", rank_mode="fast")
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = [e for e in events if e.get("cat") == "kernel"
+              and "moments_autocov_kernel" in e.get("name", "")]
+        region = any(e.get("name") == "mdt.smoke.fast_ess_rhat"
+                     for e in events)
+        print(f"[18 trace] {os.path.getsize(files[0]) / 1e6:.2f} MB, "
+              f"{len(events)} events, {len(k1)} K1 kernel events, the "
+              f"annotated region {'present' if region else 'missing'}")
+        check(bool(k1) and region, "the trace lacks K1 or the region")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     dev = phase_device()
@@ -2257,6 +2570,7 @@ def main() -> int:
                                               "exact": e2e["exact_s"],
                                               "streamed": streaming["wall_s"]},
                             streaming.pop("host"), streaming.pop("result"))
+    signed_nans = phase_signed_nans(x3)
     del x3, fast, exact
     discrete = phase_discretediag()
     rstar_dense = phase_rstar_dense()
@@ -2265,6 +2579,7 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     rstar_bigk = phase_rstar_bigk()
     float64 = phase_float64()
+    hmc = phase_hmc(dev["smi"])
 
     src = f"{PKG}/csrc/"
     pallas = "mcmcdiagnostictools_jl_tpu/ops/pallas/"
@@ -2314,6 +2629,9 @@ def main() -> int:
                  "bound_ms": row.pop("bound_ms"),
                  "bound_by": row.pop("bound_by"),
                  "library_ms": row.pop("library_ms", None)}
+        kid = name.split()[0]
+        if kid in hmc["launches"]:  # the diagnostics on the HMC trace
+            entry["hmc_launches"] = hmc["launches"][kid]
         entry.update(row)
         kernels_out.append(entry)
     print(json.dumps({"wall_fast_s": e2e["fast_s"], "wall_exact_s": e2e["exact_s"],
@@ -2326,7 +2644,9 @@ def main() -> int:
                       "classical": classical, "streaming": streaming,
                       "discretediag": discrete, "rstar_dense": rstar_dense,
                       "rstar_config5": rstar_bigk, "float64": float64,
-                      "sharded": sharded}))
+                      "sharded": sharded, "signed_nans": signed_nans,
+                      "hmc": {k: v for k, v in hmc.items()
+                              if k != "launches"}}))
     print(f"[total] {time.perf_counter() - started:.1f} s, the build "
           "included")
     print(dev["smi"])

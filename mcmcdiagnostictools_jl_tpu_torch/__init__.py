@@ -17,9 +17,11 @@ host sample larger than device memory. ``parallel`` runs ESS / R-hat and
 nested R-hat over a ``(chains, params)`` mesh of ``torch.distributed``
 ranks, one process a device (``make_mesh``, ``ess_rhat_sharded``,
 ``rhat_nested_sharded``; ``ess_rhat_streaming(mesh_cfg=...)``), and
-``models.ShardedGBTClassifier`` fits R*'s classifier over the ranks. The
-kernel studies (lag-loop formulations, sort passes and the pod sort) live
-in ``benchmarks/``.
+``models.ShardedGBTClassifier`` fits R*'s classifier over the ranks.
+``models.hmc_sample`` is the JAX package's HMC test-data sampler, and
+``utils.trace`` / ``utils.annotate`` its profiling hooks, on
+``torch.profiler``. The kernel studies (lag-loop formulations, sort passes
+and the pod sort) live in ``benchmarks/``.
 
 Same layout and contracts as the JAX package: ``(draws, chains[,
 params...])`` input, a Python float for input without parameter dims, NaN in
@@ -54,7 +56,9 @@ from .diagnostics.ess_rhat import (
     DirectKernelAutocovMethod,
     ESSRhat,
     FFTAutocovMethod,
+    FusedAutocovMethod,
     KernelAutocovMethod,
+    PallasAutocovMethod,
     Quantile,
     ess,
     ess_rhat,
@@ -90,6 +94,8 @@ __all__ = [
     "BDAAutocovMethod",
     "KernelAutocovMethod",
     "DirectKernelAutocovMethod",
+    "PallasAutocovMethod",
+    "FusedAutocovMethod",
     "ESSRhat",
     "Quantile",
     "GelmanResult",

@@ -9,7 +9,9 @@
   shapes, one product against row blocks through ``torch.bmm``;
 - ``ab_walls``: the flagship calls' walls and peak memory of two checkouts
   of the port, in turns, one process a run (host walls, each call ending in
-  a synchronize).
+  a synchronize);
+- ``nan_probe``: where the card's sort puts a sign-bit NaN, and the exact
+  calls' values in its column, for checkouts of the port.
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -40,8 +40,9 @@ def make_sample(seed: int = 0, shape=(DRAWS, CHAINS, PARAMS), phi: float = 0.5,
 
 def profile_call(fn, top: int = 8) -> dict:
     """One warm call of ``fn`` under the profiler: ``{"wall_ms", "device_ms",
-    "idle", "kernels": [(name, ms, calls), ...]}``, the kernels by device
-    time, largest first."""
+    "idle", "launches", "kernels": [(name, ms, calls), ...]}``, the kernels
+    by device time, largest first; ``launches`` counts the device's
+    kernels, memsets and copies."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -69,7 +70,8 @@ def profile_call(fn, top: int = 8) -> dict:
                      key=lambda r: -r[1])
     return {"wall_ms": wall_ms,
             "device_ms": sum(ms for _, ms, _ in kernels),
-            "idle": 1.0 - busy / 1e3 / wall_ms, "kernels": kernels[:top]}
+            "idle": 1.0 - busy / 1e3 / wall_ms, "launches": len(spans),
+            "kernels": kernels[:top]}
 
 
 def calls(x: torch.Tensor) -> dict:

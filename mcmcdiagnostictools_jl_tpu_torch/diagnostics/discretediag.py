@@ -139,7 +139,11 @@ def _integer_codes_batched(x: torch.Tensor):
     NaNs form one category, the last), and ``m`` (B,), in one sort of the
     columns. Category labelling does not affect any statistic, so sorted
     codes replace the reference's first-appearance dict
-    (src/discretediag.jl:246-289)."""
+    (src/discretediag.jl:246-289). The NaNs' sign bits are cleared first:
+    the card's sort orders NaNs by their bits, and would put a sign-bit NaN
+    first, apart from the others."""
+    if x.is_floating_point():
+        x = torch.where(torch.isnan(x), torch.nan, x)
     vals, order = torch.sort(x, dim=0)
     new = torch.ones_like(vals, dtype=torch.int64)
     if vals.shape[0] > 1:

@@ -119,11 +119,40 @@ class KernelAutocovMethod:
 
 @dataclass(frozen=True)
 class DirectKernelAutocovMethod:
-    """The counterpart of the JAX package's ``PallasAutocovMethod``: another
-    name for ``AutocovMethod``, which already runs kernel K5 on a CUDA
-    tensor."""
+    """Another name for ``AutocovMethod``, which already runs kernel K5 on a
+    CUDA tensor (as does the JAX package's name, ``PallasAutocovMethod``)."""
 
     name: str = "direct_kernel"
+
+
+@dataclass(frozen=True)
+class PallasAutocovMethod:
+    """The JAX package's marker for its Pallas lag kernel: the direct
+    estimator, here kernel K5 on a CUDA float32 tensor (the route of
+    ``DirectKernelAutocovMethod``) and its plain version on any other.
+    ``interpret`` is kept so that code written for the JAX package builds
+    the marker; the tensor's device decides the route, never this field."""
+
+    interpret: bool = False
+
+    @property
+    def name(self) -> str:
+        return "pallas_interpret" if self.interpret else "pallas"
+
+
+@dataclass(frozen=True)
+class FusedAutocovMethod:
+    """The JAX package's marker for its fused moments + autocovariance
+    kernel: here kernel K1 on a CUDA float32 tensor (the route of
+    ``KernelAutocovMethod`` and of ``"auto"``) and its plain version on any
+    other. ``interpret`` as in ``PallasAutocovMethod``: the tensor's device
+    decides the route."""
+
+    interpret: bool = False
+
+    @property
+    def name(self) -> str:
+        return "fused_interpret" if self.interpret else "fused"
 
 
 @dataclass(frozen=True)
@@ -143,7 +172,11 @@ _ESTIMATOR_KINDS = ("mean", "median", "std", "mad")
 _PROXY_KINDS = _ESTIMATOR_KINDS + ("quantile",)
 _RHAT_KINDS = ("rank", "bulk", "tail", "basic")
 _MARKERS = (AutocovMethod, FFTAutocovMethod, BDAAutocovMethod,
-            KernelAutocovMethod, DirectKernelAutocovMethod)
+            KernelAutocovMethod, DirectKernelAutocovMethod,
+            PallasAutocovMethod, FusedAutocovMethod)
+# names of the fused route (K1); the JAX package's "fused" and
+# "fused_interpret" differ only in how it ran its kernel
+_FUSED_NAMES = ("auto", "fused", "fused_interpret")
 
 
 def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
@@ -167,9 +200,11 @@ def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
 
 
 def _method_name(autocov_method):
+    """The route of an ``autocov_method``: ``"kernel"`` for the fused one
+    (K1), else a name of ``ops.autocov``'s table or a callable."""
     if isinstance(autocov_method, _MARKERS):
-        return autocov_method.name
-    if autocov_method == "auto":
+        autocov_method = autocov_method.name
+    if isinstance(autocov_method, str) and autocov_method in _FUSED_NAMES:
         return "kernel"
     if isinstance(autocov_method, str) or callable(autocov_method):
         return autocov_method
@@ -473,8 +508,10 @@ def ess(samples, *, kind="bulk", relative: bool = False,
     runs: kernel K10 on a CUDA float32 tensor), or ``"auto"`` (the merge
     where K10 runs and the sample has at least 16,384 draws x chains, else
     the sort); the results agree up to summation order.
-    ``autocov_method``: ``"auto"`` (the fused K1 path), a marker
-    (``DirectKernelAutocovMethod()`` runs K5), a method name or a callable.
+    ``autocov_method``: ``"auto"`` (the fused K1 path; also
+    ``FusedAutocovMethod()``, ``"fused"``), a marker
+    (``DirectKernelAutocovMethod()`` and ``PallasAutocovMethod()`` run K5),
+    a method name or a callable.
     """
     _check_rank_mode(rank_mode)
     x3, pshape = _canonical_input(samples, device)

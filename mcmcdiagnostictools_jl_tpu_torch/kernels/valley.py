@@ -42,9 +42,12 @@ def valley_sort_2d(keys: torch.Tensor, payload: torch.Tensor,
     package's ``valley_sort_2d`` on the transpose). Both sorts are stable,
     so a row whose keys are all NaN keeps its order, and the pads, sorted
     after every key, are the entries cut off at the end. The pads are the
-    NaN with every payload bit set: the card's sort orders NaNs by their
-    bits, and a NaN key of the data (``0x7fffffff`` from the card's
-    arithmetic, ``0x7fc00000`` from the host's) must not follow a pad.
+    NaN with every payload bit set: the card's radix sort orders NaNs by
+    their bits (a NaN with the sign bit set, such as the host's ``-np.nan``
+    or ``inf - inf``, ``0xffc00000``, first; any other last), and a NaN key
+    of the data must not follow a pad. The keys are absolute values, so
+    their NaNs have the sign bit clear (``0x7fc00000``, or ``0x7fffffff``
+    from the card's arithmetic) and sort last, before the pads.
     """
     p, n = keys.shape
     m = -(-n // s)
@@ -74,10 +77,14 @@ def valley_merge(xs: torch.Tensor, order: torch.Tensor, med: torch.Tensor):
     (NaN last) with ``order`` carried along, from the rows ``xs`` ``(P, N)``
     ascending (NaN last), their payload ``order`` (int64) and the row
     medians ``med`` ``(P,)``. A row whose ``med`` is NaN keeps its ``xs``
-    order. Keys as ``valley_merge_plain``'s, payloads equal up to the order
-    of tied keys. On the card ``xs`` must be float32, and ``xs`` and
-    ``order`` contiguous, on 16-byte boundaries (the kernel reads and writes
-    16 bytes a thread)."""
+    order. The kernel's searches assume NaN last in a row with a finite
+    ``med``; the card's sort puts a sign-bit NaN first, so a caller gives
+    every row that holds a NaN a NaN ``med`` (``ops.ranknorm._nan_rows``):
+    its keys are then all NaN, its split 0, and it is read in bounds
+    wherever its NaNs lie. Keys as ``valley_merge_plain``'s, payloads equal
+    up to the order of tied keys. On the card ``xs`` must be float32, and
+    ``xs`` and ``order`` contiguous, on 16-byte boundaries (the kernel reads
+    and writes 16 bytes a thread)."""
     if not backend.use_kernels(xs):
         return valley_merge_plain(xs, order, med)
     p, n = xs.shape

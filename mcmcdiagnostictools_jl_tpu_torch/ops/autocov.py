@@ -7,7 +7,8 @@ parameter) series at once, from centered ``(niter, C, P)`` series:
 - ``"fft"``: zero-pad to the next ``2^a 3^b >= niter + maxlag``, real FFT,
   ``|.|^2``, inverse; ``acov_k = c_k / c_0 * chain_var * (n-1)/n``
   (reference FFTAutocovMethod, src/ess_rhat.jl:103-118,181-195);
-- ``"direct"`` (alias ``"direct_kernel"``): the biased Geyer estimator
+- ``"direct"`` (aliases ``"direct_kernel"``, and the JAX package's
+  ``"pallas"`` and ``"pallas_interpret"``): the biased Geyer estimator
   ``sum_i x_i x_{i+k} / n`` (reference AutocovMethod,
   src/ess_rhat.jl:161-179), through kernel K5 on a CUDA tensor and its plain
   PyTorch lag loop on a CPU tensor;
@@ -89,6 +90,8 @@ _METHODS = {
     "fft": _mean_autocov_fft,
     "direct": _mean_autocov_direct,
     "direct_kernel": _mean_autocov_direct,
+    "pallas": _mean_autocov_direct,
+    "pallas_interpret": _mean_autocov_direct,
     "bda": _mean_autocov_bda,
 }
 

@@ -30,7 +30,7 @@ from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
 __all__ = ["_VALLEY_BLOCK", "valley_sort_2d", "folded_rank_values_sorted",
            "sort_with_positions", "rank_normalize", "rank_normalize_from_sort",
            "sorted_quantile", "batched_quantile", "batched_median",
-           "fold_around_median"]
+           "fold_around_median", "tiedrank"]
 
 
 def _flatten_sample(x3: torch.Tensor) -> torch.Tensor:
@@ -39,8 +39,20 @@ def _flatten_sample(x3: torch.Tensor) -> torch.Tensor:
 
 
 def _has_nan_cols(xf: torch.Tensor) -> torch.Tensor:
-    """``(N, P) -> (P,)`` bool, True where the column holds a NaN."""
+    """``(N, P) -> (P,)`` bool, True where the column holds a NaN: one read
+    of an unsorted sample."""
     return torch.isnan(xf).any(0)
+
+
+def _nan_rows(xs: torch.Tensor) -> torch.Tensor:
+    """``(P, N) -> (P,)`` bool, True where the SORTED row holds a NaN,
+    reading only its two ends. Every sort of the port leaves a row's NaNs at
+    its ends, but not always at the same one: the CPU's ``torch.sort`` puts
+    every NaN last, while the card's radix sort orders floats by their bits,
+    so a NaN with the sign bit set (``0xffc00000``: ``-np.nan``, or ``inf -
+    inf`` on the host) sorts before ``-inf`` and one without it after
+    ``+inf``. A row's first or last entry is NaN exactly when it holds one."""
+    return torch.isnan(xs[:, 0]) | torch.isnan(xs[:, -1])
 
 
 # rows a block of the two-pass transpose (picked from 8-128 on an H100): 2.5
@@ -75,13 +87,15 @@ def _rows(x3: torch.Tensor) -> torch.Tensor:
 
 def sort_with_positions(x3: torch.Tensor):
     """One sort of the sample's rows: ``(xs, order, bad)`` — ``xs`` ``(P,
-    N)``, each row ascending (NaN last), ``order`` the original flat row
-    ``draw * chains + chain`` of each value, and the ``(P,)`` NaN-poisoned
-    rows (a NaN sorts last). The sort is stable: tied values keep their flat
-    order on every device, and that is the order in which a row whose median
-    is NaN (every folded key NaN) is ranked."""
+    N)``, each row ascending (its NaNs at one end or both: ``_nan_rows``),
+    ``order`` the original flat row ``draw * chains + chain`` of each value,
+    and the ``(P,)`` NaN-poisoned rows. What is computed from a poisoned row
+    is masked by ``bad``, and its median set to NaN before the fold. The
+    sort is stable: tied values keep their flat order on every device, and
+    that is the order in which a row whose median is NaN (every folded key
+    NaN) is ranked."""
     xs, order = torch.sort(_rows(x3), dim=1, stable=True)
-    return xs, order, torch.isnan(xs[:, -1])
+    return xs, order, _nan_rows(xs)
 
 
 def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
@@ -121,6 +135,18 @@ def _unsort(values_sorted: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     H100 (PERF.md, Findings PR 10)."""
     return _transpose(torch.empty_like(values_sorted).scatter_(
         1, order, values_sorted))
+
+
+def tiedrank(xf: torch.Tensor) -> torch.Tensor:
+    """Tied ("average") 1-based ranks along axis 0 of ``xf`` ``(N, P)``
+    (the JAX package's ``ops.tiedrank``; StatsBase.tiedrank, reference
+    src/utils.jl:180): equal values share the mean of their positions. A NaN
+    equals nothing and ranks after every number, the NaNs of a column in
+    their order along it, on every device: their sign bits are cleared
+    first, since the card's sort would put a sign-bit NaN first."""
+    x = torch.where(torch.isnan(xf), torch.nan, xf)
+    xs, order = torch.sort(_transpose(x), dim=1, stable=True)
+    return _unsort(_avg_ranks_sorted(xs), order)
 
 
 def rank_normalize_from_sort(xs, order, bad):
@@ -172,8 +198,7 @@ def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:
     """Per-parameter type-7 quantile over the joint (draw, chain) sample,
     ``(P,)``, NaN where the parameter slice holds a NaN."""
     xs = torch.sort(_rows(x3), dim=1).values
-    return torch.where(torch.isnan(xs[:, -1]), torch.nan,
-                       sorted_quantile(xs, p))
+    return torch.where(_nan_rows(xs), torch.nan, sorted_quantile(xs, p))
 
 
 def batched_median(x3: torch.Tensor) -> torch.Tensor:

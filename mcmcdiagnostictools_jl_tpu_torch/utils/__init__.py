@@ -1,5 +1,29 @@
-from .layout import canonicalize, maybe_scalar, restore_param_shape
-from .split import split_chains_reshape
+from .layout import (
+    canonicalize,
+    param_shape,
+    restore_param_shape,
+    maybe_scalar,
+    sample_dims,
+)
+from .split import split_chains_reshape, split_draw_indices
+from .indices import (
+    unique_indices,
+    split_chain_indices,
+    shuffle_split_stratified,
+)
+from .profiling import annotate, trace
 
-__all__ = ["canonicalize", "maybe_scalar", "restore_param_shape",
-           "split_chains_reshape"]
+__all__ = [
+    "canonicalize",
+    "param_shape",
+    "restore_param_shape",
+    "maybe_scalar",
+    "sample_dims",
+    "split_chains_reshape",
+    "split_draw_indices",
+    "unique_indices",
+    "split_chain_indices",
+    "shuffle_split_stratified",
+    "annotate",
+    "trace",
+]

@@ -9,6 +9,7 @@ inputs (reference src/utils.jl:197-215).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..convert import to_tensor
@@ -44,6 +45,19 @@ def canonical_dims(x, min_ndim: int = 1):
         x = x[:, None]
     pshape = tuple(x.shape[2:])
     return x.reshape(x.shape[0], x.shape[1], -1), pshape
+
+
+def sample_dims(x) -> tuple:
+    """Sample dimensions of ``x`` (a tensor, numpy array or nested list):
+    ``(0,)`` for 1-d, ``(0, 1)`` otherwise (reference ``_sample_dims``,
+    src/utils.jl:197)."""
+    return tuple(range(min(2, np.ndim(x))))
+
+
+def param_shape(x) -> tuple:
+    """Trailing parameter shape of ``x`` (dims 3+; reference
+    src/utils.jl:199)."""
+    return tuple(np.shape(x)[2:])
 
 
 def restore_param_shape(values: torch.Tensor, pshape: tuple) -> torch.Tensor:

@@ -9,7 +9,19 @@ reads draws ``[k*niter + min(k, d), k*niter + min(k, d) + niter)``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def split_draw_indices(ndraws: int, split: int) -> np.ndarray:
+    """The ``(split, niter)`` host index matrix of the discard rule:
+    ``idx[k, i] = k * niter + min(k, d) + i``, ``niter = ndraws // split``,
+    ``d = ndraws % split`` (reference src/utils.jl:29-36)."""
+    if split < 1:
+        raise ValueError("split_chains must be >= 1")
+    niter, d = divmod(ndraws, split)
+    k = np.arange(split)[:, None]
+    return k * niter + np.minimum(k, d) + np.arange(niter)[None, :]
 
 
 def split_chains_reshape(x: torch.Tensor, split: int) -> torch.Tensor:

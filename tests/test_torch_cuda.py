@@ -36,7 +36,12 @@ median is NaN unmoved; K11 takes rows and the ring route's transposed
 layouts bit-equal, and its sums within 1e-6 of the float64
 plain version relative to max(|sum|, 1) (the float32 rounding of an exact
 sum), min and max equal, the R-hat of its moments within 1e-4; the exact
-calls through K10 and K11 track the CPU to 1e-4 R-hat. Float32 matrix
+calls through K10 and K11 track the CPU to 1e-4 R-hat. A column of
+sign-bit NaNs (which the card's radix sort puts first) comes out NaN in
+every exact call, the other columns bit-equal to the ``+nan`` sample's and
+within the slice's limits of the CPU (BASELINE.md's 1e-6 in float64). The
+HMC core on float64 draws tracks the CPU to 1e-8; the JAX method names
+launch K5 (``pallas``) and K1 (``fused``). Float32 matrix
 products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default), and
 the Gelman test checks that it is.
@@ -149,7 +154,9 @@ def test_k1_k5_equal_k6a_at_a_tile_of_128(cuda_device, maxlag):  # noqa: F811
 
 
 @pytest.mark.parametrize("method", [
-    mtt.AutocovMethod(), "direct", mtt.DirectKernelAutocovMethod()])
+    mtt.AutocovMethod(), "direct", mtt.DirectKernelAutocovMethod(),
+    mtt.PallasAutocovMethod(), mtt.PallasAutocovMethod(interpret=True),
+    "pallas", "pallas_interpret"])
 def test_direct_autocov_methods_launch_k5(cuda_device, method):  # noqa: F811
     """Every name of the direct estimator runs K5 on a card tensor, never its
     plain version."""
@@ -157,6 +164,20 @@ def test_direct_autocov_methods_launch_k5(cuda_device, method):  # noqa: F811
     before = k5.direct_autocov.launches
     g = mtt.ess(x.to(cuda_device), kind="basic", autocov_method=method)
     assert k5.direct_autocov.launches > before
+    assert_close(g.cpu(), mtt.ess(x, kind="basic", autocov_method=method),
+                 rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("method", [
+    "auto", mtt.KernelAutocovMethod(), mtt.FusedAutocovMethod(),
+    mtt.FusedAutocovMethod(interpret=True), "fused", "fused_interpret"])
+def test_fused_autocov_methods_launch_k1(cuda_device, method):  # noqa: F811
+    """Every name of the fused route runs K1 on a card tensor (K5 never)."""
+    x = torch.from_numpy(_ar1(7, (600, 8, 6)).astype(np.float32))
+    kernels.reset_launch_counts()
+    g = mtt.ess(x.to(cuda_device), kind="basic", autocov_method=method)
+    counts = kernels.launch_counts()
+    assert counts["K1"] >= 1 and counts["K5"] == 0
     assert_close(g.cpu(), mtt.ess(x, kind="basic", autocov_method=method),
                  rtol=1e-3, atol=0)
 
@@ -942,6 +963,21 @@ class TestShardedOnTheCard:
         assert_close(got.ess.cpu(), want.ess.cpu(), rtol=1e-3, atol=0)
         assert_close(got.rhat.cpu(), want.rhat.cpu(), rtol=0, atol=1e-4)
 
+    @pytest.mark.parametrize("impl", ["gather", "ring"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_sign_bit_nan_columns(self, nccl_mesh, cuda_device,  # noqa: F811
+                                  impl, dtype):
+        """Sign-bit NaNs poison their columns of the exact sharded call
+        (see ``test_sign_bit_nan_columns_are_poisoned``)."""
+        neg = _signed_nan_sample(-np.nan).to(dtype)
+        pos = _signed_nan_sample(np.nan).to(dtype)
+        got, want = (mtt.parallel.ess_rhat_sharded(v.to(cuda_device),
+                                                   nccl_mesh, rank_impl=impl)
+                     for v in (neg, pos))
+        cpu = mtt.ess_rhat(pos, kind="rank")
+        for g, w, c, tol in zip(got, want, cpu, _SIGNED_NAN_TOL[dtype]):
+            _check_signed_nan_columns(g, w, c, tol)
+
     def test_sharded_gbt_equals_single(self, nccl_mesh,  # noqa: F811
                                        cuda_device):
         x, y, k = _gbt_rows(30)
@@ -1083,3 +1119,140 @@ def test_fold_wrappers_reject_what_the_kernels_do_not_take(cuda_device):  # noqa
         k11.segment_moments(xs, order.t().contiguous().t(), 8, 8, 2)
     with pytest.raises(NotImplementedError):
         k11.segment_moments(xs.half(), order, 8, 8, 2)
+
+
+# ---- sign-bit NaNs: the card's sort puts them first -------------------------
+
+# the poisoned columns of ``_signed_nan_sample``: all NaN, and one NaN among
+# numbers; the others finite
+_NAN_COLS, _FINITE_COLS = [1, 3], [0, 2, 4, 5]
+# (ESS or MCSE relative, R-hat absolute) of the card against the CPU: the
+# slice's float32 limits, BASELINE.md's 1e-6 in float64
+_SIGNED_NAN_TOL = {torch.float32: ((1e-3, 0), (0, 1e-4)),
+                   torch.float64: ((1e-6, 0), (0, 1e-6))}
+
+
+def _signed_nan_sample(nan_value):
+    """(2000, 16, 6) AR(1) draws, rows of 32,000 entries (the card sorts
+    rows that long by radix), with ``nan_value`` filling column 1 and once
+    in column 3."""
+    x = _ar1(41, (2000, 16, 6))
+    x[:, :, 1] = nan_value
+    x[777, 5, 3] = nan_value
+    return torch.from_numpy(x)
+
+
+def _check_signed_nan_columns(got, pos, cpu, tol):
+    """``got`` (the sample with sign-bit NaNs, on the card) is NaN in the
+    poisoned columns and bit-equal elsewhere to ``pos`` (the same sample
+    with ``+nan``, on the card), which tracks ``cpu`` there."""
+    assert bool(torch.isnan(got[_NAN_COLS]).all())
+    assert bool(torch.isfinite(got[_FINITE_COLS]).all())
+    assert torch.equal(got[_FINITE_COLS], pos[_FINITE_COLS])
+    assert_close(pos[_FINITE_COLS].cpu(), cpu[_FINITE_COLS],
+                 rtol=tol[0], atol=tol[1])
+
+
+_SIGNED_NAN_CALLS = [
+    ("ess_rhat", dict(kind="rank", fold_impl="sort")),
+    ("ess_rhat", dict(kind="rank", fold_impl="merge")),
+    ("ess", dict(kind="median")),
+    ("ess", dict(kind="mad")),
+    ("mcse", dict(kind=mtt.Quantile(0.25))),
+    ("ess_rhat_streaming", dict(rank_mode="exact", param_chunk=4)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fn,kw", _SIGNED_NAN_CALLS, ids=str)
+def test_sign_bit_nan_columns_are_poisoned(cuda_device, fn, kw,  # noqa: F811
+                                           dtype):
+    """A column of sign-bit NaNs (``0xffc00000`` / ``0xfff8000000000000``:
+    ``-np.nan``) and a column with one among numbers come out NaN on the
+    card, whichever end of a sorted row the card's sort puts them at, and
+    the other columns as with ``+nan`` there and as on the CPU. The quantile
+    MCSE is held to the CPU only where the interval ranks agree (see
+    ``test_estimators_on_card_match_cpu``)."""
+    neg = _signed_nan_sample(-np.nan).to(dtype)
+    pos = _signed_nan_sample(np.nan).to(dtype)
+    bits = {torch.float32: (torch.int32, -0x400000),
+            torch.float64: (torch.int64, -0x8000000000000)}[dtype]
+    assert int(neg[0, 0, 1].view(bits[0])) == bits[1]
+    call = getattr(mtt, fn)
+    if fn == "ess_rhat_streaming":
+        got, want = (call(v.numpy(), dtype=dtype, device=cuda_device, **kw)
+                     for v in (neg, pos))
+        cpu = call(pos.numpy(), dtype=dtype, device="cpu", **kw)
+    else:
+        got, want = (call(v.to(cuda_device), **kw) for v in (neg, pos))
+        cpu = call(pos, **kw)
+    if not isinstance(got, tuple):
+        got, want, cpu = (got,), (want,), (cpu,)
+    if fn == "mcse" and dtype == torch.float32:
+        # an ESS within 1e-3 may move a Beta interval rank, and then the
+        # card reads other order statistics than the CPU
+        (sg, lg, ug), (sc, lc, uc) = (
+            _interval_ranks(v, 0.25, "exact", "auto")
+            for v in (pos.to(cuda_device), pos))
+        assert_close(sg[_FINITE_COLS], sc[_FINITE_COLS], rtol=1e-3, atol=0)
+        moved = (lg != lc) | (ug != uc)
+        cpu = (torch.where(moved, want[0].cpu(), cpu[0]),)
+    for g, w, c, tol in zip(got, want, cpu, _SIGNED_NAN_TOL[dtype]):
+        _check_signed_nan_columns(g, w, c, tol)
+
+
+# ---- the HMC sampler and the profiling hooks on the card ------------------
+
+@pytest.mark.parametrize("target,dim,step", [("cauchy", 64, 0.25),
+                                             ("eight_schools", 10, 0.2)])
+def test_hmc_core_on_card_matches_cpu(cuda_device, target, dim,  # noqa: F811
+                                      step):
+    """The deterministic core on the same float64 draws on the card and on
+    the CPU: samples and energy within 1e-8 (the targets' transcendental
+    functions may round differently on the two)."""
+    logpdf = getattr(mtt.models, f"{target}_logpdf")
+    g = torch.Generator().manual_seed(3)
+    chains, draws = 8, 40
+    init = 0.5 * torch.randn((chains, dim), dtype=torch.float64, generator=g)
+    p = torch.randn((draws, chains, dim), dtype=torch.float64, generator=g)
+    n = torch.randint(1, 17, (draws, chains), generator=g)
+    u = torch.rand((draws, chains), dtype=torch.float64, generator=g)
+    cpu = mtt.models.hmc.hmc_transitions(logpdf, init, p, n, u,
+                                         step_size=step, max_leapfrog=16)
+    card = mtt.models.hmc.hmc_transitions(
+        logpdf, *(v.to(cuda_device) for v in (init, p, n, u)),
+        step_size=step, max_leapfrog=16)
+    assert card.samples.device.type == "cuda"
+    for a, b in zip(card, cpu):
+        assert_close(a.cpu(), b, rtol=0, atol=1e-8)
+
+
+def test_hmc_sample_on_card_in_float32(cuda_device):  # noqa: F811
+    init = torch.zeros((16, 32), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tr = mtt.models.hmc_sample(mtt.models.cauchy_logpdf, init, gen,
+                               num_samples=50, step_size=0.25,
+                               max_leapfrog=16)
+    assert all(v.device.type == "cuda" and v.dtype == torch.float32
+               for v in tr)
+    assert bool((tr.accept_rate > 0.5).all())
+    assert bool(torch.isfinite(mtt.bfmi(tr.energy)).all())
+
+
+def test_trace_on_card_records_a_kernel(cuda_device, tmp_path):  # noqa: F811
+    import json
+
+    x = torch.from_numpy(_ar1(9, (1000, 8, 16)).astype(np.float32))
+    xg = x.to(cuda_device)
+    mtt.ess_rhat(xg, rank_mode="fast")  # builds and warms the kernels
+    with mtt.utils.trace(str(tmp_path)) as prof:
+        with mtt.utils.annotate("mdt.fast_ess_rhat"):
+            mtt.ess_rhat(xg, rank_mode="fast")
+    cuda_events = [e.name for e in prof.events()
+                   if e.device_type.name == "CUDA"]
+    assert any("moments_autocov_kernel" in name for name in cuda_events)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel"
+               and "moments_autocov_kernel" in e.get("name", "")
+               for e in events)

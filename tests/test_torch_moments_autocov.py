@@ -99,7 +99,11 @@ def test_autocov_callable_seam_and_unknown_method(rng):
     got = autocov.mean_autocov_curve(c, v, 4, lambda cc, vv, L: cc[: L + 1].mean(1))
     assert tuple(got.shape) == (5, 3)
     with pytest.raises(ValueError, match="unknown autocov method"):
-        autocov.mean_autocov_curve(c, v, 4, "pallas")
+        autocov.mean_autocov_curve(c, v, 4, "no_such_method")
+    # the JAX package's names of its Pallas lag kernel are the direct one
+    for name in ("pallas", "pallas_interpret"):
+        assert torch.equal(autocov.mean_autocov_curve(c, v, 4, name),
+                           autocov.mean_autocov_curve(c, v, 4, "direct"))
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 100, 1000, 2049])
