@@ -22,7 +22,11 @@ and exits nonzero, printing no result, if any phase fails:
    payloads a permutation and equal up to ties, the NaN-median row unmoved;
    K11 two runs bit-equal and within 1e-6 (sums) and 1e-4 (R-hat) of its
    float64 plain version, and on the ring route's (1.28M, 256) layout
-   (transposed views) bit-equal to the rows; each beside its bound, its
+   (transposed views) bit-equal to the rows; K12 (tied ranks and Blom
+   scores) on the same rows, sorted and scattered back by position with the
+   NaN rows masked, and on K10's fold keys: ranks bit-equal to its plain
+   version, z within 4 float32 ULP, the scatter equal to the plain scatter
+   of its own values, two runs bit-equal; each beside its bound, its
    plain version and a library yardstick; then the sample into rows and the
    bulk values back to (draw, chain) order, each two ways, timed;
    then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
@@ -30,7 +34,7 @@ and exits nonzero, printing no result, if any phase fails:
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
    on that sample; checks that every kernel ran (the exact call K10 and K11
-   once each), that fast tracks exact, and that the badly mixed parameter is
+   once each, K12 twice), that fast tracks exact, and that the badly mixed parameter is
    flagged; then the same sample as numpy float64 with no device, which must
    run K1-K4 on the card and give the float32 tensor's result; prints the
    wall times; then the exact call with ``fold_impl`` auto, sort and merge
@@ -101,7 +105,8 @@ and exits nonzero, printing no result, if any phase fails:
     the gather, ring and hist rank transforms and ``rhat_nested_sharded`` on
     16 superchains at 10k x 128 x 256, each with its launches counted from
     0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, gather and
-    ring K11 once (nested: twice), K1, K2 and K10 never), its wall beside
+    ring K11 once (nested: twice), gather K12 twice, K1, K2 and K10 never),
+    its wall beside
     the in-core call's and its largest differences
     from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
     against gather 1e-6); config 4 through ``ess_rhat_streaming(mesh_cfg=
@@ -123,7 +128,7 @@ and exits nonzero, printing no result, if any phase fails:
     chains x 256 dims x 1000 draws (step 0.25) with those of
     ``TestCauchyHeavyTails`` (accept > 0.6, median tail-ESS < 0.8 x median
     bulk-ESS, median bulk-ESS > 50, BFMI < 1), and on its trace the fast
-    and exact ``ess_rhat`` (K1-K4; K1, K10, K11) and ``mcse`` with
+    and exact ``ess_rhat`` (K1-K4; K1, K10, K11, K12) and ``mcse`` with
     ``PallasAutocovMethod`` (K5), each with its launches counted from 0;
     the deterministic core on the same float64 draws on the card and on the
     CPU (1e-8); the sampler's walls and rates, and over 20 draws of each
@@ -464,6 +469,78 @@ def routed_ranks(fs: torch.Tensor, forder: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(r).scatter_(1, forder, r)
 
 
+# K12's z against its plain version: the same Cephes operations on
+# bit-equal ranks; its ``logf`` may come from another toolkit than the one
+# PyTorch compiles ``ndtri`` with at run time (as for K4's z mode)
+K12_Z_ULP = 4
+
+
+def phase_k12(xs: torch.Tensor, order: torch.Tensor, bad: torch.Tensor,
+              fs: torch.Tensor) -> dict:
+    """K12 on the exact call's own inputs: the sorted rows ``xs`` (256,
+    1.28M) of phase 3's sample (NaN, constant, tied and 75 % +inf rows) in
+    sorted order (the mode of the fold) and scattered back by ``order`` with
+    ``bad`` (the bulk's), and the fold's keys ``fs`` (K10's output), against
+    its plain version: ranks bit-equal on every row, z within ``K12_Z_ULP``,
+    the scatter equal to the plain scatter of the kernel's own sorted values,
+    two runs bit-equal; times beside the bounds (8 B an entry sorted, 16
+    scattered), the plain version (the operations it replaces), one
+    ``ndtri`` pass over the same rows and one ``scatter_`` of them."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
+
+    p, n = xs.shape
+    for keys in (xs, fs):
+        check(torch.equal(k12.tied_blom(keys, blom=False),
+                          k12.tied_blom_plain(keys, blom=False)),
+              "K12 ranks differ from its plain version's")
+    z = k12.tied_blom(xs)
+    zp = k12.tied_blom_plain(xs)
+    check(torch.equal(z, k12.tied_blom(xs)), "K12: two runs differ")
+    ulps = {"sorted": max_ulp_err(z, zp)}
+    err = max_abs_err(z, zp)
+    del zp
+    zs = k12.tied_blom(xs, order, bad)
+    check(max_abs_err(zs, k12._scatter_rows(
+        z.masked_fill(bad[:, None], torch.nan), order)) == 0.0,
+        "K12's scatter differs from the plain scatter of its sorted values")
+    del z
+    zsp = k12.tied_blom_plain(xs, order, bad)
+    ulps["scattered"] = max_ulp_err(zs, zsp)
+    err = max(err, max_abs_err(zs, zsp))
+    del zs, zsp
+    zf, zfp = k12.tied_blom(fs), k12.tied_blom_plain(fs)
+    ulps["fold"] = max_ulp_err(zf, zfp)
+    err = max(err, max_abs_err(zf, zfp))
+    del zf
+    check(max(ulps.values()) <= K12_Z_ULP,
+          f"K12's z off its plain version: {ulps} ULP")
+    ms = time_ms(lambda: k12.tied_blom(xs))
+    ms_fold = time_ms(lambda: k12.tied_blom(fs))
+    ms_scat = time_ms(lambda: k12.tied_blom(xs, order, bad))
+    plain_ms = time_ms(lambda: k12.tied_blom_plain(xs))
+    plain_scat = time_ms(lambda: k12.tied_blom_plain(xs, order, bad))
+    ndtri_ms = time_ms(lambda: torch.special.ndtri(zfp))
+    del zfp
+    scatter_ms = time_ms(lambda: k12._scatter_rows(xs, order))
+    bound, bound_scat = roofline(8.0 * n * p), roofline(16.0 * n * p)
+    print(f"[3 K12 tied_blom] rows ({p}, {n}): ranks bit-equal to its plain "
+          f"version (bulk rows and fold keys), z within {ulps} float32 ULP "
+          f"(bound {K12_Z_ULP}), the scatter equal to the plain scatter of "
+          f"its values, two runs bit-equal; sorted {ms:.3f} ms (fold keys "
+          f"{ms_fold:.3f}), bound {bound['bound_ms']:.3f} "
+          f"({bound['bound_ms'] / ms:.0%}); scattered by order with bad "
+          f"{ms_scat:.3f} ms, bound {bound_scat['bound_ms']:.3f} "
+          f"({bound_scat['bound_ms'] / ms_scat:.0%}); plain (the operations "
+          f"it replaces) {plain_ms:.3f} ms sorted, {plain_scat:.3f} ms "
+          f"scattered; one ndtri pass {ndtri_ms:.3f} ms, one scatter_ along "
+          f"the rows {scatter_ms:.3f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
+                ms_fold=ms_fold, ms_scattered=ms_scat,
+                plain_ms_scattered=plain_scat,
+                bound_ms_scattered=bound_scat["bound_ms"], z_max_ulp=ulps,
+                ndtri_ms=ndtri_ms, scatter_ms=scatter_ms)
+
+
 def phase_fold_kernels(x3: torch.Tensor) -> dict:
     """K10 and K11 on the exact tail transform's own inputs, the sorted rows
     (256, 1.28M) of the sample with a NaN row (1), a constant row (2), a row
@@ -536,6 +613,7 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
     rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      **bound))
 
+    k12_row = phase_k12(xs, order, bad, fs)
     zf = _blom_normal(_avg_ranks_sorted(fs), n)
     del fs
     a = seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2)
@@ -596,6 +674,7 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
     rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      deterministic=True, ms_sample_major=ring_ms,
                      ms_unsort_chain_stats=old_ms, rhat_err=rhat_err, **bound))
+    rows.append(k12_row)
     del zf, forder
 
     # the sample into rows and the bulk values back to (draw, chain) order:
@@ -696,8 +775,9 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
         check(fast_counts[kid] >= least, f"{kid} ran {fast_counts[kid]} times "
               f"in the fast call, expected >= {least}")
     check(exact_counts["K1"] >= 1, "K1 did not run in the exact call")
-    check(exact_counts["K10"] == 1 and exact_counts["K11"] == 1,
-          "the exact call did not launch K10 and K11 once each")
+    check(exact_counts["K10"] == 1 and exact_counts["K11"] == 1
+          and exact_counts["K12"] == 2,
+          "the exact call did not launch K10 and K11 once each, K12 twice")
 
     for res in (fast, exact):
         for v in res:
@@ -760,8 +840,10 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         counts = kernels.launch_counts()
-        check(counts["K11"] == 1 and counts["K10"] == (impl != "sort"),
-              f"fold_impl={impl!r}: K10 {counts['K10']}, K11 {counts['K11']}")
+        check(counts["K11"] == 1 and counts["K10"] == (impl != "sort")
+              and counts["K12"] == 2,
+              f"fold_impl={impl!r}: K10 {counts['K10']}, K11 {counts['K11']}, "
+              f"K12 {counts['K12']}")
         check(torch.equal(res.ess, exact.ess)
               and float((res.rhat - exact.rhat).abs().max()) <= 1e-6,
               f"fold_impl={impl!r} disagrees with the default")
@@ -837,8 +919,9 @@ def phase_card_vs_cpu() -> None:
         rhat_abs = float((g.rhat.cpu() - c.rhat).abs().max())
         print(f"[5 exact {kind}, fold_impl='merge'] card vs CPU: R-hat abs "
               f"{rhat_abs:.3e} (bound 1e-4); K10 {counts['K10']}, K11 "
-              f"{counts['K11']}")
-        check(rhat_abs <= 1e-4 and counts["K10"] == 1 and counts["K11"] == 1,
+              f"{counts['K11']}, K12 {counts['K12']}")
+        check(rhat_abs <= 1e-4 and counts["K10"] == 1 and counts["K11"] == 1
+              and counts["K12"] == (2 if kind == "rank" else 1),
               f"exact {kind} with the merge: card != CPU")
 
 # ---- phase 6: the estimator path with DirectKernelAutocovMethod (K5) -------
@@ -1626,7 +1709,9 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
     exact = mtt.ess_rhat_streaming(host[:, :, :PARAMS], rank_mode="exact",
                                    param_chunk=64)
     torch.cuda.synchronize()
-    check(kernels.launch_counts()["K1"] >= 4, "K1 did not run in every chunk")
+    counts = kernels.launch_counts()
+    check(counts["K1"] >= 4 and counts["K12"] == 8,
+          "K1 did not run in every chunk, or K12 not twice in each")
     ess_rel_x = float((exact.ess / resident_exact.ess - 1).abs().max())
     rhat_abs_x = float((exact.rhat - resident_exact.rhat).abs().max())
     print(f"[11 exact mode, chunks of 64, vs resident] ESS rel {ess_rel_x:.3e} "
@@ -2085,7 +2170,7 @@ def check_launches(tag: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` ran exactly that often (None: at least once);
     K1, K2 and K10 (not on the sharded path) never."""
     shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5",
-                                    "K10", "K11")}
+                                    "K10", "K11", "K12")}
     print(f"   {tag} launches: {shown}")
     for kid, n in {"K1": 0, "K2": 0, "K10": 0, **want}.items():
         ok = counts[kid] >= 1 if n is None else counts[kid] == n
@@ -2125,9 +2210,11 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         tag = f"[16 ess_rhat_sharded {impl}]"
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"{mode} {in_core_walls[mode]:.4f} s")
-        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None, "K11": 0}
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None, "K11": 0,
+                                     "K12": 0}
                        if impl == "hist" else
-                       {"K3": 0, "K4": 0, "K5": None, "K11": 1})
+                       {"K3": 0, "K4": 0, "K5": None, "K11": 1,
+                        "K12": 2 if impl == "gather" else 0})
         for v in res:
             check(v.shape == (PARAMS,) and v.device.type == "cuda"
                   and bool(torch.isfinite(v).all()),
@@ -2145,7 +2232,7 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
             "in_core_wall_s": in_core_walls[mode], "ess_rel": ess_rel,
             "rhat_abs": rhat_abs,
             "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5",
-                                                 "K11")}}
+                                                 "K11", "K12")}}
     ring, gather = results["ring"], results["gather"]
     rg_ess = float((ring.ess / gather.ess - 1).abs().max())
     rg_rhat = float((ring.rhat - gather.rhat).abs().max())
@@ -2167,9 +2254,11 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"exact {nested_wall:.4f} s; R-hat abs vs in-core {err:.3e} "
               f"(bound {bound:.0e}{', the fast mode' if impl == 'hist' else ''})")
-        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0, "K11": 0}
+        check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0, "K11": 0,
+                                     "K12": 0}
                        if impl == "hist" else
-                       {"K3": 0, "K4": 0, "K5": 0, "K11": 2})
+                       {"K3": 0, "K4": 0, "K5": 0, "K11": 2,
+                        "K12": 2 if impl == "gather" else 0})
         check(r.shape == (PARAMS,) and bool(torch.isfinite(r).all())
               and err <= bound, f"{tag}: != in-core")
         out["nested"][impl] = {"wall_s": wall, "first_call_s": first,
@@ -2186,7 +2275,8 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         counts = kernels.launch_counts()
     tag = "[16 config 4 streamed onto the mesh]"
     check_launches(tag, counts, {"K3": 2 * stats.n_chunks,
-                                 "K4": 2 * stats.n_chunks, "K5": None})
+                                 "K4": 2 * stats.n_chunks, "K5": None,
+                                 "K12": 0})
     rhat_abs = float((res.rhat - streamed.rhat).abs().max())
     sums = {k: sum(getattr(stats, k)) for k in ("fetch_s", "h2d_s",
                                                "compute_s")}
@@ -2436,7 +2526,7 @@ def phase_hmc(smi: str) -> dict:
                                                    rank_mode="fast"),
              ("K1", "K2", "K3", "K4")),
             ("ess_rhat exact", lambda: mtt.ess_rhat(x, kind="rank"),
-             ("K1", "K10", "K11")),
+             ("K1", "K10", "K11", "K12")),
             ("mcse mean, PallasAutocovMethod",
              lambda: mtt.mcse(x, kind="mean",
                               autocov_method=mtt.PallasAutocovMethod()),
@@ -2446,7 +2536,7 @@ def phase_hmc(smi: str) -> dict:
             check(v.shape == (PARAMS,) and bool(torch.isfinite(v).all()),
                   f"Cauchy {name}: bad output")
         shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K10",
-                                        "K11")}
+                                        "K11", "K12")}
         print(f"[18 Cauchy {name}] launches {shown}; wall {w:.4f} s (median "
               f"of 3; first call {first:.3f} s) ({smi})")
         for kid in want:
@@ -2606,6 +2696,8 @@ def main() -> int:
          "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:122"),
         ("K11 segment_moments", src + "segment_moments.cu",
          "mcmcdiagnostictools_jl_tpu/ops/seghist.py:55"),
+        ("K12 tied_blom", src + "tied_ranks.cu",
+         "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:65"),
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
@@ -2613,11 +2705,12 @@ def main() -> int:
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
-    # phase 10; K10, K11: the exact ess_rhat call of phase 4 (K1-K4 in the
-    # streamed run: "streaming" in the line above)
+    # phase 10; K10, K11, K12: the exact ess_rhat call of phase 4 (K1-K4 in
+    # the streamed run: "streaming" in the line above)
     launches = {**e2e["counts"], "K5": est["k5_launches"],
                 "K10": e2e["exact_counts"]["K10"],
                 "K11": e2e["exact_counts"]["K11"],
+                "K12": e2e["exact_counts"]["K12"],
                 "K4z": fz["launches"], "K6a": lag["launches"]["a"],
                 "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []

@@ -13,6 +13,7 @@
 | K9 | ``sort_study.bitonic_pod_sort`` | ``benchmarks/sort_microbench.py::bench_phase_a`` |
 | K10 | ``valley.valley_merge`` | ``ops/ranknorm.py::valley_sort_2d`` (XLA, not a Pallas kernel) |
 | K11 | ``seghist.segment_moments`` | ``ops/seghist.py::weighted_segment_moments`` (XLA, not a Pallas kernel) |
+| K12 | ``tiedrank.tied_blom`` | ``ops/ranknorm.py::_avg_ranks_sorted`` + ``ndtri`` + the inverse sort (XLA, not a Pallas kernel) |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
@@ -23,7 +24,7 @@ launch does.
 """
 
 from . import (autocov, fastrank, lagloop_study, moments_autocov, seghist,
-               sort_study, valley)
+               sort_study, tiedrank, valley)
 
 # name -> (wrapper, counter attribute)
 COUNTERS = {
@@ -40,6 +41,7 @@ COUNTERS = {
     "K9": (sort_study.bitonic_pod_sort, "launches"),
     "K10": (valley.valley_merge, "launches"),
     "K11": (seghist.segment_moments, "launches"),
+    "K12": (tiedrank.tied_blom, "launches"),
 }
 
 

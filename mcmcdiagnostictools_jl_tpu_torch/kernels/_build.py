@@ -56,6 +56,7 @@ _SIGNATURES = {
     "mdt_valley_merge": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     "mdt_segment_moments": (_P, _P, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P,
                             _P, _I, _P),
+    "mdt_tied_ranks": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
 }
 
 

@@ -1,0 +1,136 @@
+"""Kernel K12: the exact rank mode's tied ranks and Blom normal scores, in
+one pass over each sorted row.
+
+Stands for three XLA pieces of the JAX package's exact rank mode
+(``mcmcdiagnostictools_jl_tpu/ops/ranknorm.py``), none of them a Pallas
+kernel: ``_avg_ranks_sorted``, ``ndtri((r - 0.375) / (n + 0.25))`` and the
+inverse permutation back to the original order. The CUDA source is
+``csrc/tied_ranks.cu``; its header says what bounds it on an H100 and how a
+block finds the runs that cross its edges.
+
+``tied_blom`` launches the kernel for a CUDA float32 tensor and runs
+``tied_blom_plain`` for any other, never falling back from one to the other.
+The plain version is the exact mode's code as it was before the kernel:
+``_avg_ranks_sorted`` (a cummax and a reverse cummin over the run
+boundaries), ``_blom_normal``, the ``bad`` mask and ``_scatter_rows``;
+``ops/ranknorm.py`` exports those names.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import backend
+from . import _build
+
+_TILE = 4096  # entries of one row a block of the kernel (csrc: kTile)
+
+
+def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
+    """Tied ("average") 1-based ranks of the presorted rows ``xs`` ``(P,
+    N)``, in sorted order: each run of equal values gets the mean of its
+    1-based positions, (first + last) / 2, the first by a cummax and the
+    last by a reverse cummin over the run boundaries, along the contiguous
+    axis. Entry ``j`` starts a run where it differs from entry ``j - 1``
+    (``first``), and ends one where entry ``j + 1`` starts one, so the
+    reverse scan reads ``first`` flipped as bytes (reversed position ``r``
+    is entry ``n - 1 - r``) and one int32 result is flipped back."""
+    p, n = xs.shape
+    pos = torch.arange(1, n + 1, dtype=torch.int32, device=xs.device)
+    first = torch.empty((p, n), dtype=torch.bool, device=xs.device)
+    first[:, 0] = True
+    torch.ne(xs[:, 1:], xs[:, :-1], out=first[:, 1:])
+    start = torch.cummax(torch.where(first, pos, 1), dim=1).values
+    # reversed position r >= 1 (entry n - 1 - r) ends a run where entry
+    # n - r starts one; r = 0, the last entry, always does: the fill's n
+    first_rev = first.flip(1)
+    end = torch.full((p, n), n, dtype=torch.int32, device=xs.device)
+    torch.where(first_rev[:, :-1], pos.flip(0)[1:], pos[-1], out=end[:, 1:])
+    end = torch.cummin(end, dim=1).values.flip(1)
+    return start.add_(end).to(xs.dtype) * 0.5
+
+
+def _blom_normal(ranks: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.special.ndtri((ranks - 0.375) / (n + 0.25))
+
+
+def _scatter_rows(values_sorted: torch.Tensor,
+                  order: torch.Tensor) -> torch.Tensor:
+    """``(P, N)``: value ``values_sorted[p, j]`` at column ``order[p, j]`` of
+    row ``p`` (the sorted rows back in their original order)."""
+    return torch.empty_like(values_sorted).scatter_(1, order, values_sorted)
+
+
+def tied_blom_plain(xs: torch.Tensor, order: torch.Tensor | None = None,
+                    bad: torch.Tensor | None = None, *,
+                    blom: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K12 (see ``tied_blom``)."""
+    v = _avg_ranks_sorted(xs)
+    if blom:
+        v = _blom_normal(v, xs.shape[1])
+    if bad is not None:
+        v = v.masked_fill_(bad[:, None], torch.nan)
+    return v if order is None else _scatter_rows(v, order)
+
+
+def tied_blom(xs: torch.Tensor, order: torch.Tensor | None = None,
+              bad: torch.Tensor | None = None, *,
+              blom: bool = True) -> torch.Tensor:
+    """K12: ``(P, N)``, the tied ("average") 1-based ranks of the rows ``xs``
+    ``(P, N)``, each ascending, or with ``blom`` their Blom normal scores
+    ``ndtri((rank - 0.375) / (N + 0.25))``; in sorted order, or with
+    ``order`` ``(P, N)`` int64 (the original column of each sorted value, a
+    permutation of each row) scattered back: the value of sorted entry ``j``
+    at column ``order[p, j]``. A row whose ``bad`` ``(P,)`` entry is set
+    comes out NaN throughout.
+
+    Equal is ``==``: each NaN is a run of its own, ``-0.0`` and ``+0.0`` one
+    run. The ranks are bit-equal to the plain version's (first + last is an
+    integer rounded once to float32, then halved), and the scores follow
+    PyTorch's division by ``N + 0.25`` on the card (a product with its
+    float32 reciprocal) and its ``ndtri``. The kernel finds the runs that
+    cross its tiles' edges by searches that assume NaN last in the row; the
+    card's sort puts a sign-bit NaN first, so a caller masks every row that
+    holds a NaN (``ops.ranknorm._nan_rows``), by ``bad`` or afterwards: such
+    a row is read in bounds and its values are meaningless. On the card
+    ``xs`` must be float32 and contiguous, ``order`` int64 and contiguous,
+    ``bad`` bool, all on one device, and ``N < 2^31 - 4096``."""
+    if not backend.use_kernels(xs):
+        return tied_blom_plain(xs, order, bad, blom=blom)
+    if xs.dim() != 2 or not xs.is_contiguous():
+        raise ValueError("tied_blom needs contiguous float32 rows xs (P, N)")
+    p, n = xs.shape
+    if order is not None and (order.shape != xs.shape
+                              or order.dtype != torch.int64
+                              or not order.is_contiguous()
+                              or order.device != xs.device):
+        raise ValueError("tied_blom: order must be contiguous int64 (P, N) "
+                         "on the device of xs")
+    if bad is not None and (bad.shape != (p,) or bad.dtype != torch.bool
+                            or bad.device != xs.device):
+        raise ValueError("tied_blom: bad must be bool (P,) on the device of "
+                         "xs")
+    ntiles = -(-n // _TILE)
+    if not 1 <= n < 2**31 - _TILE or p * ntiles >= 2**31:
+        raise ValueError(f"tied_blom: need 1 <= N < 2^31 - {_TILE} and P N / "
+                         f"{_TILE} < 2^31, got ({p}, {n})")
+    out = torch.empty_like(xs)
+    if p == 0:
+        return out
+    bad = None if bad is None else bad.contiguous()
+    # what the card's division by the Python scalar n + 0.25 multiplies by
+    inv_b = float(np.float32(1.0) / np.float32(n + 0.25))
+    lib = _build.library()
+    with torch.cuda.device(xs.device):
+        code = lib.mdt_tied_ranks(
+            xs.data_ptr(), None if order is None else order.data_ptr(),
+            None if bad is None else bad.data_ptr(), n, p, int(blom), inv_b,
+            out.data_ptr(), torch.cuda.current_stream(xs.device).cuda_stream,
+        )
+    _build.check(code, "mdt_tied_ranks")
+    tied_blom.launches += 1
+    return out
+
+
+tied_blom.launches = 0

@@ -4,12 +4,14 @@ package's ``ops/ranknorm.py``).
 The public functions take the canonical ``(draws, chains, P)`` layout. Inside,
 the flattened sample ``(N, P)`` (``N = draws * chains``, flat row ``draw *
 chains + chain``) is transposed once into ``(P, N)``, so that each
-parameter's joint sample is one contiguous row: the sort, the tied-rank
-scans, the fold merge (K10) and the split-chain moments (K11) all run along
-the last, contiguous axis. Reference conventions (src/utils.jl:148-193):
-tied ("average") ranks, the Blom alpha=3/8 transform ``(r - 3/8) / (n +
-1/4)``, the inverse normal CDF, type-7 quantiles, folding around the
-per-parameter median. A NaN in a parameter slice poisons that slice.
+parameter's joint sample is one contiguous row: the sort, the tied ranks
+with their Blom normal scores (K12, which also scatters the bulk's back
+along the rows), the fold merge (K10) and the split-chain moments (K11) all
+run along the last, contiguous axis. Reference conventions
+(src/utils.jl:148-193): tied ("average") ranks, the Blom alpha=3/8
+transform ``(r - 3/8) / (n + 1/4)``, the inverse normal CDF, type-7
+quantiles, folding around the per-parameter median. A NaN in a parameter
+slice poisons that slice.
 
 The tail transform reuses the sort of ``x``: along a sorted row the folded
 keys ``|x - med|`` fall, then rise, so ``folded_rank_values_sorted`` sorts
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.tiedrank import (  # noqa: F401  (K12's plain pieces)
+    _avg_ranks_sorted, _blom_normal, _scatter_rows, tied_blom)
 from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
 
 __all__ = ["_VALLEY_BLOCK", "valley_sort_2d", "folded_rank_values_sorted",
@@ -98,43 +102,15 @@ def sort_with_positions(x3: torch.Tensor):
     return xs, order, _nan_rows(xs)
 
 
-def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
-    """Tied ("average") 1-based ranks of the presorted rows ``xs`` ``(P,
-    N)``, in sorted order: each run of equal values gets the mean of its
-    1-based positions, (first + last) / 2, the first by a cummax and the
-    last by a reverse cummin over the run boundaries, along the contiguous
-    axis. Entry ``j`` starts a run where it differs from entry ``j - 1``
-    (``first``), and ends one where entry ``j + 1`` starts one, so the
-    reverse scan reads ``first`` flipped as bytes (reversed position ``r``
-    is entry ``n - 1 - r``) and one int32 result is flipped back."""
-    p, n = xs.shape
-    pos = torch.arange(1, n + 1, dtype=torch.int32, device=xs.device)
-    first = torch.empty((p, n), dtype=torch.bool, device=xs.device)
-    first[:, 0] = True
-    torch.ne(xs[:, 1:], xs[:, :-1], out=first[:, 1:])
-    start = torch.cummax(torch.where(first, pos, 1), dim=1).values
-    # reversed position r >= 1 (entry n - 1 - r) ends a run where entry
-    # n - r starts one; r = 0, the last entry, always does: the fill's n
-    first_rev = first.flip(1)
-    end = torch.full((p, n), n, dtype=torch.int32, device=xs.device)
-    torch.where(first_rev[:, :-1], pos.flip(0)[1:], pos[-1], out=end[:, 1:])
-    end = torch.cummin(end, dim=1).values.flip(1)
-    return start.add_(end).to(xs.dtype) * 0.5
-
-
-def _blom_normal(ranks: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.special.ndtri((ranks - 0.375) / (n + 0.25))
-
-
 def _unsort(values_sorted: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """``(N, P)`` row-major, value ``values_sorted[p, j]`` at row ``order[p,
     j]`` of column ``p``: the sorted rows ``(P, N)`` scattered along each row
     (a row's scattered writes fill its sectors while they sit in the L2),
     then transposed. A scatter straight into the row-major output writes 4
     bytes to a new sector each time: 24 ms against 10 at (1.28M, 256) on an
-    H100 (PERF.md, Findings PR 10)."""
-    return _transpose(torch.empty_like(values_sorted).scatter_(
-        1, order, values_sorted))
+    H100 (PERF.md). The plain version of the bulk's way back; K12 scatters
+    along the rows itself (``tied_blom(xs, order)``)."""
+    return _transpose(_scatter_rows(values_sorted, order))
 
 
 def tiedrank(xf: torch.Tensor) -> torch.Tensor:
@@ -146,14 +122,14 @@ def tiedrank(xf: torch.Tensor) -> torch.Tensor:
     first, since the card's sort would put a sign-bit NaN first."""
     x = torch.where(torch.isnan(xf), torch.nan, xf)
     xs, order = torch.sort(_transpose(x), dim=1, stable=True)
-    return _unsort(_avg_ranks_sorted(xs), order)
+    return _transpose(tied_blom(xs, order, blom=False))
 
 
 def rank_normalize_from_sort(xs, order, bad):
     """Flat ``(N, P)`` rank-normal sample in original row order, from a
-    ``sort_with_positions`` result."""
-    z = _blom_normal(_avg_ranks_sorted(xs), xs.shape[1])
-    return _unsort(z.masked_fill_(bad[:, None], torch.nan), order)
+    ``sort_with_positions`` result: the scores scattered back along the rows
+    (K12 with ``order`` and ``bad``), then transposed."""
+    return _transpose(tied_blom(xs, order, bad))
 
 
 def rank_normalize(x3: torch.Tensor) -> torch.Tensor:
@@ -191,7 +167,7 @@ def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     else:
         fs, fidx = torch.sort(torch.abs(xs - med[:, None]), dim=1, stable=True)
         forder = order.gather(1, fidx)
-    return _blom_normal(_avg_ranks_sorted(fs), xs.shape[1]), forder
+    return tied_blom(fs), forder
 
 
 def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:

@@ -59,6 +59,7 @@ from ..diagnostics.rhat_nested import (
     _validate_superchain_ids,
 )
 from ..kernels.fastrank import hist_moments, pack_tables
+from ..kernels.tiedrank import tied_blom
 from ..ops.autocov import mean_autocov_curve
 from ..ops.fastrank import (
     DEFAULT_NBINS,
@@ -71,8 +72,6 @@ from ..ops.fastrank import (
 )
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.ranknorm import (
-    _avg_ranks_sorted,
-    _blom_normal,
     _transpose,
     folded_rank_values_sorted,
     rank_normalize,
@@ -548,7 +547,7 @@ def _nested_gather(xb, cfg, kind, nsuper: int, split: int):
         return torch.where(bad, torch.nan, r)
 
     if kind != "tail":
-        bulk = nested(_blom_normal(_avg_ranks_sorted(xs), xs.shape[1]), order)
+        bulk = nested(tied_blom(xs), order)
         if kind == "bulk":
             return bulk
     med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))

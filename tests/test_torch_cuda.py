@@ -36,7 +36,11 @@ median is NaN unmoved; K11 takes rows and the ring route's transposed
 layouts bit-equal, and its sums within 1e-6 of the float64
 plain version relative to max(|sum|, 1) (the float32 rounding of an exact
 sum), min and max equal, the R-hat of its moments within 1e-4; the exact
-calls through K10 and K11 track the CPU to 1e-4 R-hat. A column of
+calls through K10 and K11 track the CPU to 1e-4 R-hat. K12's ranks are
+bit-equal to its plain version's and its z within 4 float32 ULP (the same
+Cephes operations on equal ranks; only ``logf`` may come from another
+toolkit), its scatter equal to the plain scatter of its own values, two
+runs bit-equal. A column of
 sign-bit NaNs (which the card's radix sort puts first) comes out NaN in
 every exact call, the other columns bit-equal to the ``+nan`` sample's and
 within the slice's limits of the CPU (BASELINE.md's 1e-6 in float64). The
@@ -65,6 +69,7 @@ from mcmcdiagnostictools_jl_tpu_torch.kernels import lagloop_study as k6
 from mcmcdiagnostictools_jl_tpu_torch.kernels import moments_autocov as k1
 from mcmcdiagnostictools_jl_tpu_torch.kernels import seghist as k11
 from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as k789
+from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
 from mcmcdiagnostictools_jl_tpu_torch.kernels import valley as k10
 from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as fr
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
@@ -1256,3 +1261,148 @@ def test_trace_on_card_records_a_kernel(cuda_device, tmp_path):  # noqa: F811
     assert any(e.get("cat") == "kernel"
                and "moments_autocov_kernel" in e.get("name", "")
                for e in events)
+
+
+# ---- K12: the exact rank mode's tied ranks and Blom scores ------------------
+
+# z of K12 against its plain version: the same Cephes operations on
+# bit-equal ranks; ``logf`` in the tails may come from another toolkit than
+# PyTorch's runtime-compiled ``ndtri`` (as for K4's z mode)
+_K12_Z_ULP = 4
+
+
+def _assert_equal_nan(a, b):
+    """Equal, NaN where NaN (whatever its bits)."""
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _k12_rows(n, device, seed=12):
+    """Rows ``(8, n)`` sorted on the card with their positions: heavy ties,
+    a constant row, -0.0 and +0.0 together, 75 % +inf, NaN last, runs
+    straddling every tile edge, runs ending on every tile edge, and runs of
+    three."""
+    rng = np.random.default_rng(seed + n)
+    j = np.arange(n)
+    x = rng.standard_normal((8, n)).astype(np.float32)
+    x[0] = np.round(x[0] * 2) / 2
+    x[1] = 0.75
+    x[2] = np.where(j % 2 == 0, -0.0, 0.0)
+    x[2, : n // 3] = -1.0
+    x[3, rng.random(n) < 0.75] = np.inf
+    x[4, ::997] = np.nan
+    x[5] = (j + k12._TILE // 2) // k12._TILE
+    x[6] = j // k12._TILE
+    x[7] = (j + 1) // 3
+    xs, order = torch.sort(torch.from_numpy(x).to(device), dim=1, stable=True)
+    return xs, order
+
+
+@pytest.mark.parametrize("n", [1, 2, k12._TILE - 1, k12._TILE, k12._TILE + 1,
+                               3 * k12._TILE + 5, 1_280_000])
+def test_k12_matches_its_plain_version(cuda_device, n):  # noqa: F811
+    xs, order = _k12_rows(n, cuda_device)
+    bad = torch.isnan(xs).any(1)
+    before = k12.tied_blom.launches
+    ranks = k12.tied_blom(xs, blom=False)
+    z = k12.tied_blom(xs)
+    z2 = k12.tied_blom(xs)
+    zs = k12.tied_blom(xs, order, bad)
+    assert k12.tied_blom.launches == before + 4
+    assert ranks.shape == z.shape == zs.shape == (8, n)
+    want_r = k12.tied_blom_plain(xs, blom=False)
+    want_z = k12.tied_blom_plain(xs)
+    torch.cuda.synchronize()
+    assert torch.equal(ranks, want_r)
+    assert torch.equal(z, z2)
+    assert _max_ulp(z, want_z) <= _K12_Z_ULP
+    # the scatter: the kernel's sorted values, masked, put back by position
+    _assert_equal_nan(zs, k12._scatter_rows(
+        z.masked_fill(bad[:, None], torch.nan), order))
+    assert _max_ulp(zs, k12.tied_blom_plain(xs, order, bad)) <= _K12_Z_ULP
+    assert torch.equal(k12.tied_blom(xs, order, blom=False),
+                       k12._scatter_rows(want_r, order))
+
+
+def test_k12_masks_a_sign_bit_nan_row(cuda_device):  # noqa: F811
+    """The card's sort puts a sign-bit NaN first in a long row; with ``bad``
+    set the row is NaN, and without it the kernel stays in bounds and the
+    other rows are untouched."""
+    from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import _nan_rows
+
+    xs, order = _k12_rows(40_000, cuda_device)
+    x = torch.empty_like(xs).scatter_(1, order, xs)
+    neg = torch.tensor([-0x400000], dtype=torch.int32).view(torch.float32)
+    x[1, 123] = neg.to(cuda_device)[0]
+    x[6, :7] = neg.to(cuda_device)
+    xs, order = torch.sort(x, dim=1, stable=True)
+    bad = _nan_rows(xs)
+    assert bad.tolist() == [False, True, False, False, True, False, True,
+                            False]
+    got = k12.tied_blom(xs, order, bad)
+    loose = k12.tied_blom(xs)
+    want = k12.tied_blom_plain(xs, order, bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[bad]).all())
+    assert _max_ulp(got, want) <= _K12_Z_ULP
+    keep = ~bad
+    assert _max_ulp(loose[keep], k12.tied_blom_plain(xs)[keep]) <= _K12_Z_ULP
+
+
+def test_k12_float64_on_the_card_launches_nothing(cuda_device):  # noqa: F811
+    xs, order = _k12_rows(5000, cuda_device)
+    xs = xs.double()
+    kernels.reset_launch_counts()
+    got = k12.tied_blom(xs, order, torch.isnan(xs).any(1))
+    assert kernels.launch_counts()["K12"] == 0
+    assert got.dtype == torch.float64 and got.device == xs.device
+    want = k12.tied_blom(xs.cpu(), order.cpu(), torch.isnan(xs).any(1).cpu())
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+    assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_k12_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa: F811
+    xs = torch.zeros((8, 64), device=cuda_device)
+    order = torch.arange(64, device=cuda_device).repeat(8, 1)
+    bad = torch.zeros(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        k12.tied_blom(xs.half())
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs.t().contiguous().t())
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs[0])
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order.int())
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order[:, :32])
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order.t().contiguous().t())
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order, bad.float())
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order, bad[:4])
+    with pytest.raises(ValueError):
+        k12.tied_blom(xs, order, bad.cpu())
+
+
+@pytest.mark.parametrize("kind,launches", [("rank", 2), ("tail", 1),
+                                           ("bulk", 1)])
+def test_exact_calls_launch_k12(cuda_device, kind, launches):  # noqa: F811
+    x = torch.from_numpy(_ar1(6, (2000, 32, 64)).astype(np.float32))
+    x[:, :, 3] = torch.round(x[:, :, 3])
+    c = mtt.ess_rhat(x, kind=kind)
+    for impl in ("auto", "sort"):
+        kernels.reset_launch_counts()
+        g = mtt.ess_rhat(x.to(cuda_device), kind=kind, fold_impl=impl)
+        assert kernels.launch_counts()["K12"] == launches
+        assert_close(g.rhat.cpu(), c.rhat, rtol=0, atol=1e-4)
+        assert_close(g.ess.cpu(), c.ess, rtol=1e-3, atol=0)
+
+
+def test_tiedrank_on_the_card_runs_k12(cuda_device):  # noqa: F811
+    x = torch.from_numpy(np.round(_ar1(7, (3000, 16)) * 2).astype(np.float32))
+    x[5, 3] = np.nan
+    kernels.reset_launch_counts()
+    got = mtt.ops.tiedrank(x.to(cuda_device))
+    assert kernels.launch_counts()["K12"] == 1
+    assert torch.equal(got.cpu(), mtt.ops.tiedrank(x))
