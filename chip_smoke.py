@@ -26,7 +26,8 @@ and exits nonzero, printing no result, if any phase fails:
    scores) on the same rows, sorted and scattered back by position with the
    NaN rows masked, and on K10's fold keys: ranks bit-equal to its plain
    version, z within 4 float32 ULP, the scatter equal to the plain scatter
-   of its own values, two runs bit-equal; each beside its bound, its
+   of its own values, two runs bit-equal, with the times of its Blom
+   table's fill and of the scatter's two passes; each beside its bound, its
    plain version and a library yardstick; then the sample into rows and the
    bulk values back to (draw, chain) order, each two ways, timed;
    then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
@@ -485,7 +486,10 @@ def phase_k12(xs: torch.Tensor, order: torch.Tensor, bad: torch.Tensor,
     the scatter equal to the plain scatter of the kernel's own sorted values,
     two runs bit-equal; times beside the bounds (8 B an entry sorted, 16
     scattered), the plain version (the operations it replaces), one
-    ``ndtri`` pass over the same rows and one ``scatter_`` of them."""
+    ``ndtri`` pass over the same rows and one ``scatter_`` of them; the
+    pieces of the scattered mode: the Blom table's fill, pass A and pass B
+    (each summed over the groups of rows)."""
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import tiedrank_study
     from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
 
     p, n = xs.shape
@@ -522,6 +526,8 @@ def phase_k12(xs: torch.Tensor, order: torch.Tensor, bad: torch.Tensor,
     ndtri_ms = time_ms(lambda: torch.special.ndtri(zfp))
     del zfp
     scatter_ms = time_ms(lambda: k12._scatter_rows(xs, order))
+    table_ms = time_ms(lambda: k12.blom_table(n, xs.device))
+    pass_a_ms, pass_b_ms = tiedrank_study.pass_ms(xs, order, bad)
     bound, bound_scat = roofline(8.0 * n * p), roofline(16.0 * n * p)
     print(f"[3 K12 tied_blom] rows ({p}, {n}): ranks bit-equal to its plain "
           f"version (bulk rows and fold keys), z within {ulps} float32 ULP "
@@ -530,15 +536,19 @@ def phase_k12(xs: torch.Tensor, order: torch.Tensor, bad: torch.Tensor,
           f"{ms_fold:.3f}), bound {bound['bound_ms']:.3f} "
           f"({bound['bound_ms'] / ms:.0%}); scattered by order with bad "
           f"{ms_scat:.3f} ms, bound {bound_scat['bound_ms']:.3f} "
-          f"({bound_scat['bound_ms'] / ms_scat:.0%}); plain (the operations "
-          f"it replaces) {plain_ms:.3f} ms sorted, {plain_scat:.3f} ms "
-          f"scattered; one ndtri pass {ndtri_ms:.3f} ms, one scatter_ along "
-          f"the rows {scatter_ms:.3f} ms")
+          f"({bound_scat['bound_ms'] / ms_scat:.0%}): table fill "
+          f"{table_ms:.3f} ms, pass A {pass_a_ms:.3f} ms, pass B "
+          f"{pass_b_ms:.3f} ms, in groups of {k12.group_rows(p)} rows; "
+          f"plain (the operations it replaces) {plain_ms:.3f} ms sorted, "
+          f"{plain_scat:.3f} ms scattered; one ndtri pass {ndtri_ms:.3f} ms, "
+          f"one scatter_ along the rows {scatter_ms:.3f} ms")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bound,
                 ms_fold=ms_fold, ms_scattered=ms_scat,
                 plain_ms_scattered=plain_scat,
                 bound_ms_scattered=bound_scat["bound_ms"], z_max_ulp=ulps,
-                ndtri_ms=ndtri_ms, scatter_ms=scatter_ms)
+                ndtri_ms=ndtri_ms, scatter_ms=scatter_ms, table_ms=table_ms,
+                pass_a_ms=pass_a_ms, pass_b_ms=pass_b_ms,
+                group_rows=k12.group_rows(p))
 
 
 def phase_fold_kernels(x3: torch.Tensor) -> dict:

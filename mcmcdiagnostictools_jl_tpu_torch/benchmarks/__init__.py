@@ -11,7 +11,9 @@
   of the port, in turns, one process a run (host walls, each call ending in
   a synchronize);
 - ``nan_probe``: where the card's sort puts a sign-bit NaN, and the exact
-  calls' values in its column, for checkouts of the port.
+  calls' values in its column, for checkouts of the port;
+- ``tiedrank_study``: K12 on the flagship exact call's rows, for checkouts
+  of the port in turns, and its table fill, scatter passes and group sizes.
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -21,16 +21,13 @@
 // (the bulk transform's scatter back along the row). A row with bad[r] set
 // comes out NaN throughout, and nothing of it is read.
 //
-// One launch. A block owns kTile = 4096 entries of one row, and the blocks
-// go row after row, so the ~1000 in flight scatter into a few rows (~20 MB)
-// that stay in the 50 MB L2 while their sectors fill. The block stages its
-// stretch of the row in shared memory by coalesced loads. Each thread takes
-// kItems consecutive entries and marks in two bit masks where runs start and
-// end; the block finds each entry's run start by a max-scan of start
-// positions and its run end by a min-scan from the right (warp shuffles, one
-// exchange of warp totals through shared memory), writes the values back to
-// shared memory and stores them coalesced (or scatters them, reading order
-// coalesced). Only the first and the last run of a tile can cross its edges.
+// The runs. A block owns kTile = 4096 entries of one row, and the blocks go
+// row after row. The block stages its stretch of the row in shared memory by
+// coalesced loads. Each thread takes kItems consecutive entries and marks in
+// two bit masks where runs start and end; the block finds each entry's run
+// start by a max-scan of start positions and its run end by a min-scan from
+// the right (warp shuffles, one exchange of warp totals through shared
+// memory). Only the first and the last run of a tile can cross its edges.
 // Their true ends come from a 32-way search over the row in device memory,
 // one warp each (32 probes a round, a ballot keeps the stretch between the
 // last false and the first true probe): ~5 dependent loads at n = 1.28M,
@@ -38,20 +35,63 @@
 // continuous data. A search stays inside [0, n) and ends after at most
 // log32(n) + 1 rounds whatever the row holds, so a row that is not NaN-last
 // (the card's radix sort puts a sign-bit NaN first) is read in bounds; its
-// values are then meaningless, and every caller masks such a row.
+// values are then meaningless, and every caller masks such a row. Every
+// run's first and last position lie in [0, n) whatever the row holds, so
+// k = first + last + 2 (0-based positions) lies in [2, 2n].
+//
+// The Blom scores, from a table. A score depends only on k, and n is the
+// same for every row of a launch, so for n <= kTableMaxN = 2^22 a small
+// kernel first fills T[k] = ndtri((float(k) * 0.5 - 0.375) * inv_b) for k in
+// [0, 2n] (`blom_table_kernel`, 2n + 1 evaluations: 2.56 M at n = 1.28M, tens
+// of microseconds), and the main kernel reads T[k] in place of running ndtri
+// once an entry (327 M times at (256, 1.28M)). The table's entries are
+// computed by the same function (`blom_score`) on the same k, so they are
+// bit-equal to the scores computed an entry at a time. The table holds 8n +
+// 4 bytes (10.2 MB at n = 1.28M; at most 32 MB), which stay in the 50 MB L2
+// while every row of the launch reads them: in sorted order a row's k goes
+// up by 2 from one entry to the next where there are no ties (stride 2, a
+// sector serves four entries) and stands still along a run of ties. Longer
+// rows compute ndtri an entry (`kBlomNdtri`); the mode is a template
+// parameter chosen by the wrapper from n.
+//
+// The scatter back, in two passes that write whole sectors (order given).
+// A row's columns fall into buckets of kBucket = 32768 consecutive columns
+// (128 KB of float32), and since order is a permutation of each row, bucket
+// b of a row receives exactly min(kBucket, n - b kBucket) values. Pass A
+// (`tied_ranks_kernel<.., true>`) copies the tile's columns from order into
+// shared memory by cp.async while it computes the tile's values as above,
+// then partitions its (column, value) pairs by bucket in shared memory (a
+// counter a bucket, kSweep buckets at a time), reserves room in each bucket
+// of its row with one atomicAdd on a per-(row, bucket) cursor, and writes
+// each bucket's pairs as one contiguous run into the pair buffer, laid out
+// like the rows: bucket b of row r at pairs[r n + b kBucket ...], so the
+// buffer needs no counting pre-pass and cannot overflow. Pass B
+// (`place_kernel`) is one block a (row, bucket): it reads the bucket's pairs
+// contiguously, puts each value at its column in a shared-memory copy of the
+// bucket and writes the bucket's columns of out with 16-byte stores. The
+// order of the pairs inside a bucket depends on the atomics, but every
+// column is written once with a value that does not, so the output is
+// bit-equal to a scatter of the sorted values, and two runs are bit-equal.
+// Pass B fills a bad row with NaN; pass A reads nothing of it. The wrapper
+// runs the rows in groups (pass A, then pass B, for each group) so that the
+// pair buffer, 8 bytes an entry of a group, costs at most one float32 (p, n)
+// array.
 //
 // ndtri is Cephes' algorithm in float32 with the operations in the order of
 // PyTorch's CUDA build (ATen/native/cuda/Math.cuh, `ndtri_string`, as
 // `calc_ndtri` in ATen/native/Math.h), so the kernel's z follows
 // `torch.special.ndtri` on the card.
 //
-// What bounds it on an H100: the bytes, 4 read and 4 written an entry (0.78
-// ms at (256, 1.28M)), 16 with order (its int64 position read: 1.56 ms).
-// The arithmetic (a scan step and ndtri's ~30-90 operations an entry) stays
-// below that.
+// What bounds it on an H100: the bytes the function needs, 4 read and 4
+// written an entry (0.78 ms at (256, 1.28M)), 16 with order (its int64
+// position read: 1.56 ms). The two passes move 32 bytes an entry (read 4 +
+// 8, pairs written 8 and read 8, out written 4) in whole sectors, in place
+// of 16 bytes with a 4-byte write to a random column of a 5.1 MB row, which
+// the L2 takes as a partial-sector write.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -175,29 +215,160 @@ __device__ int warp_search(const float* row, int lo, int hi, float x) {
   return lo;
 }
 
-template <bool kBlom>
-__global__ void __launch_bounds__(kThreads)
+// what a block's entries become: the tied rank, or its Blom score read from
+// the launch's table, or computed an entry
+enum Mode { kRanks = 0, kBlomTable = 1, kBlomNdtri = 2 };
+constexpr int kTableMaxN = 1 << 22;  // longest row with a table (32 MB)
+constexpr int kTableThreads = 256;
+constexpr int kLogBucket = 15;
+constexpr int kBucket = 1 << kLogBucket;  // columns of one scatter bucket
+constexpr int kSweep = 512;               // buckets pass A counts at a time
+constexpr int kPlaceThreads = 1024;
+constexpr int kOrderBytes = kTile * 8;    // pass A's dynamic shared memory
+
+// an 8-byte copy from device to shared memory that the thread waits for
+// with cp_async_wait
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the value of an entry whose run's 1-based first and last positions add up
+// to k: k rounded once to float32, then halved (exact)
+__device__ __forceinline__ float tied_rank(long long k) {
+  return __ll2float_rn(k) * 0.5f;
+}
+
+__device__ __forceinline__ float blom_score(long long k, float inv_b) {
+  return ndtri_f32((tied_rank(k) - 0.375f) * inv_b);
+}
+
+__global__ void __launch_bounds__(kTableThreads)
+blom_table_kernel(int count, float inv_b, float* __restrict__ table) {
+  const int k = blockIdx.x * kTableThreads + threadIdx.x;
+  if (k < count) table[k] = blom_score(k, inv_b);
+}
+
+// Pass A's second half: the values v of this thread's entries e = t + i
+// kThreads of the tile, with their columns col (-1: none), go to the pair
+// buffer row pr (the row's n slots), each bucket's as one contiguous run at
+// a place reserved on the row's cursors.
+__device__ __forceinline__ void emit_pairs(const float (&v)[kItems],
+                                           const int (&col)[kItems], int n,
+                                           float* s_pv, int* s_pd,
+                                           int* __restrict__ cursor,
+                                           int2* __restrict__ pr) {
+  __shared__ int s_cnt[kSweep], s_start[kSweep], s_base[kSweep];
+  __shared__ int s_total;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nb = (n + kBucket - 1) >> kLogBucket;
+  for (int s0 = 0; s0 < nb; s0 += kSweep) {
+    const int ns = min(kSweep, nb - s0);
+    for (int b = t; b < ns; b += kThreads) s_cnt[b] = 0;
+    __syncthreads();  // also: the staging area is free
+    int rk[kItems];   // place of the entry among its bucket's, or -1
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const unsigned b = (unsigned)((col[i] >> kLogBucket) - s0);
+      rk[i] = col[i] >= 0 && b < (unsigned)ns ? atomicAdd(&s_cnt[b], 1) : -1;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the buckets' starts in the staging area
+      int carry = 0;
+      for (int c0 = 0; c0 < ns; c0 += 32) {
+        const int b = c0 + lane;
+        const int c = b < ns ? s_cnt[b] : 0;
+        int inc = c;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(kFull, inc, d);
+          if (lane >= d) inc += y;
+        }
+        if (b < ns) s_start[b] = carry + inc - c;
+        carry += __shfl_sync(kFull, inc, 31);
+      }
+      if (lane == 0) s_total = carry;
+    } else {  // meanwhile the other warps reserve room in the buckets
+      for (int b = t - 32; b < ns; b += kThreads - 32) {
+        const int c = s_cnt[b];
+        s_base[b] = c ? atomicAdd(&cursor[s0 + b], c) : 0;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (rk[i] >= 0) {
+        const int j = s_start[(col[i] >> kLogBucket) - s0] + rk[i];
+        s_pv[j] = v[i];
+        s_pd[j] = col[i];
+      }
+    }
+    __syncthreads();
+    // consecutive threads on consecutive pairs of a bucket's run
+    const int total = s_total;
+    for (int j = t; j < total; j += kThreads) {
+      const int c = s_pd[j];
+      const int b = c >> kLogBucket;
+      const int pos = s_base[b - s0] + (j - s_start[b - s0]);
+      // at most the bucket's size (order a permutation: always)
+      if (pos < min(kBucket, n - (b << kLogBucket))) {
+        pr[(b << kLogBucket) + pos] = make_int2(__float_as_int(s_pv[j]), c);
+      }
+    }
+  }
+}
+
+// kScatter false: out (p, n) in sorted order. kScatter true (pass A): the
+// pairs (value, column) of rows xs[0, p) into pairs (p, n), their counts
+// into cursor (p, nb), zeroed before.
+// Blocks a multiprocessor: pass A 3 (80 registers; at 64 it spills and is
+// slower), sorted order 5 (at most 51 registers; faster than 4 blocks at 62).
+template <int kMode, bool kScatter>
+__global__ void __launch_bounds__(kThreads, kScatter ? 3 : 5)
 tied_ranks_kernel(const float* __restrict__ xs,
                   const long long* __restrict__ order,
                   const unsigned char* __restrict__ bad, int n, int ntiles,
-                  float inv_b, float* __restrict__ out) {
-  __shared__ float s_val[kTile + kTile / 32];
+                  const float* __restrict__ table, float inv_b,
+                  float* __restrict__ out, int* __restrict__ cursor,
+                  int2* __restrict__ pairs) {
+  // the tile's values (slot(e))
+  __shared__ __align__(16) float s_val[kTile + kTile / 32];
+  // kScatter: the tile's columns (kOrderBytes), copied in while its values
+  // are found; afterwards the staging area of its pairs (values in the
+  // first kTile words, columns in the next)
+  extern __shared__ __align__(16) long long s_ord[];
   __shared__ int s_first[kWarps], s_last[kWarps];
   // run start of the tile's first entry, run end of its last (0-based)
   __shared__ int s_carry[2];
+  int* s_key = reinterpret_cast<int*>(s_val);  // kBlomTable: each entry's k
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const long long row = blockIdx.x / ntiles;
   const int tile0 = (int)(blockIdx.x - row * ntiles) * kTile;
   const int count = min(kTile, n - tile0);
   const float* xr = xs + row * n;
-  float* outr = out + row * n;
   if (bad != nullptr && bad[row]) {
+    if constexpr (!kScatter) {  // (pass B fills a bad row)
+      float* outr = out + row * n;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int e = t + i * kThreads;
+        if (e < count) outr[tile0 + e] = NAN;
+      }
+    }
+    return;
+  }
+  if constexpr (kScatter) {
+    const long long* ordr = order + row * n + tile0;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int e = t + i * kThreads;
-      if (e < count) outr[tile0 + e] = NAN;
+      if (e < count) cp_async8(s_ord + e, ordr + e);
     }
-    return;
   }
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
@@ -277,44 +448,167 @@ tied_ranks_kernel(const float* __restrict__ xs,
     const unsigned above = ends >> i;                  // ends at or after i
     const int first = below ? g0 + 31 - __clz(below) : carry_first;
     const int end = above ? g0 + i + __ffs(above) - 1 : carry_last;
-    const float rank = __ll2float_rn((long long)first + end + 2) * 0.5f;
-    s_val[slot(e0 + i)] = kBlom ? ndtri_f32((rank - 0.375f) * inv_b) : rank;
+    const long long k = (long long)first + end + 2;
+    if constexpr (kMode == kRanks) {
+      s_val[slot(e0 + i)] = tied_rank(k);
+    } else if constexpr (kMode == kBlomTable) {
+      s_key[slot(e0 + i)] = (int)k;  // looked up below, a warp's together
+    } else {
+      s_val[slot(e0 + i)] = blom_score(k, inv_b);
+    }
   }
   __syncthreads();
+  // the value of tile entry e
+  auto value = [&](int e) {
+    if constexpr (kMode == kBlomTable) return __ldg(table + s_key[slot(e)]);
+    else return s_val[slot(e)];
+  };
 
-  if (order != nullptr) {
-    const long long* ordr = order + row * n + tile0;
+  if constexpr (kScatter) {
+    cp_async_wait();  // a thread reads only the columns it copied
+    float v[kItems];
+    int col[kItems];
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int e = t + i * kThreads;
+      col[i] = -1;
+      v[i] = 0.f;
       if (e < count) {
-        const long long k = ordr[e];
-        if ((unsigned long long)k < (unsigned long long)n) outr[k] = s_val[slot(e)];
+        const long long c = s_ord[e];
+        v[i] = value(e);
+        if ((unsigned long long)c < (unsigned long long)n) col[i] = (int)c;
       }
     }
+    const int nb = (n + kBucket - 1) >> kLogBucket;
+    float* s_pv = reinterpret_cast<float*>(s_ord);
+    emit_pairs(v, col, n, s_pv, reinterpret_cast<int*>(s_pv + kTile),
+               cursor + row * nb, pairs + row * n);
   } else {
+    float* outr = out + row * n;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int e = t + i * kThreads;
-      if (e < count) outr[tile0 + e] = s_val[slot(e)];
+      if (e < count) outr[tile0 + e] = value(e);
     }
   }
 }
 
-}  // namespace
+// Pass B: block (r, b) puts bucket b of row r together from its pairs and
+// writes columns [b kBucket, b kBucket + size) of out's row r whole; a bad
+// row gets NaN.
+__global__ void __launch_bounds__(kPlaceThreads, 1)
+place_kernel(const int2* __restrict__ pairs, const int* __restrict__ cursor,
+             const unsigned char* __restrict__ bad, int n, int nb,
+             float* __restrict__ out) {
+  // the bucket, shifted by sh words so that out's 16-byte words fall on
+  // s_bkt's
+  extern __shared__ __align__(16) float s_bkt[];
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x / nb;
+  const int b = (int)(blockIdx.x - row * nb);
+  const int c0 = b << kLogBucket;
+  const int size = min(kBucket, n - c0);
+  float* dst = out + row * n + c0;
+  const int sh = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  if (bad != nullptr && bad[row]) {
+    for (int i = t; i < size; i += kPlaceThreads) s_bkt[sh + i] = NAN;
+  } else {
+    const int m = min(cursor[blockIdx.x], size);
+    const int2* pr = pairs + row * n + c0;
+#pragma unroll 8
+    for (int i = t; i < m; i += kPlaceThreads) {
+      const int2 q = __ldcs(pr + i);  // read once: do not keep in the L2
+      const unsigned off = (unsigned)(q.y - c0);
+      if (off < (unsigned)size) s_bkt[sh + off] = __int_as_float(q.x);
+    }
+  }
+  __syncthreads();
+  float4* dv = reinterpret_cast<float4*>(dst - sh);
+  const int nv = (sh + size + 3) >> 2;
+  for (int i = t; i < nv; i += kPlaceThreads) {
+    const int w = 4 * i;
+    if (w >= sh && w + 4 <= sh + size) {
+      dv[i] = *reinterpret_cast<const float4*>(s_bkt + w);
+    } else {  // the bucket's ragged ends
+      for (int c = max(w, sh); c < min(w + 4, sh + size); ++c)
+        dst[c - sh] = s_bkt[c];
+    }
+  }
+}
 
-extern "C" int mdt_tied_ranks(const float* xs, const long long* order,
-                              const unsigned char* bad, int n, int p, int blom,
-                              float inv_b, float* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <int kMode>
+cudaError_t launch_rows(const float* xs, const long long* order,
+                 const unsigned char* bad, int n, int p, const float* table,
+                 float inv_b, float* out, int* cursor, int2* pairs,
+                 cudaStream_t st) {
   const int ntiles = (n + kTile - 1) / kTile;
   const unsigned blocks = (unsigned)((long long)ntiles * p);
-  if (blom) {
-    tied_ranks_kernel<true><<<blocks, kThreads, 0, st>>>(xs, order, bad, n,
-                                                         ntiles, inv_b, out);
+  if (order == nullptr) {
+    tied_ranks_kernel<kMode, false><<<blocks, kThreads, 0, st>>>(
+        xs, nullptr, bad, n, ntiles, table, inv_b, out, nullptr, nullptr);
   } else {
-    tied_ranks_kernel<false><<<blocks, kThreads, 0, st>>>(xs, order, bad, n,
-                                                          ntiles, inv_b, out);
+    const cudaError_t e = cudaFuncSetAttribute(
+        tied_ranks_kernel<kMode, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kOrderBytes);
+    if (e != cudaSuccess) return e;
+    tied_ranks_kernel<kMode, true><<<blocks, kThreads, kOrderBytes, st>>>(
+        xs, order, bad, n, ntiles, table, inv_b, nullptr, cursor, pairs);
   }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// T[k] = the Blom score of k for k in [0, 2n]: table (2n + 1,) float32
+extern "C" int mdt_blom_table(int n, float inv_b, float* table, void* stream) {
+  const int count = 2 * n + 1;
+  blom_table_kernel<<<(count + kTableThreads - 1) / kTableThreads,
+                      kTableThreads, 0, (cudaStream_t)stream>>>(count, inv_b,
+                                                               table);
+  return (int)cudaGetLastError();
+}
+
+// order null: the values of rows xs (p, n) in sorted order into out (p, n).
+// order given (pass A): their pairs into pairs (p, n) of (value bits,
+// column) and their counts into cursor (p, ceil(n / kBucket)), which this
+// zeroes first; out unused. mode: 0 ranks, 1 Blom scores from table (made
+// by mdt_blom_table for this n), 2 Blom scores computed an entry.
+extern "C" int mdt_tied_ranks(const float* xs, const long long* order,
+                              const unsigned char* bad, int n, int p, int mode,
+                              const float* table, float inv_b, float* out,
+                              int* cursor, void* pairs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (order != nullptr) {
+    const size_t nb = (size_t)((n + kBucket - 1) >> kLogBucket);
+    const cudaError_t e = cudaMemsetAsync(cursor, 0, nb * p * sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int2* pr = static_cast<int2*>(pairs);
+  if (mode == kRanks) {
+    return (int)launch_rows<kRanks>(xs, order, bad, n, p, table, inv_b, out,
+                                    cursor, pr, st);
+  }
+  if (mode == kBlomTable) {
+    if (n > kTableMaxN || table == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_rows<kBlomTable>(xs, order, bad, n, p, table, inv_b,
+                                        out, cursor, pr, st);
+  }
+  return (int)launch_rows<kBlomNdtri>(xs, order, bad, n, p, table, inv_b, out,
+                                      cursor, pr, st);
+}
+
+// Pass B: rows (p, n) of out from the pairs and counts of pass A, bad rows
+// NaN.
+extern "C" int mdt_tied_ranks_place(const void* pairs, const int* cursor,
+                                    const unsigned char* bad, int n, int p,
+                                    float* out, void* stream) {
+  const int nb = (n + kBucket - 1) >> kLogBucket;
+  const int smem = (kBucket + 4) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  place_kernel<<<(unsigned)((long long)nb * p), kPlaceThreads, smem,
+                 (cudaStream_t)stream>>>(static_cast<const int2*>(pairs),
+                                         cursor, bad, n, nb, out);
   return (int)cudaGetLastError();
 }

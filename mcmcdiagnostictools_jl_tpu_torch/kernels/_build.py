@@ -56,7 +56,9 @@ _SIGNATURES = {
     "mdt_valley_merge": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     "mdt_segment_moments": (_P, _P, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P,
                             _P, _I, _P),
-    "mdt_tied_ranks": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+    "mdt_blom_table": (_I, _F, _P, _P),
+    "mdt_tied_ranks": (_P, _P, _P, _I, _I, _I, _P, _F, _P, _P, _P, _P),
+    "mdt_tied_ranks_place": (_P, _P, _P, _I, _I, _P, _P),
 }
 
 

@@ -5,10 +5,12 @@ Stands for three XLA pieces of the JAX package's exact rank mode
 (``mcmcdiagnostictools_jl_tpu/ops/ranknorm.py``), none of them a Pallas
 kernel: ``_avg_ranks_sorted``, ``ndtri((r - 0.375) / (n + 0.25))`` and the
 inverse permutation back to the original order. The CUDA source is
-``csrc/tied_ranks.cu``; its header says what bounds it on an H100 and how a
-block finds the runs that cross its edges.
+``csrc/tied_ranks.cu``; its header says what bounds it on an H100, how a
+block finds the runs that cross its edges, how the Blom scores come from a
+table made at each call, and how the scatter back goes in two passes that
+write whole sectors.
 
-``tied_blom`` launches the kernel for a CUDA float32 tensor and runs
+``tied_blom`` launches the kernels for a CUDA float32 tensor and runs
 ``tied_blom_plain`` for any other, never falling back from one to the other.
 The plain version is the exact mode's code as it was before the kernel:
 ``_avg_ranks_sorted`` (a cummax and a reverse cummin over the run
@@ -25,6 +27,11 @@ from .. import backend
 from . import _build
 
 _TILE = 4096  # entries of one row a block of the kernel (csrc: kTile)
+_BUCKET = 32768  # columns of one bucket of the scatter (csrc: kBucket)
+_TABLE_MAX_N = 2**22  # longest row whose scores come from a table (kTableMaxN)
+# what the kernel writes (csrc: Mode): ranks, or Blom scores from the
+# call's table, or computed an entry
+_RANKS, _BLOM_TABLE, _BLOM_NDTRI = 0, 1, 2
 
 
 def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
@@ -95,7 +102,13 @@ def tied_blom(xs: torch.Tensor, order: torch.Tensor | None = None,
     holds a NaN (``ops.ranknorm._nan_rows``), by ``bad`` or afterwards: such
     a row is read in bounds and its values are meaningless. On the card
     ``xs`` must be float32 and contiguous, ``order`` int64 and contiguous,
-    ``bad`` bool, all on one device, and ``N < 2^31 - 4096``."""
+    ``bad`` bool, all on one device, and ``N < 2^31 - 4096``.
+
+    On the card a call with ``blom`` and ``N <= 2^22`` first fills a table
+    of the ``2N + 1`` scores a row can hold (``blom_table``), and the
+    scatter runs the rows in groups of ``group_rows(P)``, each in two
+    passes through a pair buffer of 8 bytes an entry of the group (at most
+    a float32 ``(P, N)`` array; ``csrc/tied_ranks.cu`` says why)."""
     if not backend.use_kernels(xs):
         return tied_blom_plain(xs, order, bad, blom=blom)
     if xs.dim() != 2 or not xs.is_contiguous():
@@ -119,18 +132,87 @@ def tied_blom(xs: torch.Tensor, order: torch.Tensor | None = None,
     if p == 0:
         return out
     bad = None if bad is None else bad.contiguous()
-    # what the card's division by the Python scalar n + 0.25 multiplies by
-    inv_b = float(np.float32(1.0) / np.float32(n + 0.25))
-    lib = _build.library()
+    inv_b = _inv_b(n)
     with torch.cuda.device(xs.device):
-        code = lib.mdt_tied_ranks(
-            xs.data_ptr(), None if order is None else order.data_ptr(),
-            None if bad is None else bad.data_ptr(), n, p, int(blom), inv_b,
-            out.data_ptr(), torch.cuda.current_stream(xs.device).cuda_stream,
-        )
-    _build.check(code, "mdt_tied_ranks")
+        table = blom_table(n, xs.device) if blom and n <= _TABLE_MAX_N else None
+        mode = (_RANKS if not blom
+                else _BLOM_NDTRI if table is None else _BLOM_TABLE)
+        if order is None:
+            _launch_rows(xs, None, bad, mode, table, inv_b, out=out)
+        else:
+            _scatter(xs, order, bad, mode, table, inv_b, out, group_rows(p))
     tied_blom.launches += 1
     return out
 
 
 tied_blom.launches = 0
+
+
+def group_rows(p: int) -> int:
+    """Rows of one group of the scatter: the pair buffer, 8 bytes an entry
+    of a group, costs at most one float32 ``(P, N)`` array."""
+    return max(1, p // 2)
+
+
+def blom_table(n: int, device) -> torch.Tensor:
+    """``(2N + 1,)`` float32 on the card: entry ``k`` the Blom score of an
+    entry whose run's 1-based first and last positions add up to ``k``,
+    ``ndtri((k / 2 - 0.375) / (N + 0.25))`` as the kernel computes it."""
+    table = torch.empty(2 * n + 1, dtype=torch.float32, device=device)
+    with torch.cuda.device(table.device):
+        code = _build.library().mdt_blom_table(
+            n, _inv_b(n), table.data_ptr(), _stream(table))
+    _build.check(code, "mdt_blom_table")
+    return table
+
+
+def _inv_b(n: int) -> float:
+    """What the card's division by the Python scalar ``n + 0.25``
+    multiplies by: its reciprocal, rounded once to float32 (from ``N =
+    2^22`` on, ``n + 0.25`` itself is no float32)."""
+    return float(np.float32(1.0 / (n + 0.25)))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_rows(xs, order, bad, mode, table, inv_b, *, out=None, cursor=None,
+                 pairs=None) -> None:
+    """One launch of the kernel over the rows ``xs``: their values in
+    sorted order into ``out``, or (``order`` given: pass A) their pairs into
+    ``pairs`` and counts into ``cursor``, the first rows of each."""
+    p, n = xs.shape
+    code = _build.library().mdt_tied_ranks(
+        xs.data_ptr(), _ptr(order), _ptr(bad), n, p, mode, _ptr(table), inv_b,
+        _ptr(out), _ptr(cursor), _ptr(pairs), _stream(xs))
+    _build.check(code, "mdt_tied_ranks")
+
+
+def _scatter(xs, order, bad, mode, table, inv_b, out, group: int) -> None:
+    """The values of the rows ``xs`` scattered back by ``order`` into
+    ``out``: pass A, then pass B, for each group of ``group`` rows, through
+    one pair buffer and one set of cursors."""
+    p, n = xs.shape
+    cursor = torch.empty((group, -(-n // _BUCKET)), dtype=torch.int32,
+                         device=xs.device)
+    pairs = torch.empty((group, n, 2), dtype=torch.int32, device=xs.device)
+    for r in range(0, p, group):
+        rows = slice(r, r + group)
+        gbad = None if bad is None else bad[rows]
+        _launch_rows(xs[rows], order[rows], gbad, mode, table, inv_b,
+                     cursor=cursor, pairs=pairs)
+        _place(pairs, cursor, gbad, out[rows])
+
+
+def _place(pairs, cursor, bad, out) -> None:
+    """Pass B: the rows ``out`` from pass A's pairs and counts."""
+    p, n = out.shape
+    code = _build.library().mdt_tied_ranks_place(
+        pairs.data_ptr(), cursor.data_ptr(), _ptr(bad), n, p, out.data_ptr(),
+        _stream(out))
+    _build.check(code, "mdt_tied_ranks_place")

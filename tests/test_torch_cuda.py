@@ -40,7 +40,9 @@ calls through K10 and K11 track the CPU to 1e-4 R-hat. K12's ranks are
 bit-equal to its plain version's and its z within 4 float32 ULP (the same
 Cephes operations on equal ranks; only ``logf`` may come from another
 toolkit), its scatter equal to the plain scatter of its own values, two
-runs bit-equal. A column of
+runs bit-equal, at the edges of its tiles and scatter buckets, in ragged
+groups of rows and on both sides of its Blom table's limit; every entry of
+the table follows the plain score and equals the sorted z. A column of
 sign-bit NaNs (which the card's radix sort puts first) comes out NaN in
 every exact call, the other columns bit-equal to the ``+nan`` sample's and
 within the slice's limits of the CPU (BASELINE.md's 1e-6 in float64). The
@@ -1299,7 +1301,9 @@ def _k12_rows(n, device, seed=12):
 
 
 @pytest.mark.parametrize("n", [1, 2, k12._TILE - 1, k12._TILE, k12._TILE + 1,
-                               3 * k12._TILE + 5, 1_280_000])
+                               3 * k12._TILE + 5, k12._BUCKET - 1,
+                               k12._BUCKET, k12._BUCKET + 1,
+                               2 * k12._BUCKET + 3, 1_280_000])
 def test_k12_matches_its_plain_version(cuda_device, n):  # noqa: F811
     xs, order = _k12_rows(n, cuda_device)
     bad = torch.isnan(xs).any(1)
@@ -1322,6 +1326,61 @@ def test_k12_matches_its_plain_version(cuda_device, n):  # noqa: F811
     assert _max_ulp(zs, k12.tied_blom_plain(xs, order, bad)) <= _K12_Z_ULP
     assert torch.equal(k12.tied_blom(xs, order, blom=False),
                        k12._scatter_rows(want_r, order))
+
+
+def test_k12_scatters_in_ragged_groups(cuda_device):  # noqa: F811
+    """Five rows go in groups of 2, 2 and 1 (the last holds the NaN row);
+    the output is the scatter of the sorted values, as with any grouping."""
+    xs, order = _k12_rows(k12._BUCKET + 1, cuda_device)
+    xs, order = xs[:5].contiguous(), order[:5].contiguous()
+    assert k12.group_rows(5) == 2
+    bad = torch.isnan(xs).any(1)
+    assert bad.tolist() == [False, False, False, False, True]
+    zs = k12.tied_blom(xs, order, bad)
+    z = k12.tied_blom(xs)
+    torch.cuda.synchronize()
+    _assert_equal_nan(zs, k12._scatter_rows(
+        z.masked_fill(bad[:, None], torch.nan), order))
+    assert _max_ulp(zs, k12.tied_blom_plain(xs, order, bad)) <= _K12_Z_ULP
+    assert torch.equal(zs.view(torch.int32),
+                       k12.tied_blom(xs, order, bad).view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [k12._TABLE_MAX_N, k12._TABLE_MAX_N + 1])
+def test_k12_on_both_sides_of_the_table_limit(cuda_device, n):  # noqa: F811
+    """Up to 2^22 entries a row the scores come from the call's table,
+    past it they are computed an entry: both follow the plain version."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    x[1] = np.round(x[1] * 4) / 4
+    xs, order = torch.sort(torch.from_numpy(x).to(cuda_device), dim=1,
+                           stable=True)
+    z = k12.tied_blom(xs)
+    zs = k12.tied_blom(xs, order)
+    want = k12.tied_blom_plain(xs)
+    torch.cuda.synchronize()
+    assert torch.equal(k12.tied_blom(xs, blom=False),
+                       k12.tied_blom_plain(xs, blom=False))
+    assert _max_ulp(z, want) <= _K12_Z_ULP
+    assert torch.equal(zs, k12._scatter_rows(z, order))
+
+
+def test_k12_table_holds_every_score_of_a_row(cuda_device):  # noqa: F811
+    """Each entry ``k`` in [2, 2n] of the table at n = 1.28M against the
+    plain version's score of a run whose 1-based ends add up to ``k``, and
+    bit-equal to the sorted-mode z where a row meets it: a tie-free row
+    (k = 2j + 2) and a row of pairs (k = 4m + 3)."""
+    n = 1_280_000
+    table = k12.blom_table(n, cuda_device)
+    assert table.shape == (2 * n + 1,) and table.dtype == torch.float32
+    k = torch.arange(2, 2 * n + 1, device=cuda_device)
+    assert _max_ulp(table[2:], k12._blom_normal(k.float() * 0.5, n)) <= _K12_Z_ULP
+    j = torch.arange(n, device=cuda_device)
+    rows = torch.stack([j, j // 2]).float()
+    z = k12.tied_blom(rows)
+    bits = table.view(torch.int32)
+    assert torch.equal(z[0].view(torch.int32), bits[2 * j + 2])
+    assert torch.equal(z[1].view(torch.int32), bits[4 * (j // 2) + 3])
 
 
 def test_k12_masks_a_sign_bit_nan_row(cuda_device):  # noqa: F811

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from mcmcdiagnostictools_jl_tpu_torch.kernels import _build, sort_study
+from mcmcdiagnostictools_jl_tpu_torch.kernels import _build, sort_study, tiedrank
 
 POD_ROWS = [2 ** b for b in range(1, 17)]  # 2 .. 65,536
 
@@ -177,6 +177,23 @@ def test_sort_constants_agree_with_the_cuda_source():
     longest = max(len(l["steps"]) for pod in POD_ROWS
                   for l in sort_study.sort_plan(pod) if l["kind"] == "chunk")
     assert longest == 55 <= const("kMaxChunkSteps")
+
+
+def test_tied_ranks_constants_agree_with_the_cuda_source():
+    """K12's wrapper sizes the tiles, the scatter's buckets and cursors,
+    the table's limit and the modes as ``csrc/tied_ranks.cu`` does."""
+    src = (_build.CSRC_DIR / "tied_ranks.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kThreads")) * int(const("kItems")) == tiedrank._TILE
+    assert 1 << int(const("kLogBucket")) == tiedrank._BUCKET
+    assert const("kTableMaxN") == "1 << 22" and tiedrank._TABLE_MAX_N == 2**22
+    modes = re.search(r"enum Mode \{([^}]*)\}", src).group(1)
+    assert modes.replace(" ", "") == (
+        f"kRanks={tiedrank._RANKS},kBlomTable={tiedrank._BLOM_TABLE},"
+        f"kBlomNdtri={tiedrank._BLOM_NDTRI}")
 
 
 def test_ablation_macros_are_in_the_cuda_source():

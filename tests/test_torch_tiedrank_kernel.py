@@ -15,7 +15,8 @@ Float64 throughout:
   ``rank_normalize_from_sort`` against the JAX function of that name, and
   ``folded_rank_values_sorted`` against the JAX package's on the same fold;
 - on a CPU tensor ``tied_blom`` is its plain version and launches nothing
-  (K12's count stays 0).
+  (K12's count stays 0), also at lengths on the edges of the kernel's
+  scatter buckets (``_BUCKET - 1`` to ``2 _BUCKET + 3``).
 """
 
 import jax.numpy as jnp
@@ -98,12 +99,19 @@ def _inputs(kind: str, n: int, with_order: bool, with_bad: bool):
     return xs, order, bad
 
 
+# the kernel's scatter works in buckets of _BUCKET columns: lengths at their
+# edges
+B = tiedrank._BUCKET
+
+
 @pytest.mark.parametrize("with_bad", [False, True], ids=["bad_off", "bad_on"])
 @pytest.mark.parametrize("with_order", [False, True],
                          ids=["sorted", "scattered"])
 @pytest.mark.parametrize("blom", [True, False], ids=["blom", "ranks"])
 @pytest.mark.parametrize("kind,n", [("mixed", 1), ("mixed", 2), ("ties", 3),
-                                    ("mixed", 300), ("nan", 17)])
+                                    ("mixed", 300), ("nan", 17),
+                                    ("mixed", B - 1), ("ties", B),
+                                    ("nan", B + 1), ("mixed", 2 * B + 3)])
 def test_wrapper_on_the_cpu_is_the_plain_version(kind, n, blom, with_order,
                                                  with_bad):
     xs, order, bad = _inputs(kind, n, with_order, with_bad)
