@@ -64,9 +64,12 @@ and exits nonzero, printing no result, if any phase fails:
    (5000, 16384) and at K5's shape (5000, 65536), maxlag 250: variants A and B
    against the plain version and against each other, with the registers and
    spills of B (the loop K1 and K5 run) from the build;
-10. the sort study through ``benchmarks.sort_microbench`` at 1,048,576 x 128
-    keys and payload: K7 at three (pods, stride) settings and K8 at two, equal
-    to the plain version, with their share of the memory rate; K9 at pods of
+10. the sort study through ``benchmarks.sort_microbench`` and
+    ``benchmarks.pass_study`` at 1,048,576 x 128 keys and payload: the pass
+    kernel's SASS must hold bulk copies and no ``LDGSTS``; K7 at three
+    (pods, stride) settings and K8 at two, equal to the plain version, then
+    timed in turns with ``add_`` and the plain version (median of 15), with
+    their ratio to ``add_`` and share of the memory rate; K9 at pods of
     16,384 and 32,768 rows against its plain version, beside ``torch.sort``,
     then at a pod smaller than a chunk and a column count off the 8-column
     block, with the chunk kernel's registers and spills from the build;
@@ -148,6 +151,7 @@ numpy are used.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import statistics
@@ -1500,12 +1504,17 @@ def phase_lagloop(build_log: str) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-def phase_sort_study(build_log: str) -> dict:
-    """K7, K8 and K9 through ``benchmarks.sort_microbench`` at 512 tiles of
-    2048 rows x 128 columns (1.07 GB of keys and payload); K9 also at pods
-    smaller than a chunk and column counts off the 8-column block."""
+def phase_sort_study(build_log: str, sass_read) -> dict:
+    """K7, K8 and K9 through ``benchmarks.sort_microbench`` and
+    ``benchmarks.pass_study`` at 512 tiles of 2048 rows x 128 columns (1.07
+    GB of keys and payload); K9 also at pods smaller than a chunk and column
+    counts off the 8-column block. ``sass_read``: the future of
+    ``pass_study.pass_sass`` (``cuobjdump`` takes ~10 s, so it runs from the
+    build on, beside the phases before this one)."""
     from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import pass_study
     from mcmcdiagnostictools_jl_tpu_torch.benchmarks import sort_microbench as sm
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import _build
     from mcmcdiagnostictools_jl_tpu_torch.kernels import sort_study as ss
 
     ntiles, seed = 512, SEED + 7
@@ -1513,40 +1522,57 @@ def phase_sort_study(build_log: str) -> dict:
     moved = 2 * keys.numel() * 8  # both arrays read once and written once
     pass_bound = roofline(moved)
     want = ss.pass_plain(keys, payload, 16, 1)
-    plain_ms = time_ms(lambda: ss.pass_plain(keys, payload, 16, 1))
-
-    def add_(k, p):
-        k.add_(1.0)
-        p.add_(1)
-
-    library_ms = time_ms(add_, setup=lambda: (keys.clone(), payload.clone()))
     print(f"[10 data] {keys.shape[0]} x {keys.shape[1]} float32 keys (uniform, "
           f"seed {seed}) + int32 payload, {keys.numel() * 8 / 1e9:.2f} GB; one "
           f"pass moves {moved / 1e9:.2f} GB, bound {pass_bound['bound_ms']:.3f} "
-          f"ms; plain (keys + 1, payload + 1) {plain_ms:.3f} ms, add_ in place "
-          f"{library_ms:.3f} ms")
-    out = {}
-    kernels.reset_launch_counts()
-    runs = [("K7", f"pods {k} stride {s}", lambda k=k, s=s:
-             sm.bench_dma_pass(ntiles, k, s, seed=seed))
-            for k, s in ((16, 1), (16, 16), (8, 64))]
-    runs += [("K8", f"pods {k}", lambda k=k:
-              sm.bench_dma_contig(ntiles, k, seed=seed)) for k in (16, 4)]
-    for kid, setting, run in runs:
-        (k_out, p_out), t = run()
+          "ms")
+    lib = _build.library()
+    for kid, pods, stride in pass_study.GEOMETRIES:
+        setting = pass_study.label(kid, pods, stride).split(" ", 1)[1]
+        plan = ss.card_pass_plan(lib, keys, pods, stride or 1,
+                                 contiguous=stride is None)
+        k_out, p_out = keys.clone(), payload.clone()
+        if stride is None:
+            ss.pass_contig(k_out, p_out, pods)
+        else:
+            ss.pass_strided(k_out, p_out, pods, stride)
         torch.cuda.synchronize()
         same = torch.equal(k_out, want[0]) and torch.equal(p_out, want[1])
         print(f"[10 {kid} {setting}] equal to the plain version: {same}; "
-              f"{t['ms']:.3f} ms, {t['gbps']:.0f} GB/s, "
-              f"{t['gbps'] * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s")
+              f"{plan['tasks']} tasks of {pods} segments of "
+              f"{plan['seg_rows']} rows, stages of {plan['stage_bytes']} B x "
+              f"{plan['stages']}, grid {plan['grid']} ({plan['blocks_per_sm']}"
+              " a multiprocessor)")
         check(same, f"{kid} ({setting}) differs from its plain version")
-        row = out.setdefault(kid, dict(err=0.0, ms=t["ms"], plain_ms=plain_ms,
+        del k_out, p_out
+    # in turns with add_ and the plain version, on one pair of arrays in place
+    k_run, p_run = keys.clone(), payload.clone()
+    kernels.reset_launch_counts()
+    ms = pass_study.interleaved_ms(pass_study.pass_calls(k_run, p_run))
+    counts = kernels.launch_counts()
+    del k_run, p_run, want
+    library_ms, plain_ms = ms.pop("add_"), ms.pop("plain")
+    print(f"[10 K7/K8 in turns] median of {pass_study.ROUNDS}: add_ in place "
+          f"{library_ms:.4f} ms, plain (keys + 1, payload + 1) {plain_ms:.4f}"
+          " ms")
+    out = {}
+    for name, t in ms.items():
+        kid, setting = name.split(" ", 1)
+        gbps = moved / 1e9 / (t / 1e3)
+        print(f"[10 {kid} {setting}] {t:.4f} ms, {t / library_ms:.3f} x add_, "
+              f"{pass_bound['bound_ms'] / t:.1%} of the bound, {gbps:.0f} GB/s")
+        row = out.setdefault(kid, dict(err=0.0, ms=t, plain_ms=plain_ms,
                                        library_ms=library_ms, **pass_bound,
                                        settings={}))
-        row["settings"][setting] = {"ms": t["ms"], "gbps": t["gbps"]}
-        del k_out, p_out
-    counts = kernels.launch_counts()
-    del want
+        row["settings"][setting] = {"ms": t, "gbps": gbps,
+                                    "vs_add_": t / library_ms}
+    # the pass kernel's copies, from the build: bulk copies, no cp.async
+    print(f"[10 K7/K8 build] {ptxas_lines(build_log, 'pass_kernel')}")
+    for name, sass in sass_read.result().items():
+        print(f"[10 K7/K8 SASS] {name[:40]}...: bulk copies {sass['bulk']}, "
+              f"LDGSTS {sass['LDGSTS']}")
+        check(sum(sass["bulk"].values()) > 0 and sass["LDGSTS"] == 0,
+              f"{name}: not moved by bulk copies alone")
 
     # K9: operations = 5 a compare-exchange (a compare, four selects)
     regs_k9 = ptxas_lines(build_log, "sort_chunk_kernel")
@@ -2636,9 +2662,11 @@ def main() -> int:
     started = time.perf_counter()
     dev = phase_device()
     # (fails outside the repo)
-    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import profile_calls
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import pass_study, profile_calls
 
     build_log = phase_build()
+    sass_reader = concurrent.futures.ThreadPoolExecutor(1)
+    sass_read = sass_reader.submit(pass_study.pass_sass)
     t0 = time.perf_counter()
     bad_param = 0
     # an eighth of the chains of parameter 0 sit 4 sd off: the rank-based
@@ -2662,7 +2690,8 @@ def main() -> int:
     classical = phase_classical(x3, bad_param)
     phase_classical_card_vs_cpu()
     lag = phase_lagloop(build_log)
-    sort = phase_sort_study(build_log)
+    sort = phase_sort_study(build_log, sass_read)
+    sass_reader.shutdown()
     fast, exact = e2e.pop("fast"), e2e.pop("exact")
     streaming = phase_streaming(x3, fast, exact)
     start_world_of_one()

@@ -13,7 +13,10 @@
 - ``nan_probe``: where the card's sort puts a sign-bit NaN, and the exact
   calls' values in its column, for checkouts of the port;
 - ``tiedrank_study``: K12 on the flagship exact call's rows, for checkouts
-  of the port in turns, and its table fill, scatter passes and group sizes.
+  of the port in turns, and its table fill, scatter passes and group sizes;
+- ``pass_study``: K7 and K8 in turns with ``add_``, for checkouts of the
+  port in turns, and the pass kernel's variants (ring, stages, hint, store,
+  walk) beside the first design.
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

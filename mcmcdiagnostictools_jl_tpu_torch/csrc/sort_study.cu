@@ -12,14 +12,37 @@
 // K7 / K8, the pass: every element goes to shared memory, is touched there
 // (keys + 1, payload + 1) and is written back. Bytes bound it: each array read
 // once and written once, 2.15 GB at N = 1,048,576, C = 128. The TPU kernel
-// moved a pod of K tiles of 2048 rows (32 MB) into VMEM with one DMA a tile; a
-// block here has 227 KB, so the pod is re-sized, not copied: a block gathers
-// K segments of `seg_rows` rows that lie `stride_tiles` tiles apart (K7), or
-// one run of K * seg_rows rows (K8), with 16-byte `cp.async` copies, all in
-// flight at once, then one wait. With 64 KB a block three blocks share an SM,
-// so one block's copies overlap another's write-back. The geometry (K, stride)
-// decides only the order memory is walked: blockIdx.y is the TPU's pod index
-// (tiles (hi * K + j) * stride + lo), blockIdx.x the segment slot in the tile.
+// moved a pod of K tiles of 2048 rows (32 MB) into VMEM with one DMA a tile
+// and a semaphore; a block here has 227 KB, so the pod is re-sized, not
+// copied: a task of the TPU-shaped grid takes K segments of `seg_rows` rows
+// that lie `stride_tiles` tiles apart (K7), or one run of K * seg_rows rows
+// (K8). The geometry (K, stride) decides only the order memory is walked:
+// task t = g * nslots + x is slot x of the TPU's pod g, whose tiles are
+// (hi * K + j) * stride + lo. The DMA's counterpart on Hopper is the TMA: one
+// thread asks for a whole segment (`cp.async.bulk`, 1-D, since a segment is
+// contiguous), the copy reports its bytes to an mbarrier, and no other
+// thread spends a register or an instruction on it. The design:
+// - a persistent grid (the SMs times the blocks an SM holds) walks the tasks
+//   in the TPU grid's order: a counter hands them out, so a block that
+//   finds memory faster takes more of them (block b taking the tasks b, b +
+//   grid, ... was measured 2-3 % slower: the slowest block sets the pace);
+// - a block holds a ring of S >= 2 stages, each `stage_segs` segments of one
+//   task (keys, then payload). A loader thread keeps the loads of the next
+//   stages in flight while 8 consumer warps touch a stage in 16-byte pieces;
+// - a touched stage goes back by bulk stores (shared to global, one bulk
+//   group a stage), issued by a storer thread once every consumer has
+//   fenced its writes for the async proxy and arrived on the stage's second
+//   mbarrier; the storer frees a slot on a third mbarrier when its store has
+//   read it (`cp.async.bulk.wait_group.read`), so that waiting for a store
+//   never holds up a load;
+// - the copies carry no L2 hint: though the stream is 43 times the 50 MB L2,
+//   evict-first on loads and stores was measured 1.5-2 % slower.
+// Stage size, stage count and grid are planned in Python (`pass_plan` in
+// kernels/sort_study.py) and tested there. Timing studies only:
+// MDT_PASS_EVICT_FIRST adds the hint, MDT_PASS_STG replaces the bulk store by
+// 16-byte stores from the consumers' registers, MDT_PASS_STORE_DEPTH sets
+// how many stores may still be reading before the oldest slot is freed,
+// MDT_PASS_STATIC_WALK gives block b the tasks b, b + grid, ...
 //
 // K9, the pod sort: the bitonic network over the rows of every pod of
 // `pod_rows` rows, each column on its own, payload carried with its key; a
@@ -70,7 +93,330 @@
 
 namespace {
 
-constexpr int kPassThreads = 256;
+// ---- K7 / K8 ---------------------------------------------------------------
+
+constexpr int kPassConsumers = 256;  // threads that touch a stage
+constexpr int kPassThreads = kPassConsumers + 64;  // a loader and a storer warp
+constexpr int kPassMaxStages = 16;
+// full[], touched[], empty[] (one mbarrier of each a slot) and the stage
+// each slot holds (task * parts + part; -1: the walk is over)
+constexpr int kPassBarrierBytes = 4 * kPassMaxStages * 8;
+// bulk stores the storer leaves reading shared memory before it frees the
+// oldest one's slot
+#ifndef MDT_PASS_STORE_DEPTH
+#define MDT_PASS_STORE_DEPTH 1
+#endif
+constexpr int kPassStoreDepth = MDT_PASS_STORE_DEPTH;
+
+// The walk, as `pass_plan` lays it out: `tasks` tasks of nseg segments of
+// seg_rows rows, each taken in `parts` stages of stage_segs segments; K7's
+// task t is slot t % nslots of pod t / nslots.
+struct PassWalk {
+  long long tasks;
+  int ncols, nseg, seg_rows, tile_rows, stride_tiles, nslots;
+  int stage_segs, parts, stages;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of parity `parity` has completed. A ring whose
+// phases went wrong would spin forever; after 10 s the block traps instead,
+// so the fault is a launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  unsigned long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = global_ns();
+    else if (global_ns() - start > 10000000000ULL)
+      __trap();
+  }
+}
+
+// The copies' L2 policy: evict-first in the timing study, else unused.
+__device__ __forceinline__ uint64_t l2_policy() {
+  uint64_t policy = 0;
+#ifdef MDT_PASS_EVICT_FIRST
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+#endif
+  return policy;
+}
+
+// Global to shared, completing `bytes` on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+#ifdef MDT_PASS_EVICT_FIRST
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+#else
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+#endif
+}
+
+// Shared to global, in the current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes, uint64_t policy) {
+#ifdef MDT_PASS_EVICT_FIRST
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(src), "r"(bytes), "l"(policy)
+      : "memory");
+#else
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+#endif
+}
+
+// First row of segment j of task t.
+template <bool kStrided>
+__device__ __forceinline__ size_t pass_row(const PassWalk& w, long long t,
+                                           int j) {
+  if (!kStrided) return ((size_t)t * w.nseg + j) * w.seg_rows;
+  const long long g = t / w.nslots;
+  const long long x = t - g * w.nslots;
+  const long long lo = g % w.stride_tiles, hi = g / w.stride_tiles;
+  const size_t tile = ((size_t)hi * w.nseg + j) * w.stride_tiles + lo;
+  return tile * w.tile_rows + (size_t)x * w.seg_rows;
+}
+
+// The bulk copies of part `part` of task t in the ring slot at `slot`: keys
+// at the slot's start, payload half a stage on. K7 copies each segment on
+// its own, K8 the stage's run of segments at once.
+template <bool kStrided, bool kStore>
+__device__ __forceinline__ void stage_copies(const PassWalk& w, float* keys,
+                                             int* payload, long long t,
+                                             int part, uint32_t slot,
+                                             uint32_t bar, uint64_t policy) {
+  const int j0 = part * w.stage_segs;
+  const uint32_t seg_bytes = (uint32_t)w.seg_rows * w.ncols * 4;
+  const uint32_t half = seg_bytes * w.stage_segs;
+  const int copies = kStrided ? w.stage_segs : 1;
+  const uint32_t bytes = kStrided ? seg_bytes : half;
+  if (!kStore) mbar_arrive_expect_tx(bar, 2 * half);
+  for (int c = 0; c < copies; ++c) {
+    const size_t at = pass_row<kStrided>(w, t, j0 + c) * w.ncols;
+    const uint32_t k_at = slot + c * bytes;
+    if (kStore) {
+      bulk_store(keys + at, k_at, bytes, policy);
+      bulk_store(payload + at, k_at + half, bytes, policy);
+    } else {
+      bulk_load(k_at, keys + at, bytes, bar, policy);
+      bulk_load(k_at + half, payload + at, bytes, bar, policy);
+    }
+  }
+}
+
+#ifdef MDT_PASS_STG
+// Float index of 16-byte piece v of part `part` of task t (timing study).
+template <bool kStrided>
+__device__ __forceinline__ size_t piece_at(const PassWalk& w, long long t,
+                                           int part, int v) {
+  const int j0 = part * w.stage_segs;
+  const int seg_vecs = w.seg_rows * w.ncols / 4;
+  const int c = kStrided ? v / seg_vecs : 0;
+  return pass_row<kStrided>(w, t, j0 + c) * w.ncols +
+         (size_t)(v - c * seg_vecs) * 4;
+}
+#endif
+
+// Shared memory: the 3 * kPassMaxStages mbarriers and the slots' stages,
+// then `stages` slots of stage_segs * seg_rows * ncols * 8 bytes. The i-th
+// stage of this block lives in slot i % stages; its use k = i / stages of
+// the slot is phase k of the slot's mbarriers: full (the loads' bytes have
+// landed), touched (every consumer warp is done), empty (its store has read
+// the slot). The loader ends the walk with a stage marked -1.
+// next_task[0] (zero at launch) hands out the tasks in order; next_task[1]
+// counts the blocks done, and the last one sets both back to zero.
+template <bool kStrided>
+__global__ void __launch_bounds__(kPassThreads)
+pass_kernel(float* __restrict__ keys, int* __restrict__ payload,
+            unsigned long long* __restrict__ next_task, const PassWalk w) {
+  extern __shared__ __align__(128) unsigned char pass_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(pass_smem);
+  uint64_t* touched = full + kPassMaxStages;
+  uint64_t* empty = touched + kPassMaxStages;
+  long long* stage_of = reinterpret_cast<long long*>(empty + kPassMaxStages);
+  unsigned char* ring = pass_smem + kPassBarrierBytes;
+  const uint32_t stage_bytes =
+      (uint32_t)w.stage_segs * w.seg_rows * w.ncols * 8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(touched + s), kPassConsumers / 32);
+      mbar_init(smem_u32(empty + s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kPassConsumers) {
+    if (threadIdx.x % 32) return;
+    const uint64_t policy = l2_policy();
+    if (threadIdx.x == kPassConsumers) {  // the loader
+      long long i = 0;
+#ifdef MDT_PASS_STATIC_WALK  // timing study: block b takes b, b + grid, ...
+      for (long long t = blockIdx.x; t < w.tasks; t += gridDim.x) {
+#else
+      for (long long t;
+           (t = (long long)atomicAdd(next_task, 1ULL)) < w.tasks;) {
+#endif
+        for (int part = 0; part < w.parts; ++part, ++i) {
+          const int s = (int)(i % w.stages);
+          if (i >= w.stages)
+            mbar_wait(smem_u32(empty + s), (uint32_t)(i / w.stages - 1) & 1);
+          stage_of[s] = t * w.parts + part;
+          stage_copies<kStrided, false>(
+              w, keys, payload, t, part,
+              smem_u32(ring + (size_t)s * stage_bytes), smem_u32(full + s),
+              policy);
+        }
+      }
+      const int s = (int)(i % w.stages);
+      if (i >= w.stages)
+        mbar_wait(smem_u32(empty + s), (uint32_t)(i / w.stages - 1) & 1);
+      stage_of[s] = -1;
+      mbar_arrive(smem_u32(full + s));
+      // every block has taken its last task once all have come here
+      if (atomicAdd(next_task + 1, 1ULL) == gridDim.x - 1) {
+        atomicExch(next_task, 0ULL);
+        atomicExch(next_task + 1, 0ULL);
+      }
+      return;
+    }
+    // the storer
+    for (long long i = 0;; ++i) {
+      const int s = (int)(i % w.stages);
+      mbar_wait(smem_u32(touched + s), (uint32_t)(i / w.stages) & 1);
+      const long long id = stage_of[s];
+      if (id < 0) break;
+#ifdef MDT_PASS_STG
+      mbar_arrive(smem_u32(empty + s));
+#else
+      stage_copies<kStrided, true>(
+          w, keys, payload, id / w.parts, (int)(id % w.parts),
+          smem_u32(ring + (size_t)s * stage_bytes), 0, policy);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (i >= kPassStoreDepth) {
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(
+                         kPassStoreDepth)
+                     : "memory");
+        mbar_arrive(smem_u32(empty + (i - kPassStoreDepth) % w.stages));
+      }
+#endif
+    }
+    // the last stages' slots are loaded no more; their stores must land
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    return;
+  }
+
+  // the consumers: touch each stage in 16-byte pieces
+  const int vecs = (int)(stage_bytes / 32);  // pieces of one array a stage
+  for (long long i = 0;; ++i) {
+    const int s = (int)(i % w.stages);
+    mbar_wait(smem_u32(full + s), (uint32_t)(i / w.stages) & 1);
+    const long long id = stage_of[s];
+    if (id >= 0) {
+      float4* ks = reinterpret_cast<float4*>(ring + (size_t)s * stage_bytes);
+      int4* ps = reinterpret_cast<int4*>(ring + (size_t)s * stage_bytes +
+                                         stage_bytes / 2);
+      for (int v = threadIdx.x; v < vecs; v += kPassConsumers) {
+        float4 k = ks[v];
+        int4 p = ps[v];
+        k.x += 1.f; k.y += 1.f; k.z += 1.f; k.w += 1.f;
+        p.x += 1; p.y += 1; p.z += 1; p.w += 1;
+#ifdef MDT_PASS_STG
+        const size_t at =
+            piece_at<kStrided>(w, id / w.parts, (int)(id % w.parts), v);
+        *reinterpret_cast<float4*>(keys + at) = k;
+        *reinterpret_cast<int4*>(payload + at) = p;
+#else
+        ks[v] = k;
+        ps[v] = p;
+#endif
+      }
+#ifndef MDT_PASS_STG
+      // this thread's writes, visible to the bulk store (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(smem_u32(touched + s));
+    if (id < 0) return;
+  }
+}
+
+template <bool kStrided>
+int pass_occupancy(int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pass_kernel<kStrided>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, pass_kernel<kStrided>, kPassThreads, (size_t)smem);
+}
+
+template <bool kStrided>
+int launch_pass(float* keys, int* payload, unsigned long long* next_task,
+                const PassWalk& w, int grid, cudaStream_t stream) {
+  const int smem =
+      kPassBarrierBytes + w.stages * w.stage_segs * w.seg_rows * w.ncols * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      pass_kernel<kStrided>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  pass_kernel<kStrided><<<grid, kPassThreads, smem, stream>>>(
+      keys, payload, next_task, w);
+  return (int)cudaGetLastError();
+}
+
+// ---- K9's copies -------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
@@ -82,76 +428,6 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// First row of segment j of this block. Strided (K7): the TPU pod g =
-// blockIdx.y holds the tiles (hi * K + j) * stride + lo with lo = g % stride,
-// hi = g / stride; the block takes slot blockIdx.x of each. Contiguous (K8):
-// the block's run of K * seg_rows rows.
-__device__ __forceinline__ size_t segment_row(int j, int nseg, int seg_rows,
-                                              int tile_rows, int stride_tiles,
-                                              bool strided) {
-  if (!strided)
-    return ((size_t)blockIdx.x * nseg + j) * seg_rows;
-  const int g = blockIdx.y;
-  const int lo = g % stride_tiles, hi = g / stride_tiles;
-  const size_t tile = ((size_t)hi * nseg + j) * stride_tiles + lo;
-  return tile * tile_rows + (size_t)blockIdx.x * seg_rows;
-}
-
-// One block: nseg segments of seg_rows rows of both arrays into shared
-// memory, touched, written back. Shared memory: nseg * seg_rows * ncols
-// floats, then as many ints.
-template <bool kStrided>
-__global__ void __launch_bounds__(kPassThreads)
-pass_kernel(float* __restrict__ keys, int* __restrict__ payload, int ncols,
-            int nseg, int seg_rows, int tile_rows, int stride_tiles) {
-  extern __shared__ float4 pass_smem[];
-  const int row_vecs = ncols / 4;            // 16-byte pieces a row
-  const int seg_vecs = seg_rows * row_vecs;  // a segment is contiguous
-  const int total = nseg * seg_vecs;
-  float4* ks = pass_smem;
-  int4* ps = reinterpret_cast<int4*>(pass_smem + total);
-
-  for (int v = threadIdx.x; v < total; v += kPassThreads) {
-    const int j = v / seg_vecs, w = v - j * seg_vecs;
-    const size_t at = segment_row(j, nseg, seg_rows, tile_rows, stride_tiles,
-                                  kStrided) * row_vecs + w;
-    cp_async16(ks + v, reinterpret_cast<const float4*>(keys) + at);
-    cp_async16(ps + v, reinterpret_cast<const int4*>(payload) + at);
-  }
-  cp_async_wait_all();
-  __syncthreads();  // the whole pod is in shared memory
-  for (int v = threadIdx.x; v < total; v += kPassThreads) {
-    float4 k = ks[v];
-    int4 p = ps[v];
-    k.x += 1.f; k.y += 1.f; k.z += 1.f; k.w += 1.f;
-    p.x += 1; p.y += 1; p.z += 1; p.w += 1;
-    ks[v] = k;
-    ps[v] = p;
-  }
-  __syncthreads();  // touched in place; any thread may write any piece back
-  for (int v = threadIdx.x; v < total; v += kPassThreads) {
-    const int j = v / seg_vecs, w = v - j * seg_vecs;
-    const size_t at = segment_row(j, nseg, seg_rows, tile_rows, stride_tiles,
-                                  kStrided) * row_vecs + w;
-    reinterpret_cast<float4*>(keys)[at] = ks[v];
-    reinterpret_cast<int4*>(payload)[at] = ps[v];
-  }
-}
-
-template <bool kStrided>
-int launch_pass(float* keys, int* payload, int ncols, int nseg, int seg_rows,
-                int tile_rows, int stride_tiles, dim3 grid,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)nseg * seg_rows * ncols * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      pass_kernel<kStrided>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pass_kernel<kStrided><<<grid, kPassThreads, smem, stream>>>(
-      keys, payload, ncols, nseg, seg_rows, tile_rows, stride_tiles);
-  return (int)cudaGetLastError();
 }
 
 // ---- K9 --------------------------------------------------------------------
@@ -370,31 +646,56 @@ sort_wide_kernel(float* __restrict__ keys, int* __restrict__ payload,
 
 }  // namespace
 
-// K7: in place, keys (nrows, ncols) + 1 and payload + 1, walked in blocks of
-// `pod_tiles` segments of `seg_rows` rows lying `stride_tiles` tiles of
-// `tile_rows` rows apart. The caller has checked: ncols % 4 == 0, tile_rows %
-// seg_rows == 0, nrows % (tile_rows * pod_tiles * stride_tiles) == 0, and that
-// pod_tiles * seg_rows * ncols * 8 bytes fit a block's shared memory. Returns
-// cudaGetLastError().
-extern "C" int mdt_sort_pass_strided(float* keys, int* payload, long long nrows,
-                                     int ncols, int tile_rows, int pod_tiles,
-                                     int stride_tiles, int seg_rows,
-                                     void* stream) {
-  const long long ntiles = nrows / tile_rows;
-  const dim3 grid((unsigned)(tile_rows / seg_rows),
-                  (unsigned)(ntiles / pod_tiles));
-  return launch_pass<true>(keys, payload, ncols, pod_tiles, seg_rows, tile_rows,
-                           stride_tiles, grid, (cudaStream_t)stream);
+// K7 (strided != 0) / K8: in place, keys (.., ncols) + 1 and payload + 1 over
+// `tasks` tasks of nseg segments of seg_rows rows, in stages of stage_segs
+// segments, a ring of `stages` slots, `grid` persistent blocks (the walk of
+// `pass_plan`: K7's task t is slot t % nslots of pod t / nslots, its
+// segments stride_tiles tiles of tile_rows rows apart; K8's task t the rows
+// from t * nseg * seg_rows on). `next_task`: two unsigned 64-bit counters
+// on the card, zero, which the launch leaves zero: the blocks take the tasks
+// from the first in order. Launches that share them must not overlap (one
+// stream). Returns
+// cudaErrorInvalidValue for a walk the kernel does not take (both arrays on
+// 16-byte boundaries, ncols % 4 == 0, 2 <= stages <= 16, stage_segs dividing
+// nseg, the ring within a block's shared memory), else cudaGetLastError().
+extern "C" int mdt_sort_pass(float* keys, int* payload, void* next_task,
+                             int strided, long long tasks, int ncols,
+                             int nseg, int seg_rows, int tile_rows,
+                             int stride_tiles, int nslots, int stage_segs,
+                             int stages, int grid, void* stream) {
+  const long long stage_bytes = (long long)stage_segs * seg_rows * ncols * 8;
+  if (((uintptr_t)keys | (uintptr_t)payload) % 16 || !next_task ||
+      ncols < 4 || ncols % 4 ||
+      tasks < 1 || grid < 1 || seg_rows < 1 || stage_segs < 1 ||
+      nseg % stage_segs || stages < 2 || stages > kPassMaxStages ||
+      stages <= kPassStoreDepth ||
+      kPassBarrierBytes + stages * stage_bytes > 227 * 1024 ||
+      (strided && (stride_tiles < 1 || nslots < 1 ||
+                   (long long)nslots * seg_rows != tile_rows)))
+    return (int)cudaErrorInvalidValue;
+  PassWalk w;
+  w.tasks = tasks;
+  w.ncols = ncols;
+  w.nseg = nseg;
+  w.seg_rows = seg_rows;
+  w.tile_rows = tile_rows;
+  w.stride_tiles = stride_tiles;
+  w.nslots = nslots;
+  w.stage_segs = stage_segs;
+  w.parts = nseg / stage_segs;
+  w.stages = stages;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* next = (unsigned long long*)next_task;
+  return strided ? launch_pass<true>(keys, payload, next, w, grid, st)
+                 : launch_pass<false>(keys, payload, next, w, grid, st);
 }
 
-// K8: the same pass in contiguous runs of pod_tiles * seg_rows rows; nrows is
-// a multiple of that.
-extern "C" int mdt_sort_pass_contig(float* keys, int* payload, long long nrows,
-                                    int ncols, int pod_tiles, int seg_rows,
-                                    void* stream) {
-  const dim3 grid((unsigned)(nrows / ((long long)pod_tiles * seg_rows)));
-  return launch_pass<false>(keys, payload, ncols, pod_tiles, seg_rows, 0, 1,
-                            grid, (cudaStream_t)stream);
+// The blocks of the K7 (strided != 0) or K8 kernel an SM holds with `smem`
+// bytes of dynamic shared memory, into *blocks (an int).
+extern "C" int mdt_sort_pass_occupancy(int strided, int smem, void* blocks) {
+  int* out = (int*)blocks;
+  return strided ? pass_occupancy<true>(smem, out)
+                 : pass_occupancy<false>(smem, out);
 }
 
 // K9, a chunk launch: in place, the `nsteps` compare-exchange steps given

@@ -49,8 +49,9 @@ _SIGNATURES = {
     "mdt_direct_autocov": (_P, _I, _I, _I, _P, _P),
     "mdt_lagloop_a": (_P, _I, _I, _I, _P, _P),
     "mdt_lagloop_b": (_P, _I, _I, _I, _P, _P),
-    "mdt_sort_pass_strided": (_P, _P, _L, _I, _I, _I, _I, _I, _P),
-    "mdt_sort_pass_contig": (_P, _P, _L, _I, _I, _I, _P),
+    "mdt_sort_pass": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
+    "mdt_sort_pass_occupancy": (_I, _I, _P),
     "mdt_sort_chunk": (_P, _P, _L, _I, _I, _I, _P, _P),
     "mdt_sort_wide": (_P, _P, _L, _I, _L, _I, _I, _P),
     "mdt_valley_merge": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P),

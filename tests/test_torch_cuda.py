@@ -64,6 +64,7 @@ from mcmcdiagnostictools_jl_tpu_torch import kernels
 from mcmcdiagnostictools_jl_tpu_torch.convert import to_tensor
 from mcmcdiagnostictools_jl_tpu_torch.utils import canonicalize
 from mcmcdiagnostictools_jl_tpu_torch.diagnostics.mcse import _beta_interval_ranks
+from mcmcdiagnostictools_jl_tpu_torch.kernels import _build
 from mcmcdiagnostictools_jl_tpu_torch.kernels import autocov as k5
 from mcmcdiagnostictools_jl_tpu_torch.benchmarks import micro_lagloop, sort_microbench
 from mcmcdiagnostictools_jl_tpu_torch.kernels import fastrank as kfr
@@ -569,6 +570,92 @@ def test_k7_k8_match_plain(cuda_device, rows, cols, tile, pods,  # noqa: F811
     assert torch.equal(k, want_k) and torch.equal(p, want_p)
     after = kernels.launch_counts()
     assert (after["K7"], after["K8"]) == (before["K7"] + 1, before["K8"] + 1)
+
+
+@pytest.mark.parametrize("rows,cols,tile,pods,stride,seg,stages,grid", [
+    (4096, 4, 8, 2, 1, 1, 2, 1),        # the smallest ring, one block:
+    (4096, 4, 8, 2, 2, 1, 2, 3),        # 2048 stages through 2 slots; 3
+    (2048, 12, 16, 4, 2, 2, 3, 5),      # blocks, a ring of 3, 5 blocks
+    (64, 8, 8, 2, 1, 8, None, None),    # 4 tasks: fewer than the blocks
+    (64, 4, 8, 2, 2, 1, None, None),    # seg_rows 1, 4 columns: 16 bytes
+    (160, 12, 8, 2, 2, 4, None, None),  # 12, 20 and 132 columns
+    (160, 20, 8, 2, 2, None, None, None),
+    (256, 132, 8, 2, 1, 4, None, None),
+    (96, 8, 8, 1, 4, None, None, None),  # stride > 1 with pods 1
+    (8192, 20, 2048, 2, 2, 1, 2, None),  # 2 stages on the card's grid
+])
+@pytest.mark.parametrize("contiguous", [False, True])
+def test_k7_k8_ring_edges(cuda_device, rows, cols, tile, pods,  # noqa: F811
+                          stride, seg, stages, grid, contiguous):
+    """The ring at its edges, equal to the plain version, two runs
+    bit-equal: the smallest ring (2 stages) wrapped thousands of times by
+    one block and by a few, fewer tasks than blocks, 1-row segments (16-byte
+    copies), column counts 4, 12, 20 and 132, a stride with pods of one.
+    A forced ring or grid runs through ``run_pass`` (no launch counted);
+    the others through the wrappers, which count one launch each."""
+    if contiguous:
+        pods, stride = pods * stride, 1
+    rng = np.random.default_rng(rows + cols)
+    keys = torch.from_numpy(rng.random((rows, cols), dtype=np.float32))
+    keys = keys.to(cuda_device)
+    payload = torch.arange(rows * cols, dtype=torch.int32,
+                           device=cuda_device).reshape(rows, cols)
+    want_k, want_p = k789.pass_plain(keys, payload, pods, stride, tile)
+    lib = _build.library()
+    kw = {"contiguous": contiguous}
+    if stages is not None:
+        kw["stages"] = stages
+    plan = k789.card_pass_plan(lib, keys, pods, stride, tile, seg, **kw)
+    if grid is not None:
+        plan = k789.pass_plan(rows, cols, pods, stride, tile, seg, sms=grid,
+                              occupancy=lambda smem: 1, **kw)
+        assert plan["grid"] == grid
+    if (rows, pods) == (64, 2) and seg == 8:
+        assert plan["tasks"] == plan["grid"] == 4
+    outs = []
+    for _ in range(2):
+        k, p = keys.clone(), payload.clone()
+        before = kernels.launch_counts()
+        if stages is None and grid is None:
+            if contiguous:
+                k789.pass_contig(k, p, pods, tile_rows=tile, seg_rows=seg)
+            else:
+                k789.pass_strided(k, p, pods, stride, tile_rows=tile,
+                                  seg_rows=seg)
+            after = kernels.launch_counts()
+            kid, other = ("K8", "K7") if contiguous else ("K7", "K8")
+            assert after[kid] == before[kid] + 1
+            assert after[other] == before[other]
+        else:
+            k789.run_pass(lib, plan, k, p)
+        torch.cuda.synchronize()
+        outs.append((k, p))
+    for k, p in outs:
+        assert torch.equal(k, want_k) and torch.equal(p, want_p)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_k7_k8_reject_a_misaligned_view(cuda_device):  # noqa: F811
+    """A view 4 bytes into a flat buffer: the wrappers raise before any
+    launch, and the C entry point refuses such a walk."""
+    flat = torch.zeros(64 * 8 + 1, device=cuda_device)
+    k = flat[1:].view(64, 8)
+    p = torch.zeros((64, 8), dtype=torch.int32, device=cuda_device)
+    pflat = torch.zeros(64 * 8 + 1, dtype=torch.int32, device=cuda_device)
+    before = kernels.launch_counts()
+    for call in (lambda: k789.pass_strided(k, p, 2, 1, tile_rows=8),
+                 lambda: k789.pass_contig(k, p, 2, tile_rows=8),
+                 lambda: k789.pass_strided(p.float(), pflat[1:].view(64, 8),
+                                           2, 1, tile_rows=8)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    after = kernels.launch_counts()
+    assert (after["K7"], after["K8"]) == (before["K7"], before["K8"])
+    lib = _build.library()
+    plan = k789.pass_plan(64, 8, 2, 1, 8)
+    with pytest.raises(RuntimeError, match="mdt_sort_pass"):
+        k789.run_pass(lib, plan, k, p)
 
 
 @pytest.mark.parametrize("rows,cols,pod_rows", [
