@@ -29,17 +29,24 @@ and exits nonzero, printing no result, if any phase fails:
    of its own values, two runs bit-equal, with the times of its Blom
    table's fill and of the scatter's two passes; each beside its bound, its
    plain version and a library yardstick; then the sample into rows and the
-   bulk values back to (draw, chain) order, each two ways, timed;
-   then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
+   bulk values back to (draw, chain) order, each two ways, timed; K13 (the
+   row sort) on the sample's rows (256, 1.28M) with a NaN, a constant, a
+   sign-bit NaN and a signed-zero column: keys bit for bit and positions
+   equal to ``torch.sort(dim=1, stable=True)`` and to its plain version,
+   its keys-only form equal, two runs bit-equal, timed beside both with its
+   launches one by one; the flagship exact ``ess_rhat`` through K13 and
+   through its plain version bit-equal, and the cub radix kernels that call
+   launches (none may be left from the row sort); then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
-   on that sample; checks that every kernel ran (the exact call K10 and K11
-   once each, K12 twice), that fast tracks exact, and that the badly mixed parameter is
+   on that sample; checks that every kernel ran (the exact call K10, K11
+   and K13 once each, K12 twice), that fast tracks exact, and that the badly mixed parameter is
    flagged; then the same sample as numpy float64 with no device, which must
    run K1-K4 on the card and give the float32 tensor's result; prints the
    wall times; then the exact call with ``fold_impl`` auto, sort and merge
-   in turns (ESS bit-equal, R-hat within 1e-6), walls and peak memory;
+   in turns (ESS bit-equal, R-hat within 1e-6; K13 twice with ``sort``),
+   walls and peak memory;
 5. card against CPU: the same calls at 2000 x 32 x 64 on the card and
    through the plain CPU path must agree, and the exact kinds ``tail`` and
    ``rank`` with ``fold_impl="merge"`` (R-hat 1e-4);
@@ -78,7 +85,9 @@ and exits nonzero, printing no result, if any phase fails:
     must run in every chunk, the first 256 parameters must equal the resident
     call of phase 4, peak device memory must stay bounded whatever the number
     of chunks; prints the wall beside the sums of gather, copy and compute;
-    then the exact rank mode in chunks of 64 against phase 4's exact result;
+    then the exact rank mode in chunks of 64 against phase 4's exact result
+    (K13 twice a chunk, on 64 rows: the sample's and, the streamed fold
+    being a sort, the folded keys');
 12. ``discretediag`` on BASELINE.md config 3 digitized into 4 categories
     (10k x 8 x 100): all six methods at nsim=1000 on the card, the three
     chi-squared methods against the CPU (stat, df, p within 1e-9 relative),
@@ -132,7 +141,7 @@ and exits nonzero, printing no result, if any phase fails:
     chains x 256 dims x 1000 draws (step 0.25) with those of
     ``TestCauchyHeavyTails`` (accept > 0.6, median tail-ESS < 0.8 x median
     bulk-ESS, median bulk-ESS > 50, BFMI < 1), and on its trace the fast
-    and exact ``ess_rhat`` (K1-K4; K1, K10, K11, K12) and ``mcse`` with
+    and exact ``ess_rhat`` (K1-K4; K1, K10-K13) and ``mcse`` with
     ``PallasAutocovMethod`` (K5), each with its launches counted from 0;
     the deterministic core on the same float64 draws on the card and on the
     CPU (1e-8); the sampler's walls and rates, and over 20 draws of each
@@ -724,6 +733,96 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
         "transpose_back_t_contiguous": back_t_ms}}
 
 
+def phase_k13(x3: torch.Tensor) -> dict:
+    """K13 on the exact call's own rows (256, 1.28M), from the sample with a
+    NaN column (1), a constant one (2), one holding sign-bit NaNs (3) and one
+    holding signed zeros (4): keys bit for bit and positions equal to
+    ``torch.sort(dim=1, stable=True)``'s (the library call it replaces) and
+    to its plain version's, the keys-only form's keys equal, two runs
+    bit-equal; the three timed (behind the timer's queue; ``torch.sort``
+    also by its device time under the profiler), with the bound of
+    any sort (16 bytes an entry: the contract's ``bound_ms``) and of the
+    design (68), and its launches one by one. Then the flagship exact
+    ``ess_rhat`` through K13 and through its plain version (bit-equal), and
+    the cub radix kernels launched in that call, under the profiler: none
+    may be left from the row sort."""
+    import mcmcdiagnostictools_jl_tpu_torch as mtt
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import (profile_calls,
+                                                             radix_study)
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+    from mcmcdiagnostictools_jl_tpu_torch.ops import ranknorm
+
+    xk = with_bad_columns(x3)
+    xk[::1001, :, 3] = torch.tensor(-math.nan)
+    xk[::3, :, 4] = -0.0
+    xr = ranknorm._rows(xk)
+    del xk
+    p, n = xr.shape
+    got = k13.sort_rows(xr)
+    again = k13.sort_rows(xr)
+    want = torch.sort(xr, dim=1, stable=True)
+    check(bool(torch.signbit(want[0][3, 0])) and bool(torch.isnan(want[0][3, 0])),
+          "torch.sort did not put the sign-bit NaN first")
+    check(radix_study.same_sort(got, want),
+          "K13 differs from torch.sort(dim=1, stable=True)")
+    check(radix_study.same_sort(got, again), "K13: two runs differ")
+    del again, want
+    check(radix_study.same_sort(got, k13.sort_rows_plain(xr)),
+          "K13 differs from its plain version")
+    check(torch.equal(k13.sort_rows_keys(xr).view(torch.int32),
+                      got[0].view(torch.int32)),
+          "K13's keys-only form differs")
+    del got
+    ms = time_ms(lambda: k13.sort_rows(xr))
+    keys_ms = time_ms(lambda: k13.sort_rows_keys(xr))
+    plain_ms = time_ms(lambda: k13.sort_rows_plain(xr))
+    lib_ms = time_ms(lambda: torch.sort(xr, dim=1, stable=True))
+    lib_device_ms = radix_study.device_ms(
+        lambda: torch.sort(xr, dim=1, stable=True))
+    pieces = [(radix_study._short(k), v)
+              for k, v in radix_study.launches_ms(lambda: k13.sort_rows(xr))]
+    bound = roofline(k13.floor_bytes(p, n))
+    design = roofline(k13.design_bytes(p, n))["bound_ms"]
+    print(f"[3 K13 sort_rows] rows ({p}, {n}) with NaN, constant, sign-bit "
+          f"NaN and signed-zero rows: keys bit for bit and positions equal to "
+          f"torch.sort(dim=1, stable=True) and to its plain version, keys "
+          f"only equal, two runs bit-equal; kernel {ms:.3f} ms (keys only "
+          f"{keys_ms:.3f}), bound {bound['bound_ms']:.3f} "
+          f"({bound['bound_ms'] / ms:.0%}; the design's 68 B an entry "
+          f"{design:.3f}, {design / ms:.0%}), plain {plain_ms:.3f} ms, "
+          f"torch.sort {lib_ms:.3f} ms (host-bound: its ~1280 launches and "
+          f"~1500 memsets outlast the timer's queue; device "
+          f"{lib_device_ms:.3f} ms under the profiler); launches: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pieces))
+    del xr
+
+    exact = mtt.ess_rhat(x3, kind="rank")
+    keep = ranknorm.sort_rows
+    ranknorm.sort_rows = k13.sort_rows_plain
+    try:
+        plain = mtt.ess_rhat(x3, kind="rank")
+    finally:
+        ranknorm.sort_rows = keep
+    torch.cuda.synchronize()
+    check(torch.equal(exact.ess, plain.ess) and torch.equal(exact.rhat,
+                                                            plain.rhat),
+          "the exact call through K13 differs from its plain route")
+    prof = profile_calls.profile_call(lambda: mtt.ess_rhat(x3, kind="rank"),
+                                      top=10**6)
+    cub = sum(c for name, _, c in prof["kernels"] if "RadixSort" in name)
+    print(f"[3 K13 exact call] ess_rhat(kind='rank') through K13 and through "
+          f"its plain version: bit-equal; under the profiler: cub radix "
+          f"launches {cub}, device {prof['device_ms']:.2f} ms, "
+          f"{prof['launches']} device launches, idle {prof['idle']:.1%}")
+    check(cub == 0, "the exact call still launches cub radix kernels")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound,
+                library_device_ms=lib_device_ms, keys_only_ms=keys_ms,
+                design_bound_ms=design,
+                launch_ms=pieces, exact_call_cub_radix_launches=cub,
+                exact_call_device_ms=prof["device_ms"],
+                exact_call_device_launches=prof["launches"])
+
+
 # K1 and K5 in float32 sums of another order than their plain versions,
 # relative to the largest lag-0 value (phases 3, 6, 8 and 9)
 LAG_REL_BOUND = 1e-5
@@ -790,8 +889,9 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
               f"in the fast call, expected >= {least}")
     check(exact_counts["K1"] >= 1, "K1 did not run in the exact call")
     check(exact_counts["K10"] == 1 and exact_counts["K11"] == 1
-          and exact_counts["K12"] == 2,
-          "the exact call did not launch K10 and K11 once each, K12 twice")
+          and exact_counts["K12"] == 2 and exact_counts["K13"] == 1,
+          "the exact call did not launch K10, K11 and K13 once each, K12 "
+          "twice")
 
     for res in (fast, exact):
         for v in res:
@@ -855,9 +955,10 @@ def phase_end_to_end(x3: torch.Tensor, bad_param: int) -> dict:
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         counts = kernels.launch_counts()
         check(counts["K11"] == 1 and counts["K10"] == (impl != "sort")
-              and counts["K12"] == 2,
+              and counts["K12"] == 2
+              and counts["K13"] == 1 + (impl == "sort"),
               f"fold_impl={impl!r}: K10 {counts['K10']}, K11 {counts['K11']}, "
-              f"K12 {counts['K12']}")
+              f"K12 {counts['K12']}, K13 {counts['K13']}")
         check(torch.equal(res.ess, exact.ess)
               and float((res.rhat - exact.rhat).abs().max()) <= 1e-6,
               f"fold_impl={impl!r} disagrees with the default")
@@ -1746,8 +1847,8 @@ def phase_streaming(x3: torch.Tensor, resident_fast, resident_exact) -> dict:
                                    param_chunk=64)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    check(counts["K1"] >= 4 and counts["K12"] == 8,
-          "K1 did not run in every chunk, or K12 not twice in each")
+    check(counts["K1"] >= 4 and counts["K12"] == 8 and counts["K13"] == 8,
+          "K1 did not run in every chunk, or K12 or K13 not twice in each")
     ess_rel_x = float((exact.ess / resident_exact.ess - 1).abs().max())
     rhat_abs_x = float((exact.rhat - resident_exact.rhat).abs().max())
     print(f"[11 exact mode, chunks of 64, vs resident] ESS rel {ess_rel_x:.3e} "
@@ -2206,7 +2307,7 @@ def check_launches(tag: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` ran exactly that often (None: at least once);
     K1, K2 and K10 (not on the sharded path) never."""
     shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5",
-                                    "K10", "K11", "K12")}
+                                    "K10", "K11", "K12", "K13")}
     print(f"   {tag} launches: {shown}")
     for kid, n in {"K1": 0, "K2": 0, "K10": 0, **want}.items():
         ok = counts[kid] >= 1 if n is None else counts[kid] == n
@@ -2562,7 +2663,7 @@ def phase_hmc(smi: str) -> dict:
                                                    rank_mode="fast"),
              ("K1", "K2", "K3", "K4")),
             ("ess_rhat exact", lambda: mtt.ess_rhat(x, kind="rank"),
-             ("K1", "K10", "K11", "K12")),
+             ("K1", "K10", "K11", "K12", "K13")),
             ("mcse mean, PallasAutocovMethod",
              lambda: mtt.mcse(x, kind="mean",
                               autocov_method=mtt.PallasAutocovMethod()),
@@ -2572,7 +2673,7 @@ def phase_hmc(smi: str) -> dict:
             check(v.shape == (PARAMS,) and bool(torch.isfinite(v).all()),
                   f"Cauchy {name}: bad output")
         shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K10",
-                                        "K11", "K12")}
+                                        "K11", "K12", "K13")}
         print(f"[18 Cauchy {name}] launches {shown}; wall {w:.4f} s (median "
               f"of 3; first call {first:.3f} s) ({smi})")
         for kid in want:
@@ -2677,6 +2778,7 @@ def main() -> int:
 
     rows = phase_kernels(x3)
     fold = phase_fold_kernels(x3)
+    k13_row = phase_k13(x3)
     phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
@@ -2737,19 +2839,22 @@ def main() -> int:
          "mcmcdiagnostictools_jl_tpu/ops/seghist.py:55"),
         ("K12 tied_blom", src + "tied_ranks.cu",
          "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:65"),
+        ("K13 sort_rows", src + "radix_sort.cu",
+         "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:26"),
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
-    rows += fold["rows"]
+    rows += fold["rows"] + [k13_row]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
-    # phase 10; K10, K11, K12: the exact ess_rhat call of phase 4 (K1-K4 in
+    # phase 10; K10-K13: the exact ess_rhat call of phase 4 (K1-K4 in
     # the streamed run: "streaming" in the line above)
     launches = {**e2e["counts"], "K5": est["k5_launches"],
                 "K10": e2e["exact_counts"]["K10"],
                 "K11": e2e["exact_counts"]["K11"],
                 "K12": e2e["exact_counts"]["K12"],
+                "K13": e2e["exact_counts"]["K13"],
                 "K4z": fz["launches"], "K6a": lag["launches"]["a"],
                 "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []

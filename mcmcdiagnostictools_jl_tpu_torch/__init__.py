@@ -4,9 +4,10 @@ The port of ``mcmcdiagnostictools_jl_tpu`` (the JAX package, which stays the
 reference) to PyTorch on an NVIDIA H100. It covers ``ess`` (every kind:
 ``basic``, ``bulk``, ``tail``, and the estimators ``mean``, ``std``,
 ``median``, ``mad``, ``Quantile(p)``), ``rhat``, ``ess_rhat``, ``mcse``,
-``rhat_nested`` and ``bfmi``, in both rank modes (exact: ``torch.sort``,
-the tail's fold sorted as ``fold_impl`` asks, by a stable sort or kernel
-K10's merge, and its split-chain moments read off the sort by kernel K11,
+``rhat_nested`` and ``bfmi``, in both rank modes (exact: kernel K13's
+stable radix sort of the sample's rows, the tail's fold sorted as
+``fold_impl`` asks, by K13 again or kernel K10's merge, and its split-chain
+moments read off the sort by kernel K11,
 ``ops/seghist.py``; fast: histogram CDF, with ``ops.fastrank.FUSE_BLOM_Z``
 selecting kernel K4's fused z mode), and the classical suite ``gelmandiag``,
 ``gelmandiag_multivariate``, ``gewekediag``, ``heideldiag`` and

@@ -47,12 +47,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+
+from . import QUEUE_CYCLES, interleaved_ms
 
 NTILES = 512
 LANES = 128
@@ -67,31 +68,6 @@ GEOMETRIES = (("K7", 16, 1), ("K7", 16, 16), ("K7", 8, 64), ("K8", 16, None),
 def label(kid: str, pods: int, stride: int | None) -> str:
     return (f"{kid} pods {pods}" if stride is None
             else f"{kid} pods {pods} stride {stride}")
-
-
-QUEUE_CYCLES = 2_000_000  # the card's sleep ahead of a timed call, ~1 ms
-
-
-def interleaved_ms(fns: dict, rounds: int = ROUNDS) -> dict:
-    """Median device ms of each callable of ``fns`` (no arguments), called
-    in turns: a warm-up round, then ``rounds`` rounds, each call between two
-    CUDA events of its own, queued behind ``QUEUE_CYCLES`` of sleep."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("timing needs the card: CUDA events, no host clock")
-    times = {name: [] for name in fns}
-    for r in range(rounds + 1):
-        for name, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(QUEUE_CYCLES)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            if r:
-                times[name].append(start.elapsed_time(stop))
-    return {name: statistics.median(ts) for name, ts in times.items()}
 
 
 def library_calls(keys, payload) -> dict:

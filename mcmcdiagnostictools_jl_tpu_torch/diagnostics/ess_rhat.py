@@ -18,7 +18,7 @@ Estimator-ESS proxies (src/ess_rhat.jl:626-659): mean -> x, median ->
 indicator(x <= median), std -> (x - mean)^2, mad -> the median proxy of the
 folded draws, quantile(p) -> indicator(x <= quantile_p).
 
-``rank_mode="exact"`` ranks with ``torch.sort`` along the sample's rows
+``rank_mode="exact"`` ranks by kernel K13's sort along the sample's rows
 ``(P, draws * chains)`` (one transposing copy in, the bulk values scattered
 along the rows and transposed back to ``(draws, chains, P)``) and takes the
 tail R-hat from the sort of ``x``: the fold ``|x - median|`` sorted
@@ -180,8 +180,8 @@ _FUSED_NAMES = ("auto", "fused", "fused_interpret")
 
 
 def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
-    """The fold sort of the tail and rank kinds: ``"sort"`` (a stable
-    ``torch.sort``) -> ``None``, ``"merge"`` (the valley merge) ->
+    """The fold sort of the tail and rank kinds: ``"sort"`` (K13's stable
+    sort of the folded rows) -> ``None``, ``"merge"`` (the valley merge) ->
     ``"two_sort"``; ``"auto"`` merges where the kernels run (a CUDA float32
     tensor: K10) and the flattened sample spans two of the JAX package's
     valley blocks, and sorts elsewhere (as the JAX package does off its

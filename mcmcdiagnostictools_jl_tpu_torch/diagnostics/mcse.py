@@ -33,7 +33,7 @@ from ..ops.fastrank import (
     hist_rank_value,
 )
 from ..ops.ranknorm import (_flatten_sample, _has_nan_cols, _nan_rows,
-                             _rows, sorted_quantile)
+                             _rows, sort_rows_keys, sorted_quantile)
 from ..ops.special import betaincinv
 from ..utils.layout import maybe_scalar
 from .ess_rhat import (
@@ -148,7 +148,7 @@ def _mcse_quantile_exact(x3, p: float, *, split_chains: int = 2,
         _warn_short(niter)
         return torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
                           device=x3.device)
-    xs = torch.sort(_rows(x3), dim=1).values  # (P, N), NaNs at the ends
+    xs = sort_rows_keys(_rows(x3))  # (P, N), NaNs at the ends
     bad = _nan_rows(xs)
     thr = torch.where(bad, torch.nan, sorted_quantile(xs, p))
     s_eff, _ = _basic_ess_rhat(_indicator_leq(x3, thr), split_chains,

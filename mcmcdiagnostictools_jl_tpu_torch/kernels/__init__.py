@@ -14,17 +14,20 @@
 | K10 | ``valley.valley_merge`` | ``ops/ranknorm.py::valley_sort_2d`` (XLA, not a Pallas kernel) |
 | K11 | ``seghist.segment_moments`` | ``ops/seghist.py::weighted_segment_moments`` (XLA, not a Pallas kernel) |
 | K12 | ``tiedrank.tied_blom`` | ``ops/ranknorm.py::_avg_ranks_sorted`` + ``ndtri`` + the inverse sort (XLA, not a Pallas kernel) |
+| K13 | ``radix_sort.sort_rows``, ``radix_sort.sort_rows_keys`` (the keys alone) | ``ops/ranknorm.py::_sort_pair`` (``lax.sort``, XLA, not a Pallas kernel) |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
-the kernels; both entry points of K3 count into ``hist_moments.launches``;
+the kernels; both entry points of K3 count into ``hist_moments.launches``,
+both of K13 into ``sort_rows.launches`` (one a call, whose launches are a
+memset, the histograms and the digit passes);
 K4 also counts its z-mode launches (``blom_n``) on their own, reported as
 ``"K4z"``, and K6 counts each variant on its own. Importing this package builds nothing; the first
 launch does.
 """
 
-from . import (autocov, fastrank, lagloop_study, moments_autocov, seghist,
-               sort_study, tiedrank, valley)
+from . import (autocov, fastrank, lagloop_study, moments_autocov, radix_sort,
+               seghist, sort_study, tiedrank, valley)
 
 # name -> (wrapper, counter attribute)
 COUNTERS = {
@@ -42,6 +45,7 @@ COUNTERS = {
     "K10": (valley.valley_merge, "launches"),
     "K11": (seghist.segment_moments, "launches"),
     "K12": (tiedrank.tied_blom, "launches"),
+    "K13": (radix_sort.sort_rows, "launches"),
 }
 
 

@@ -4,22 +4,23 @@ package's ``ops/ranknorm.py``).
 The public functions take the canonical ``(draws, chains, P)`` layout. Inside,
 the flattened sample ``(N, P)`` (``N = draws * chains``, flat row ``draw *
 chains + chain``) is transposed once into ``(P, N)``, so that each
-parameter's joint sample is one contiguous row: the sort, the tied ranks
-with their Blom normal scores (K12, which also scatters the bulk's back
-along the rows), the fold merge (K10) and the split-chain moments (K11) all
-run along the last, contiguous axis. Reference conventions
-(src/utils.jl:148-193): tied ("average") ranks, the Blom alpha=3/8
-transform ``(r - 3/8) / (n + 1/4)``, the inverse normal CDF, type-7
-quantiles, folding around the per-parameter median. A NaN in a parameter
-slice poisons that slice.
+parameter's joint sample is one contiguous row: the sort (K13, a stable
+radix sort of all rows at once that carries each value's flat row), the
+tied ranks with their Blom normal scores (K12, which also scatters the
+bulk's back along the rows), the fold merge (K10) and the split-chain
+moments (K11) all run along the last, contiguous axis. Reference
+conventions (src/utils.jl:148-193): tied ("average") ranks, the Blom
+alpha=3/8 transform ``(r - 3/8) / (n + 1/4)``, the inverse normal CDF,
+type-7 quantiles, folding around the per-parameter median. A NaN in a
+parameter slice poisons that slice.
 
 The tail transform reuses the sort of ``x``: along a sorted row the folded
 keys ``|x - med|`` fall, then rise, so ``folded_rank_values_sorted`` sorts
-them either with a stable ``torch.sort`` or, with ``merge="two_sort"``, as
-the merge of two sorted runs (kernel K10 on a CUDA float32 tensor, the JAX
-package's two-axis ``valley_sort_2d`` written for rows on any other). It
-returns the values in fold-sorted order with their original flat rows, and
-the tail R-hat takes its split-chain moments straight from them
+them either with K13 or, with ``merge="two_sort"``, as the merge of two
+sorted runs (kernel K10 on a CUDA float32 tensor, the JAX package's
+two-axis ``valley_sort_2d`` written for rows on any other). It returns the
+values in fold-sorted order with their original flat rows, and the tail
+R-hat takes its split-chain moments straight from them
 (``ops/seghist.py``): nothing is scattered back to (draw, chain) order.
 """
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.radix_sort import sort_rows, sort_rows_keys
 from ..kernels.tiedrank import (  # noqa: F401  (K12's plain pieces)
     _avg_ranks_sorted, _blom_normal, _scatter_rows, tied_blom)
 from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
@@ -50,12 +52,13 @@ def _has_nan_cols(xf: torch.Tensor) -> torch.Tensor:
 
 def _nan_rows(xs: torch.Tensor) -> torch.Tensor:
     """``(P, N) -> (P,)`` bool, True where the SORTED row holds a NaN,
-    reading only its two ends. Every sort of the port leaves a row's NaNs at
-    its ends, but not always at the same one: the CPU's ``torch.sort`` puts
-    every NaN last, while the card's radix sort orders floats by their bits,
-    so a NaN with the sign bit set (``0xffc00000``: ``-np.nan``, or ``inf -
-    inf`` on the host) sorts before ``-inf`` and one without it after
-    ``+inf``. A row's first or last entry is NaN exactly when it holds one."""
+    reading only its two ends. The exact mode's row sort (K13, and its plain
+    version on every other device) orders floats by their bits as the
+    card's radix sort does, so a NaN with the sign bit set (``0xffc00000``:
+    ``-np.nan``, or ``inf - inf`` on the host) sorts before ``-inf`` and one
+    without it after ``+inf``; the CPU's ``torch.sort`` puts every NaN
+    last. Either way a row's NaNs sit at its ends, and its first or last
+    entry is NaN exactly when it holds one."""
     return torch.isnan(xs[:, 0]) | torch.isnan(xs[:, -1])
 
 
@@ -90,15 +93,15 @@ def _rows(x3: torch.Tensor) -> torch.Tensor:
 
 
 def sort_with_positions(x3: torch.Tensor):
-    """One sort of the sample's rows: ``(xs, order, bad)`` — ``xs`` ``(P,
-    N)``, each row ascending (its NaNs at one end or both: ``_nan_rows``),
-    ``order`` the original flat row ``draw * chains + chain`` of each value,
-    and the ``(P,)`` NaN-poisoned rows. What is computed from a poisoned row
-    is masked by ``bad``, and its median set to NaN before the fold. The
-    sort is stable: tied values keep their flat order on every device, and
-    that is the order in which a row whose median is NaN (every folded key
-    NaN) is ranked."""
-    xs, order = torch.sort(_rows(x3), dim=1, stable=True)
+    """One sort of the sample's rows (K13): ``(xs, order, bad)`` — ``xs``
+    ``(P, N)``, each row ascending (its NaNs at one end or both:
+    ``_nan_rows``), ``order`` the original flat row ``draw * chains +
+    chain`` of each value, and the ``(P,)`` NaN-poisoned rows. What is
+    computed from a poisoned row is masked by ``bad``, and its median set to
+    NaN before the fold. The sort is stable: tied values keep their flat
+    order on every device, and that is the order in which a row whose
+    median is NaN (every folded key NaN) is ranked."""
+    xs, order = sort_rows(_rows(x3))
     return xs, order, _nan_rows(xs)
 
 
@@ -119,9 +122,9 @@ def tiedrank(xf: torch.Tensor) -> torch.Tensor:
     src/utils.jl:180): equal values share the mean of their positions. A NaN
     equals nothing and ranks after every number, the NaNs of a column in
     their order along it, on every device: their sign bits are cleared
-    first, since the card's sort would put a sign-bit NaN first."""
+    first, since the row sort (K13) puts a sign-bit NaN first."""
     x = torch.where(torch.isnan(xf), torch.nan, xf)
-    xs, order = torch.sort(_transpose(x), dim=1, stable=True)
+    xs, order = sort_rows(_transpose(x))
     return _transpose(tied_blom(xs, order, blom=False))
 
 
@@ -155,8 +158,8 @@ def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     original flat row of each: ``(zf_sorted, forder)``, both ``(P, N)``,
     from the sort of ``x`` (``xs``, ``order``) and the row medians ``med``.
 
-    ``merge``: ``None`` sorts the folded keys with a stable ``torch.sort``
-    along each row; ``"two_sort"`` merges the valley
+    ``merge``: ``None`` sorts the folded keys along each row (K13) and
+    gathers ``order`` by their positions; ``"two_sort"`` merges the valley
     (``kernels.valley.valley_merge``: K10 on a CUDA float32 tensor,
     ``valley_sort_2d`` on any other). The keys are bit-identical either way
     and only the order of tied keys differs, which the tied-average ranks
@@ -165,7 +168,7 @@ def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
     if merge == "two_sort":
         fs, forder = valley_merge(xs, order, med)
     else:
-        fs, fidx = torch.sort(torch.abs(xs - med[:, None]), dim=1, stable=True)
+        fs, fidx = sort_rows(torch.abs(xs - med[:, None]))
         forder = order.gather(1, fidx)
     return tied_blom(fs), forder
 
@@ -173,7 +176,7 @@ def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):
 def batched_quantile(x3: torch.Tensor, p: float) -> torch.Tensor:
     """Per-parameter type-7 quantile over the joint (draw, chain) sample,
     ``(P,)``, NaN where the parameter slice holds a NaN."""
-    xs = torch.sort(_rows(x3), dim=1).values
+    xs = sort_rows_keys(_rows(x3))
     return torch.where(_nan_rows(xs), torch.nan, sorted_quantile(xs, p))
 
 

@@ -14,8 +14,9 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
   in-core path computes moments this path takes from collectives);
 - the rank transforms (``rank_impl``):
 
-  - ``"gather"``: one ``all_gather`` of the chain blocks, one ``torch.sort``
-    of the full sample on every rank, this rank's chains sliced back out
+  - ``"gather"``: one ``all_gather`` of the chain blocks, one sort of the
+    full sample's rows on every rank (kernel K13 on a CUDA float32 block),
+    this rank's chains sliced back out
     (the in-core helpers of ``ops/ranknorm.py``, on rows ``(P, N)``);
   - ``"ring"``: tied ranks by the ring merge-count of ``ring_rank.py``,
     O(N_local) memory, on this rank's block as ``(N_local, P)`` (its own

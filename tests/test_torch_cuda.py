@@ -46,6 +46,11 @@ the table follows the plain score and equals the sorted z. A column of
 sign-bit NaNs (which the card's radix sort puts first) comes out NaN in
 every exact call, the other columns bit-equal to the ``+nan`` sample's and
 within the slice's limits of the CPU (BASELINE.md's 1e-6 in float64). The
+K13's keys are bit for bit those of the card's ``torch.sort(dim=1,
+stable=True)`` and its positions equal, on rows with ties, +-0.0, +-inf and
+NaNs of either sign, off its tile and at the flagship width, two runs
+bit-equal; the exact calls through K13 equal, bit for bit, the same calls
+through its plain version. The
 HMC core on float64 draws tracks the CPU to 1e-8; the JAX method names
 launch K5 (``pallas``) and K1 (``fused``). Float32 matrix
 products run in full float32:
@@ -1552,3 +1557,144 @@ def test_tiedrank_on_the_card_runs_k12(cuda_device):  # noqa: F811
     got = mtt.ops.tiedrank(x.to(cuda_device))
     assert kernels.launch_counts()["K12"] == 1
     assert torch.equal(got.cpu(), mtt.ops.tiedrank(x))
+
+
+# ---- K13: the exact mode's row sort -----------------------------------------
+
+_K13_KINDS = ["normal", "ties", "all_equal", "infinities", "signed_zeros",
+              "nan", "signed_nan", "mixed"]
+
+
+def _k13_rows(kind, p, n, seed=0):
+    """``(p, n)`` float32 rows holding what ``kind`` names (as in
+    ``tests/test_torch_radix_sort.py``)."""
+    rng = np.random.default_rng(seed + 7 * n + p)
+    x = rng.standard_normal((p, n))
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "all_equal":
+        x[:] = 0.75
+    elif kind == "infinities":
+        x[:, ::3] = np.inf
+        x[:, 1::4] = -np.inf
+    elif kind == "signed_zeros":
+        x[:, ::2] = -0.0
+        x[:, 1::3] = 0.0
+    elif kind == "nan":
+        x[:, ::3] = np.nan
+    elif kind == "signed_nan":
+        x[:, ::3] = -np.nan
+        x[:, 1::5] = np.nan
+    elif kind == "mixed":
+        x = np.round(x * 2) / 2
+        x[:, ::7] = -0.0
+        x[:, 1::11] = -np.nan
+        x[:, 2::13] = np.nan
+        x[:, 3::5] = -np.inf
+        x[:, 4::9] = np.inf
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _same_sort(a, b):
+    """Keys bit for bit, positions equal."""
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1), (1, 7), (3, 300),
+                                   (2, 3841), (2, 2 * 3840 - 5), (3, 4096),
+                                   (3, 4097), (5, 100_003)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", _K13_KINDS)
+def test_k13_matches_torch_sort(cuda_device, kind, shape):  # noqa: F811
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    x = _k13_rows(kind, *shape).to(cuda_device)
+    before = k13.sort_rows.launches
+    got = k13.sort_rows(x)
+    keys = k13.sort_rows_keys(x)
+    assert k13.sort_rows.launches == before + 2
+    assert got[1].dtype == torch.int64 and got[1].is_contiguous()
+    want = torch.sort(x, dim=1, stable=True)
+    torch.cuda.synchronize()
+    assert _same_sort(got, want)
+    assert _same_sort(got, k13.sort_rows_plain(x))
+    assert torch.equal(keys.view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [64, 256])
+def test_k13_at_the_flagship_width(cuda_device, rows):  # noqa: F811
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, 1_280_000), generator=g, device=cuda_device)
+    x[1] = torch.round(x[1] * 4) / 4
+    x[2, ::5] = -0.0
+    x[3, ::1001] = -torch.nan
+    got = k13.sort_rows(x)
+    again = k13.sort_rows(x)
+    want = torch.sort(x, dim=1, stable=True)
+    torch.cuda.synchronize()
+    assert _same_sort(got, want)
+    assert _same_sort(got, again)
+
+
+def test_k13_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa: F811
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    x = torch.zeros((4, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        k13.sort_rows(x.half())
+    with pytest.raises(NotImplementedError):
+        k13.sort_rows_keys(x.half())
+    with pytest.raises(ValueError):
+        k13.sort_rows(x.t())
+    with pytest.raises(ValueError):
+        k13.sort_rows(x[None])
+
+
+def test_k13_float64_on_the_card_launches_nothing(cuda_device):  # noqa: F811
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    x = _k13_rows("mixed", 3, 5000).double().to(cuda_device)
+    before = k13.sort_rows.launches
+    got = k13.sort_rows(x)
+    assert k13.sort_rows.launches == before
+    assert torch.equal(got[1], torch.sort(x, dim=1, stable=True).indices)
+    assert torch.equal(got[1].cpu(), k13.sort_rows_plain(x.cpu())[1])
+
+
+@pytest.mark.parametrize("fn,kw,launches", [
+    ("ess_rhat", dict(kind="rank"), 1),
+    ("ess_rhat", dict(kind="rank", fold_impl="sort"), 2),
+    ("ess_rhat", dict(kind="tail"), 1),
+    ("ess_rhat", dict(kind="bulk"), 1),
+    ("ess", dict(kind="median"), 1),
+    ("mcse", dict(kind=mtt.Quantile(0.3)), 1),
+], ids=lambda v: str(v))
+def test_exact_calls_launch_k13_and_equal_the_plain_route(
+        cuda_device, monkeypatch, fn, kw, launches):  # noqa: F811
+    """The exact calls on the card sort through K13, and give what the same
+    calls give with K13's plain version in its place, bit for bit."""
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics import mcse as mcse_mod
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+    from mcmcdiagnostictools_jl_tpu_torch.ops import ranknorm as rn
+
+    x = torch.from_numpy(_ar1(8, (2000, 32, 64)).astype(np.float32))
+    x[:, :, 3] = torch.round(x[:, :, 3])
+    x[5, 2, 4] = -np.nan
+    x = x.to(cuda_device)
+    kernels.reset_launch_counts()
+    got = getattr(mtt, fn)(x, **kw)
+    assert kernels.launch_counts()["K13"] == launches
+    monkeypatch.setattr(rn, "sort_rows", k13.sort_rows_plain)
+    monkeypatch.setattr(rn, "sort_rows_keys",
+                        lambda v: k13.sort_rows_plain(v)[0])
+    monkeypatch.setattr(mcse_mod, "sort_rows_keys",
+                        lambda v: k13.sort_rows_plain(v)[0])
+    kernels.reset_launch_counts()
+    want = getattr(mtt, fn)(x, **kw)
+    assert kernels.launch_counts()["K13"] == 0
+    for g, w in zip(got, want) if isinstance(got, tuple) else [(got, want)]:
+        assert bool(torch.isnan(g[4]))
+        _assert_equal_nan(g, w)
