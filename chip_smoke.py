@@ -105,8 +105,7 @@ and exits nonzero, printing no result, if any phase fails:
     card and on the CPU (1e-5);
 14. BASELINE.md config 5's R* (100 draws x 10,000 chains x 4 params: 20,000
     classes on ~700k training rows) through the class-chunked fit, which
-    must run, mean in [0.9, 1.1]; wall, peak memory, and the device time
-    split between the logit products, the histograms and the rest; then its
+    must run, mean in [0.9, 1.1]; wall and peak memory; then its
     first 256 chains through the dense and the class-chunked fit (splits
     equal, leaf values within 5e-6);
 15. float64 on the card: ``ess_rhat`` in both rank modes, ``mcse`` mean and
@@ -2130,43 +2129,15 @@ def phase_rstar_dense() -> dict:
     return out
 
 
-def profile_split(fn, labels) -> dict:
-    """One call of ``fn`` under the profiler: device time (ms) of the
-    kernels launched inside each ``record_function`` label and of the rest,
-    by walking each launching op up to its labelled ancestor."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    split = {lab: 0.0 for lab in labels}
-    split["rest"] = 0.0
-    for e in prof.events():
-        if e.device_type.name != "CPU" or not e.kernels or e.name in labels:
-            continue
-        lab, p = "rest", e.cpu_parent
-        while p is not None:
-            if p.name in labels:
-                lab = p.name
-                break
-            p = p.cpu_parent
-        split[lab] += sum(k.duration for k in e.kernels
-                          if k.name not in labels) / 1e3
-    return split
-
-
 def phase_rstar_bigk() -> dict:
     """BASELINE.md config 5's R* (benchmarks/suite.py: 100 draws x 10,000
     chains x 4 params, standard normal float32, seed 0) through
     ``GBTClassifier(n_rounds=20, n_bins=32, class_chunk=256)`` with rng=0:
     20,000 split-chain classes on ~700k training rows through the
     class-chunked fit, which must run; the mean must lie in [0.9, 1.1].
-    Wall and peak device memory of one run, then the device time split
-    between the logit products, the histograms and the rest from a second
-    run under the profiler. Then the first 256 chains through the dense fit
-    and the class-chunked fit (64 classes a chunk): splits equal, leaf
-    values within 5e-6."""
+    Wall and peak device memory of one run. Then the first 256 chains
+    through the dense fit and the class-chunked fit (64 classes a chunk):
+    splits equal, leaf values within 5e-6."""
     import mcmcdiagnostictools_jl_tpu_torch as mtt
     from mcmcdiagnostictools_jl_tpu_torch.models import gbt
 
@@ -2191,12 +2162,6 @@ def phase_rstar_bigk() -> dict:
     print(f"[14 config 5 R*] mean {mean:.4f} (bounds 0.9, 1.1), {dist.n} test "
           f"rows; wall {wall:.2f} s (fit {fit_s:.2f} s), peak +{peak:.2f} GB")
     check(0.9 <= mean <= 1.1, "config 5 R* outside [0.9, 1.1]")
-    split = profile_split(lambda: mtt.rstar(clf, xg, rng=0),
-                          ("gbt.logits", "gbt.hist"))
-    total = sum(split.values())
-    print(f"[14 device time] {total / 1e3:.2f} s: logit products "
-          f"{split['gbt.logits'] / 1e3:.2f} s, histograms "
-          f"{split['gbt.hist'] / 1e3:.2f} s, rest {split['rest'] / 1e3:.2f} s")
 
     # the first 256 chains (512 split-chain classes, 25,600 rows) through
     # the dense fit and the class-chunked fit: the same forest

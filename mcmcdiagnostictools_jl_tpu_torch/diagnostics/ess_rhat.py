@@ -74,6 +74,7 @@ from ..ops.ranknorm import (
 )
 from ..ops.seghist import split_chain_stats_from_sorted
 from ..utils.layout import canonicalize, maybe_scalar
+from ..utils.profiling import annotate, host_sync
 from ..utils.split import split_chains_reshape
 
 
@@ -280,28 +281,34 @@ def _basic_ess_rhat(x3, split_chains: int, maxlag: int, method,
                     relative: bool):
     """Split -> moments -> autocov curve -> rho -> Geyer on (draws, C, P)
     (reference ``_ess_rhat_basic!``, src/ess_rhat.jl:488-602)."""
-    samples = split_chains_reshape(x3, split_chains)
-    niter, nchains, _ = samples.shape
-    ntotal = niter * nchains
+    with annotate("mdt.moments"):
+        samples = split_chains_reshape(x3, split_chains)
+        niter, nchains, _ = samples.shape
+        stats, rho = _stats_rho(samples, maxlag, method)
+    return geyer_ess_from_rho(rho, niter * nchains, relative), stats.rhat
+
+
+def _stats_rho(samples, maxlag: int, method):
+    """``(ChainStats, rho)`` of the split chains: moments, autocovariance
+    and autocorrelation up to ``maxlag`` (the fused route up to
+    ``_ADAPTIVE_L0`` lags alone where every Geyer walk stops inside them)."""
     if method == "kernel":
 
         def stats_rho(lag):
             stats, acov = fused_chain_stats_autocov(samples, lag)
-            rho = 1.0 - (stats.w[None] - acov) / stats.var_plus[None]
-            return stats, rho
+            return stats, 1.0 - (stats.w[None] - acov) / stats.var_plus[None]
 
         if maxlag >= 2 * _ADAPTIVE_L0:
             stats0, rho0 = stats_rho(_ADAPTIVE_L0)
-            # host branch: one device-to-host sync per call
-            if bool(_geyer_walk_stopped(rho0).all()):
-                return geyer_ess_from_rho(rho0, ntotal, relative), stats0.rhat
-        stats, rho = stats_rho(maxlag)
-        return geyer_ess_from_rho(rho, ntotal, relative), stats.rhat
+            with host_sync("geyer_probe"):
+                stopped = bool(_geyer_walk_stopped(rho0).all())
+            if stopped:
+                return stats0, rho0
+        return stats_rho(maxlag)
     stats = chain_stats(samples)
     centered = samples - stats.chain_mean[None]
     acov = mean_autocov_curve(centered, stats.chain_var, maxlag, method)
-    rho = 1.0 - (stats.w[None] - acov) * (1.0 / stats.var_plus)[None]
-    return geyer_ess_from_rho(rho, ntotal, relative), stats.rhat
+    return stats, 1.0 - (stats.w[None] - acov) * (1.0 / stats.var_plus)[None]
 
 
 def _basic_rhat(x3, split_chains: int):
@@ -331,17 +338,19 @@ def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
     ``1 - tail_prob/2``, and the R-hat of the rank-normal ``|x - med|``."""
     ps = (tail_prob / 2, 1 - tail_prob / 2, 0.5)
     d, c, p = x3.shape
-    if rank_mode == "fast":
-        xf = x3.reshape(d * c, p).contiguous()
-        cdf = build_hist_cdf(xf, nbins)
-        t_lo, t_hi, med = hist_quantile(cdf, ps, nbins)
-        z_tail = fast_rank_fold(xf, cdf, med, nbins)
-        return t_lo, t_hi, _basic_rhat(z_tail.reshape(d, c, p), split_chains)
-    xs, order, bad = sort_with_positions(x3)
-    t_lo, t_hi, med = (torch.where(bad, torch.nan, sorted_quantile(xs, q))
-                       for q in ps)
-    return t_lo, t_hi, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
-                                            split_chains, fold_merge)
+    with annotate("mdt.rank." + rank_mode):
+        if rank_mode == "fast":
+            xf = x3.reshape(d * c, p).contiguous()
+            cdf = build_hist_cdf(xf, nbins)
+            t_lo, t_hi, med = hist_quantile(cdf, ps, nbins)
+            z_tail = fast_rank_fold(xf, cdf, med, nbins)
+            return t_lo, t_hi, _basic_rhat(z_tail.reshape(d, c, p),
+                                           split_chains)
+        xs, order, bad = sort_with_positions(x3)
+        t_lo, t_hi, med = (torch.where(bad, torch.nan, sorted_quantile(xs, q))
+                           for q in ps)
+        return t_lo, t_hi, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
+                                                split_chains, fold_merge)
 
 
 def _tail_ess_rhat(x3, *, split_chains, maxlag, method, relative, tail_prob,
@@ -360,20 +369,22 @@ def _tail_ess_rhat(x3, *, split_chains, maxlag, method, relative, tail_prob,
 def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int,
                           fold_merge: str | None = None):
     """``(z_bulk, rhat_tail)`` for the rank kind."""
-    if rank_mode == "fast":
-        z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
-        return z_bulk, _basic_rhat(z_tail, split_chains)
-    xs, order, bad = sort_with_positions(x3)
-    med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
-    z = rank_normalize_from_sort(xs, order, bad).reshape(x3.shape)
-    return z, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
-                                   split_chains, fold_merge)
+    with annotate("mdt.rank." + rank_mode):
+        if rank_mode == "fast":
+            z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
+            return z_bulk, _basic_rhat(z_tail, split_chains)
+        xs, order, bad = sort_with_positions(x3)
+        med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
+        z = rank_normalize_from_sort(xs, order, bad).reshape(x3.shape)
+        return z, _tail_rhat_from_sort(xs, order, med, bad, x3.shape,
+                                       split_chains, fold_merge)
 
 
 def _bulk_transform(x3, rank_mode: str, nbins: int):
-    if rank_mode == "fast":
-        return fast_rank_normalize(x3, nbins)
-    return rank_normalize(x3)
+    with annotate("mdt.rank." + rank_mode):
+        if rank_mode == "fast":
+            return fast_rank_normalize(x3, nbins)
+        return rank_normalize(x3)
 
 
 def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
@@ -514,18 +525,19 @@ def ess(samples, *, kind="bulk", relative: bool = False,
     a method name or a callable.
     """
     _check_rank_mode(rank_mode)
-    x3, pshape = _canonical_input(samples, device)
-    kind, q = _normalize_estimator(kind)
-    if kind == "tail":
-        if not 0 < tail_prob < 1:
-            raise ValueError("tail_prob must be in (0, 1)")
-        q = tail_prob
-    vals = _ess_array(x3, kind, q, split_chains=split_chains, maxlag=maxlag,
-                      relative=relative, autocov_method=autocov_method,
-                      rank_mode=rank_mode, rank_nbins=rank_nbins,
-                      param_chunk=param_chunk,
-                      fold_merge=_resolve_fold_merge(x3, fold_impl))
-    return maybe_scalar(vals, pshape)
+    with annotate("mdt.ess"):
+        x3, pshape = _canonical_input(samples, device)
+        kind, q = _normalize_estimator(kind)
+        if kind == "tail":
+            if not 0 < tail_prob < 1:
+                raise ValueError("tail_prob must be in (0, 1)")
+            q = tail_prob
+        vals = _ess_array(x3, kind, q, split_chains=split_chains,
+                          maxlag=maxlag, relative=relative,
+                          autocov_method=autocov_method, rank_mode=rank_mode,
+                          rank_nbins=rank_nbins, param_chunk=param_chunk,
+                          fold_merge=_resolve_fold_merge(x3, fold_impl))
+        return maybe_scalar(vals, pshape)
 
 
 def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
@@ -538,11 +550,12 @@ def rhat(samples, *, kind: str = "rank", split_chains: int = 2,
     if kind not in _RHAT_KINDS:
         raise ValueError(f"the `kind` `{kind}` is not supported by `rhat`")
     _check_rank_mode(rank_mode)
-    x3, pshape = _canonical_input(samples, device)
-    vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                          fold_merge=_resolve_fold_merge(x3, fold_impl),
-                          rank_mode=rank_mode, rank_nbins=rank_nbins)
-    return maybe_scalar(vals, pshape)
+    with annotate("mdt.rhat"):
+        x3, pshape = _canonical_input(samples, device)
+        vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
+                              fold_merge=_resolve_fold_merge(x3, fold_impl),
+                              rank_mode=rank_mode, rank_nbins=rank_nbins)
+        return maybe_scalar(vals, pshape)
 
 
 def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
@@ -558,27 +571,29 @@ def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
     if kind not in _RHAT_KINDS:
         raise ValueError(f"the `kind` `{kind}` is not supported by `ess_rhat`")
     _check_rank_mode(rank_mode)
-    x3, pshape = _canonical_input(samples, device)
-    _check_maxlag(maxlag)
-    fold_merge = _resolve_fold_merge(x3, fold_impl)
-    niter = x3.shape[0] // split_chains
-    if niter <= 4:
-        _warn_short(niter)
-        ess_vals = torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
-                              device=x3.device)
-        rhat_vals = _rhat_pipeline(x3, kind=kind, split_chains=split_chains,
-                                   fold_merge=fold_merge, rank_mode=rank_mode,
-                                   rank_nbins=rank_nbins)
+    with annotate("mdt.ess_rhat"):
+        x3, pshape = _canonical_input(samples, device)
+        _check_maxlag(maxlag)
+        fold_merge = _resolve_fold_merge(x3, fold_impl)
+        niter = x3.shape[0] // split_chains
+        if niter <= 4:
+            _warn_short(niter)
+            ess_vals = torch.full((x3.shape[2],), torch.nan, dtype=x3.dtype,
+                                  device=x3.device)
+            rhat_vals = _rhat_pipeline(
+                x3, kind=kind, split_chains=split_chains,
+                fold_merge=fold_merge, rank_mode=rank_mode,
+                rank_nbins=rank_nbins)
+        else:
+            ess_vals, rhat_vals = _ess_rhat_pipeline(
+                x3, kind=kind, split_chains=split_chains,
+                maxlag=min(maxlag, niter - 4),
+                method=_method_name(autocov_method), relative=relative,
+                q=tail_prob, param_chunk=param_chunk, fold_merge=fold_merge,
+                rank_mode=rank_mode, rank_nbins=rank_nbins,
+            )
         return ESSRhat(maybe_scalar(ess_vals, pshape),
                        maybe_scalar(rhat_vals, pshape))
-    ess_vals, rhat_vals = _ess_rhat_pipeline(
-        x3, kind=kind, split_chains=split_chains,
-        maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
-        relative=relative, q=tail_prob, param_chunk=param_chunk,
-        fold_merge=fold_merge, rank_mode=rank_mode, rank_nbins=rank_nbins,
-    )
-    return ESSRhat(maybe_scalar(ess_vals, pshape),
-                   maybe_scalar(rhat_vals, pshape))
 
 
 def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,

@@ -19,6 +19,7 @@ import torch
 from ..ops.ranknorm import fold_around_median, rank_normalize
 from ..utils.indices import unique_indices
 from ..utils.layout import maybe_scalar
+from ..utils.profiling import annotate, host_sync
 from ..utils.split import split_chains_reshape
 from .ess_rhat import _canonical_input
 
@@ -38,21 +39,27 @@ def rhat_nested(samples, superchain_ids, *, kind: str = "rank",
     if kind not in _KINDS:
         raise ValueError(
             f"the `kind` `{kind}` is not supported by `rhat_nested`")
-    x3, pshape = _canonical_input(samples, device, min_ndim=2)
-    perm, nsuper = _validate_superchain_ids(superchain_ids, x3.shape[1])
-    perm = torch.as_tensor(perm, device=x3.device)
-    if kind == "rank":
-        bulk = _rhat_nested_basic(rank_normalize(x3), perm, nsuper,
-                                  split_chains)
-        tail = _rhat_nested_basic(rank_normalize(fold_around_median(x3)),
-                                  perm, nsuper, split_chains)
-        return maybe_scalar(torch.maximum(bulk, tail), pshape)
-    if kind == "bulk":
-        x3 = rank_normalize(x3)
-    elif kind == "tail":
-        x3 = rank_normalize(fold_around_median(x3))
-    return maybe_scalar(_rhat_nested_basic(x3, perm, nsuper, split_chains),
-                        pshape)
+    with annotate("mdt.rhat_nested"):
+        x3, pshape = _canonical_input(samples, device, min_ndim=2)
+        perm, nsuper = _validate_superchain_ids(superchain_ids, x3.shape[1])
+        with host_sync("superchain_ids"):
+            perm = torch.as_tensor(perm, device=x3.device)
+        if kind == "rank":
+            bulk = _rhat_nested_basic(_ranked(x3, False), perm, nsuper,
+                                      split_chains)
+            tail = _rhat_nested_basic(_ranked(x3, True), perm, nsuper,
+                                      split_chains)
+            return maybe_scalar(torch.maximum(bulk, tail), pshape)
+        if kind != "basic":
+            x3 = _ranked(x3, kind == "tail")
+        return maybe_scalar(_rhat_nested_basic(x3, perm, nsuper, split_chains),
+                            pshape)
+
+
+def _ranked(x3, fold: bool):
+    """The exact rank-normal sample, of ``|x - median|`` with ``fold``."""
+    with annotate("mdt.rank.exact"):
+        return rank_normalize(fold_around_median(x3) if fold else x3)
 
 
 def _validate_superchain_ids(superchain_ids, nchains: int):
@@ -74,15 +81,16 @@ def _validate_superchain_ids(superchain_ids, nchains: int):
 def _rhat_nested_basic(x3, perm, nsuper: int, split_chains: int):
     """Two-level within/between reduction (src/rhat_nested.jl:127-188),
     batched over parameters."""
-    samples = split_chains_reshape(x3[:, perm, :], split_chains)
-    niter, _, nparams = samples.shape
-    chain_mean = samples.mean(0)
-    centered = samples - chain_mean[None]
-    chain_var = (centered * centered).sum(0) / (niter - 1)
-    # an all-identical slice is NaN whatever the rounding of the sums
-    degenerate = (samples == samples[0, 0][None, None]).reshape(
-        -1, nparams).all(0)
-    return _nested_from_moments(chain_mean, chain_var, nsuper, degenerate)
+    with annotate("mdt.nested"):
+        samples = split_chains_reshape(x3[:, perm, :], split_chains)
+        niter, _, nparams = samples.shape
+        chain_mean = samples.mean(0)
+        centered = samples - chain_mean[None]
+        chain_var = (centered * centered).sum(0) / (niter - 1)
+        # an all-identical slice is NaN whatever the rounding of the sums
+        degenerate = (samples == samples[0, 0][None, None]).reshape(
+            -1, nparams).all(0)
+        return _nested_from_moments(chain_mean, chain_var, nsuper, degenerate)
 
 
 def _nested_from_moments(chain_mean, chain_var, nsuper: int, degenerate):

@@ -24,9 +24,7 @@ card.
 
 Many classes (the many-chain regime, ``_chunk_width``) take the
 class-chunked path ``_fit_gbt_bigk`` / ``_predict_stats_bigk``, which never
-holds the ``(n, K)`` logits. Its spans are labelled for the profiler:
-``gbt.logits`` (the products of the leaf history with the leaf values) and
-``gbt.hist`` (the histogram contractions).
+holds the ``(n, K)`` logits.
 
 ``ShardedGBTClassifier`` is the data-parallel fit over the ranks of a
 ``torch.distributed`` process group: both fits take a ``reduce`` hook that
@@ -43,7 +41,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..convert import to_tensor
 
@@ -277,8 +274,7 @@ def _level_hist(chunks, gh: torch.Tensor, nfeat: int, n_nodes: int,
                 n_bins: int) -> torch.Tensor:
     """(node, feature, bin) sums of the stacked ``gh`` (n, 2K) over the
     one-hot ``chunks`` of ``_onehot_chunks``: (n_nodes, F, n_bins, 2K)."""
-    with record_function("gbt.hist"):
-        parts = [oh.T @ gh for oh in chunks]
+    parts = [oh.T @ gh for oh in chunks]
     hists = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
     return hists.reshape(nfeat, n_nodes, n_bins, gh.shape[1]).transpose(0, 1)
 
@@ -416,8 +412,7 @@ def _fit_gbt_bigk(binned, y, *, num_classes, n_rounds, learning_rate,
     def exp_chunk(c0):
         """exp of the clipped logits of classes c0..c0+kc (unshifted: they
         lie in [-50, 50]), 0 for the padding past class k."""
-        with record_function("gbt.logits"):
-            e = oh_hist @ lv_all[:, c0:c0 + kc]
+        e = oh_hist @ lv_all[:, c0:c0 + kc]
         e = e.clamp_(-50.0, 50.0).exp_()
         if c0 + kc > k:
             e[:, k - c0:] = 0.0
@@ -514,8 +509,7 @@ def _predict_stats_bigk(binned, split_feature, split_bin, leaf_value, y,
     tl = torch.zeros(n, dtype=torch.float32, device=dev)
     for i in range(nch):
         c0 = i * kc
-        with record_function("gbt.logits"):
-            lg = oh_hist @ lv_flat[:, c0:c0 + kc]
+        lg = oh_hist @ lv_flat[:, c0:c0 + kc]
         lg = lg.clamp_(-50.0, 50.0)
         km = (c0 + karange) < k
         lgm = torch.where(km[None, :], lg, -torch.inf)

@@ -43,6 +43,7 @@ from ..kernels.fastrank import (
     pack_tables,
     rank_lookup,
 )
+from ..utils.profiling import host_sync
 
 DEFAULT_NBINS = 4096
 # Fuse Blom + ppnd7 into kernel K4 (the JAX package's flag, same default:
@@ -155,8 +156,12 @@ def hist_rank_value(cdf: HistCDF, h, nbins: int):
     in each column)."""
     cum = cdf.cum
     width = (cdf.hi - cdf.lo) / nbins
-    hv = torch.as_tensor(h, dtype=cum.dtype, device=cum.device).expand(
-        cdf.lo.shape)
+    if isinstance(h, torch.Tensor):
+        hv = h.to(cum.device, cum.dtype)
+    else:  # a host number copied to the device
+        with host_sync("hist_rank"):
+            hv = torch.as_tensor(h, dtype=cum.dtype, device=cum.device)
+    hv = hv.expand(cdf.lo.shape)
     # ranks in bin b span [cum[b] + 1/2, cum[b+1] + 1/2]
     k = ((cum + 0.5 <= hv[None, :]).sum(0) - 1).clamp(0, nbins - 1)
     kk = k[None, :]

@@ -32,6 +32,7 @@ from ..kernels.radix_sort import sort_rows, sort_rows_keys
 from ..kernels.tiedrank import (  # noqa: F401  (K12's plain pieces)
     _avg_ranks_sorted, _blom_normal, _scatter_rows, tied_blom)
 from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
+from ..utils.profiling import host_sync
 
 __all__ = ["_VALLEY_BLOCK", "valley_sort_2d", "folded_rank_values_sorted",
            "sort_with_positions", "rank_normalize", "rank_normalize_from_sort",
@@ -149,7 +150,8 @@ def sorted_quantile(xs: torch.Tensor, p: float) -> torch.Tensor:
     h = (n - 1) * torch.tensor(p, dtype=xs.dtype)  # host scalar, xs's dtype
     lo = min(max(int(torch.floor(h)), 0), n - 1)
     hi = min(lo + 1, n - 1)
-    g = (h - lo).to(xs.device)
+    with host_sync("quantile_offset"):
+        g = (h - lo).to(xs.device)
     return xs[:, lo] + g * (xs[:, hi] - xs[:, lo])
 
 

@@ -11,7 +11,13 @@ from .indices import (
     split_chain_indices,
     shuffle_split_stratified,
 )
-from .profiling import annotate, trace
+from .profiling import (
+    annotate,
+    host_sync,
+    reset_sync_counts,
+    sync_counts,
+    trace,
+)
 
 __all__ = [
     "canonicalize",
@@ -25,5 +31,8 @@ __all__ = [
     "split_chain_indices",
     "shuffle_split_stratified",
     "annotate",
+    "host_sync",
+    "reset_sync_counts",
+    "sync_counts",
     "trace",
 ]

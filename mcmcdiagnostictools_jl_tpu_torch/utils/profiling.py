@@ -4,7 +4,28 @@
   records the host's activity, and the card's where there is one, and writes
   a TensorBoard trace of everything inside the block into ``log_dir``;
 - :func:`annotate`: a named region (``torch.profiler.record_function``) that
-  shows up by name in a profile.
+  shows up by name in a profile. With no profiler running it is one shared
+  no-op context, so a region costs one flag check;
+- :func:`host_sync`: a region around a place where the host waits for the
+  device, counted by :func:`sync_counts` (reset by
+  :func:`reset_sync_counts`), one count a pass through the site whatever
+  the device.
+
+The diagnostics open these regions (names, outermost first):
+
+| region | what it holds |
+|---|---|
+| ``mdt.ess_rhat``, ``mdt.ess``, ``mdt.rhat``, ``mdt.rhat_nested`` | a public call, after its argument checks |
+| ``mdt.rank.exact``, ``mdt.rank.fast`` | one rank transform of the call: transposes, sorts, ranks, median, Blom and fold, in both rank modes the tail R-hat's moments |
+| ``mdt.moments`` | the split chains, their moments and autocovariance (K1 / K5) and the autocorrelation |
+| ``mdt.geyer`` | Geyer's reduction of the autocorrelation to an ESS |
+| ``mdt.nested`` | nested R-hat's superchain gather, split and two-level reduction |
+| ``mdt.sync.<site>`` | a host wait: ``geyer_probe`` (the adaptive lag probe's answer), ``superchain_ids`` (the chain permutation to the device), ``quantile_offset`` (the exact median's interpolation weight to the device), ``hist_rank`` (the fast median's rank to the device) |
+
+The layer regions do not nest in each other; a ``mdt.sync.*`` region may
+sit inside one. Every device operation of a public call on these paths is
+launched inside one of them, or inside the call's own region (its last
+elementwise step and the results' shape).
 
 The JAX package's third hook, ``enable_compilation_cache``, persists XLA's
 compiled programs and has no counterpart: the port compiles no programs at
@@ -14,8 +35,9 @@ run time, and its kernels are built once into a cached directory
 Example::
 
     from mcmcdiagnostictools_jl_tpu_torch.utils.profiling import trace
-    with trace("mdt-trace"):
+    with trace("mdt-trace") as prof:
         mtt.ess_rhat(x)
+    # prof.events() holds mdt.ess_rhat, mdt.rank.exact, mdt.moments, ...
 """
 
 from __future__ import annotations
@@ -23,7 +45,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity
+
+_OFF = contextlib.nullcontext()
+_SYNCS: dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -45,5 +71,24 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named region for profiles: ``with annotate("mdt.fold"): ...``."""
-    return torch.profiler.record_function(name)
+    """A named region for profiles: ``with annotate("mdt.fold"): ...``; the
+    shared no-op context while no profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def host_sync(site: str):
+    """The region ``mdt.sync.<site>`` around a host wait for the device,
+    counted once a ``with``: ``with host_sync("geyer_probe"): ...``."""
+    _SYNCS[site] = _SYNCS.get(site, 0) + 1
+    return annotate("mdt.sync." + site)
+
+
+def sync_counts() -> dict:
+    """Passes through each host-sync site since the last reset."""
+    return dict(_SYNCS)
+
+
+def reset_sync_counts() -> None:
+    _SYNCS.clear()

@@ -1,13 +1,88 @@
 """The port's profiling hooks (``utils/profiling.py``) on the CPU: ``trace``
-writes a TensorBoard trace of its block into the directory it is given, and
-an ``annotate`` region shows up by name among the profiler's events."""
+writes a TensorBoard trace of its block into the directory it is given, an
+``annotate`` region shows up by name among the profiler's events and costs
+a shared no-op while no profiler runs, the diagnostics open their layer
+regions (``mdt.*``) in order and unnested, and ``host_sync`` counts each
+pass through a host-sync site."""
 
 import json
 
+import numpy as np
+import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import mcmcdiagnostictools_jl_tpu_torch as mtt
 from mcmcdiagnostictools_jl_tpu_torch.utils import profiling
+
+CALLS = ("mdt.ess_rhat", "mdt.ess", "mdt.rhat", "mdt.rhat_nested")
+LAYERS = ("mdt.rank.exact", "mdt.rank.fast", "mdt.moments", "mdt.geyer",
+          "mdt.nested")
+
+
+def _sample(draws=400, chains=4, params=3):
+    return torch.randn((draws, chains, params), dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(0))
+
+
+IDS = np.repeat(np.arange(2), 2)  # two superchains of two chains
+
+CASES = {
+    # 400 draws: split chains of 200, maxlag 196, so the 64-lag probe runs
+    "exact": lambda x: mtt.ess_rhat(x, kind="rank"),
+    "fast": lambda x: mtt.ess_rhat(x, kind="rank", rank_mode="fast"),
+    "nested": lambda x: mtt.rhat_nested(x, IDS),
+    "ess_bulk": lambda x: mtt.ess(x, kind="bulk"),
+    "rhat_tail": lambda x: mtt.rhat(x, kind="tail"),
+}
+
+# (region, its innermost enclosing mdt. region), in the order they open
+TREES = {
+    "exact": [("mdt.ess_rhat", None),
+              ("mdt.rank.exact", "mdt.ess_rhat"),
+              ("mdt.sync.quantile_offset", "mdt.rank.exact"),
+              ("mdt.moments", "mdt.ess_rhat"),
+              ("mdt.sync.geyer_probe", "mdt.moments"),
+              ("mdt.geyer", "mdt.ess_rhat")],
+    "fast": [("mdt.ess_rhat", None),
+             ("mdt.rank.fast", "mdt.ess_rhat"),
+             ("mdt.sync.hist_rank", "mdt.rank.fast"),
+             ("mdt.moments", "mdt.ess_rhat"),
+             ("mdt.sync.geyer_probe", "mdt.moments"),
+             ("mdt.geyer", "mdt.ess_rhat")],
+    "nested": [("mdt.rhat_nested", None),
+               ("mdt.sync.superchain_ids", "mdt.rhat_nested"),
+               ("mdt.rank.exact", "mdt.rhat_nested"),
+               ("mdt.nested", "mdt.rhat_nested"),
+               ("mdt.rank.exact", "mdt.rhat_nested"),
+               ("mdt.sync.quantile_offset", "mdt.rank.exact"),
+               ("mdt.nested", "mdt.rhat_nested")],
+    "ess_bulk": [("mdt.ess", None),
+                 ("mdt.rank.exact", "mdt.ess"),
+                 ("mdt.moments", "mdt.ess"),
+                 ("mdt.sync.geyer_probe", "mdt.moments"),
+                 ("mdt.geyer", "mdt.ess")],
+    "rhat_tail": [("mdt.rhat", None),
+                  ("mdt.rank.exact", "mdt.rhat"),
+                  ("mdt.sync.quantile_offset", "mdt.rank.exact")],
+}
+
+
+def _regions(fn):
+    """Each ``mdt.`` region the call opened, in order: ``(name, the names
+    of its enclosing mdt. regions, innermost first)``."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    out = []
+    events = [e for e in prof.events() if e.name.startswith("mdt.")]
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        above, p = [], e.cpu_parent
+        while p is not None:
+            if p.name.startswith("mdt."):
+                above.append(p.name)
+            p = p.cpu_parent
+        out.append((e.name, above))
+    return out
 
 
 def test_trace_writes_a_file_and_annotate_names_a_region(tmp_path):
@@ -27,3 +102,69 @@ def test_trace_writes_a_file_and_annotate_names_a_region(tmp_path):
 def test_hooks_are_the_utils_names():
     assert mtt.utils.trace is profiling.trace
     assert mtt.utils.annotate is profiling.annotate
+    assert mtt.utils.host_sync is profiling.host_sync
+    assert mtt.utils.sync_counts is profiling.sync_counts
+    assert mtt.utils.reset_sync_counts is profiling.reset_sync_counts
+
+
+@pytest.mark.parametrize("case", sorted(TREES))
+def test_region_tree(case):
+    got = _regions(lambda: CASES[case](_sample()))
+    assert [(name, above[0] if above else None) for name, above in got] \
+        == TREES[case]
+
+
+@pytest.mark.parametrize("case", sorted(TREES))
+def test_layer_regions_sit_in_the_call_and_not_in_each_other(case):
+    for name, above in _regions(lambda: CASES[case](_sample())):
+        if name in CALLS:
+            assert above == []
+            continue
+        assert above and above[-1] in CALLS, name
+        if name in LAYERS:
+            assert not set(above) & set(LAYERS), (name, above)
+
+
+@pytest.mark.parametrize("case, draws, counts", [
+    ("exact", 400, {"geyer_probe": 1, "quantile_offset": 1}),
+    ("fast", 400, {"geyer_probe": 1, "hist_rank": 1}),
+    ("nested", 400, {"superchain_ids": 1, "quantile_offset": 1}),
+    # 100 draws: maxlag 46 < 128, no probe
+    ("exact", 100, {"quantile_offset": 1}),
+    ("fast", 100, {"hist_rank": 1}),
+])
+def test_sync_counts_a_call(case, draws, counts):
+    x = _sample(draws)
+    profiling.reset_sync_counts()
+    assert profiling.sync_counts() == {}
+    CASES[case](x)
+    assert profiling.sync_counts() == counts
+    CASES[case](x)  # counted with no profiler running, and summed
+    assert profiling.sync_counts() == {k: 2 * v for k, v in counts.items()}
+    profiling.reset_sync_counts()
+    assert profiling.sync_counts() == {}
+
+
+def test_annotate_is_a_shared_no_op_without_a_profiler():
+    a, b = profiling.annotate("mdt.a"), profiling.annotate("mdt.b")
+    assert a is b
+    with a:
+        with b:  # reentrant
+            pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        inside = profiling.annotate("mdt.a")
+    assert inside is not a
+    assert isinstance(inside, torch.profiler.record_function)
+    assert profiling.annotate("mdt.a") is a
+
+
+def test_host_sync_counts_without_a_profiler():
+    profiling.reset_sync_counts()
+    for _ in range(3):
+        with profiling.host_sync("site"):
+            pass
+    assert profiling.sync_counts() == {"site": 3}
+    counts = profiling.sync_counts()
+    counts["site"] = 0  # a copy
+    assert profiling.sync_counts() == {"site": 3}
+    profiling.reset_sync_counts()
