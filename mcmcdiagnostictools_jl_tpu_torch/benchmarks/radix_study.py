@@ -3,7 +3,10 @@
 ``python -m mcmcdiagnostictools_jl_tpu_torch.benchmarks.radix_study`` (needs
 the card) sorts the rows ``(P, 1.28M)`` of the flagship sample (10k draws x
 128 chains x 256 params, float32, as ``chip_smoke.py`` makes it) for P =
-256 and 64 (the bench's ``param_chunk``): K13 held bit for bit to
+256 and 64 (the bench's ``param_chunk``), then standard normal rows at the
+shapes the benchmark's sort cells run (``CELL_SHAPES``: 1000 rows of 1.28M,
+``batched_c4.exact``; 125 rows of 6.25M, a call of
+``many_chains_c5.nested``): K13 held bit for bit to
 ``torch.sort(dim=1, stable=True)`` (keys as bits, positions), then K13,
 its keys-only form, ``torch.sort`` and the plain version timed in turns
 behind a sleep on the card (medians of ``ROUNDS``), K13's launches one by
@@ -12,9 +15,11 @@ one under the profiler (the memset, the histograms, each digit pass),
 outlast the queue), and the peak memory of K13 and of ``torch.sort`` above
 their input.
 
-The design's ablation (digit width, keys a thread, blocks a
-multiprocessor, ranking by ballots or ``__match_any_sync``, when the
-positions are loaded) is in PERF.md (PR 17); its variants are not kept.
+The design's ablations (PR 17: digit width, keys a thread, blocks a
+multiprocessor, ranking by ballots or ``__match_any_sync``; PR 20: the
+persistent digit pass's look-back, ticket order, tile size and how keys and
+positions travel between passes) are in PERF.md; their variants are not
+kept.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from .profile_calls import make_sample
 
 SEED = 20261016  # chip_smoke.py's
 SHAPE = (10_000, 128, 256)
+CELL_SHAPES = ((1000, 1_280_000), (125, 6_250_000))
 ROUNDS = 9
 
 
@@ -76,43 +82,59 @@ def same_sort(a, b) -> bool:
             and torch.equal(a[1], b[1]))
 
 
-def table(device=None) -> dict:
+def study(x) -> dict:
+    """K13 on the rows ``x`` held bit for bit to ``torch.sort``, then timed
+    against it and the plain version; prints a line and returns the row."""
     from ..kernels import radix_sort as rs
 
+    p, n = x.shape
+    want = torch.sort(x, dim=1, stable=True)
+    got = rs.sort_rows(x)
+    if not (same_sort(got, want) and same_sort(rs.sort_rows(x), got)
+            and torch.equal(rs.sort_rows_keys(x).view(torch.int32),
+                            want[0].view(torch.int32))):
+        raise RuntimeError(f"K13 differs from torch.sort at ({p}, {n})")
+    del want, got
+    ms = interleaved_ms({
+        "K13": lambda: rs.sort_rows(x),
+        "K13 keys": lambda: rs.sort_rows_keys(x),
+        "torch.sort": lambda: torch.sort(x, dim=1, stable=True),
+        "plain": lambda: rs.sort_rows_plain(x),
+    }, ROUNDS)
+    bound = rs.design_bytes(p, n) / 3.35e9
+    floor = rs.floor_bytes(p, n) / 3.35e9
+    pieces = launches_ms(lambda: rs.sort_rows(x))
+    keys_pieces = launches_ms(lambda: rs.sort_rows_keys(x))
+    lib_device = device_ms(lambda: torch.sort(x, dim=1, stable=True))
+    row = dict(ms=ms, design_bound_ms=bound, floor_ms=floor,
+               torch_sort_device_ms=lib_device,
+               launches=[(_short(k), v) for k, v in pieces],
+               keys_launches=[(_short(k), v) for k, v in keys_pieces],
+               peak_gb={"K13": peak_gb(lambda: rs.sort_rows(x)),
+                        "torch.sort": peak_gb(
+                            lambda: torch.sort(x, dim=1, stable=True))})
+    print(f"({p}, {n}): K13 {ms['K13']:.3f} ms (design bound {bound:.3f},"
+          f" {bound / ms['K13']:.0%}; floor {floor:.3f}, "
+          f"{floor / ms['K13']:.0%}), keys only {ms['K13 keys']:.3f}, "
+          f"torch.sort {ms['torch.sort']:.3f} (device {lib_device:.3f}), "
+          f"plain {ms['plain']:.3f}; peak +{row['peak_gb']['K13']:.3f} GB "
+          f"(torch.sort +{row['peak_gb']['torch.sort']:.3f})", flush=True)
+    for label, lv in (("launches", row["launches"]),
+                      ("keys only", row["keys_launches"])):
+        print(f"   {label}: " + ", ".join(f"{k} {v:.3f}" for k, v in lv))
+    return row
+
+
+def table(device=None) -> dict:
     xr = flagship_rows(device)
     out = {}
     for p in (256, 64):
-        x = xr[:p].contiguous() if p < xr.shape[0] else xr
-        want = torch.sort(x, dim=1, stable=True)
-        got = rs.sort_rows(x)
-        if not (same_sort(got, want) and same_sort(rs.sort_rows(x), got)):
-            raise RuntimeError(f"K13 differs from torch.sort at ({p}, N)")
-        del want, got
-        n = x.shape[1]
-        ms = interleaved_ms({
-            "K13": lambda: rs.sort_rows(x),
-            "K13 keys": lambda: rs.sort_rows_keys(x),
-            "torch.sort": lambda: torch.sort(x, dim=1, stable=True),
-            "plain": lambda: rs.sort_rows_plain(x),
-        }, ROUNDS)
-        bound = rs.design_bytes(p, n) / 3.35e9
-        floor = rs.floor_bytes(p, n) / 3.35e9
-        pieces = launches_ms(lambda: rs.sort_rows(x))
-        lib_device = device_ms(lambda: torch.sort(x, dim=1, stable=True))
-        row = dict(ms=ms, design_bound_ms=bound, floor_ms=floor,
-                   torch_sort_device_ms=lib_device,
-                   launches=[(_short(k), v) for k, v in pieces],
-                   peak_gb={"K13": peak_gb(lambda: rs.sort_rows(x)),
-                            "torch.sort": peak_gb(
-                                lambda: torch.sort(x, dim=1, stable=True))})
-        out[p] = row
-        print(f"({p}, {n}): K13 {ms['K13']:.3f} ms (design bound {bound:.3f},"
-              f" {bound / ms['K13']:.0%}; floor {floor:.3f}), keys only "
-              f"{ms['K13 keys']:.3f}, torch.sort {ms['torch.sort']:.3f} "
-              f"(device {lib_device:.3f}), plain {ms['plain']:.3f}; peak +{row['peak_gb']['K13']:.3f} GB "
-              f"(torch.sort +{row['peak_gb']['torch.sort']:.3f})", flush=True)
-        print("   launches: " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                          row["launches"]))
+        out[p] = study(xr[:p].contiguous() if p < xr.shape[0] else xr)
+    del xr
+    for p, n in CELL_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + p)
+        out[(p, n)] = study(torch.randn((p, n), generator=g, device="cuda"))
+        torch.cuda.empty_cache()
     return out
 
 

@@ -10,8 +10,8 @@
 // (256, 1.28M)).
 //
 // The order. Keys are ordered as cub's radix sort orders floats, so the
-// result is bit for bit the card's `torch.sort` (checked at rows of 10 to
-// 1.28M entries): a key whose sign bit is set has all its bits
+// result is bit for bit the card's `torch.sort` (checked at rows of 1 to
+// 30.7M entries): a key whose sign bit is set has all its bits
 // flipped, any other only its sign bit, and the result is compared as an
 // unsigned integer. So a NaN with the sign bit set sorts before -inf and any
 // other NaN after +inf, NaNs apart by their payload bits. -0.0 is read as
@@ -27,60 +27,87 @@
 //     read of the keys, counted in shared memory (atomics), then one global
 //     atomicAdd a bin a block; a row is cut into `hist_chunks` blocks so that
 //     the grid fills the card at any row count;
-//  3. a launch a digit (`radix_digit_pass`, onesweep style). A block takes
-//     the next tile of kTile = kThreads * kItems keys of one row from a ticket
-//     counter on the card (tickets go row after row, tile after tile, so
-//     every tile a block waits on below belongs to a block that is already
-//     running). Each warp holds kItems keys a lane, lane-fastest
-//     (`warp * 32 kItems + i * 32 + lane`), so that (warp, item, lane) is the
-//     keys' order in the row. It ranks each key among the warp's keys of its
-//     digit: one ballot a digit bit gives the lanes that hold the key's
-//     digit, and the lowest of them adds their count to the warp's counter of the
-//     digit in shared memory, item after item, so the rank is stable.
-//     Per-warp counts scanned over the warps and the digits give each key
-//     its place in the tile sorted by digit. The digit's start in the
-//     output row is the row's exclusive histogram sum
-//     (scanned by the block from the histograms) plus the counts of the
-//     row's earlier tiles, found by decoupled look-back over per-(tile,
-//     digit) status words: a tile first publishes its count (flag
-//     `kAggregate`), then walks back over earlier tiles adding counts until
-//     it meets an inclusive prefix (`kPrefix`) and publishes its own. The
-//     block stages its keys (and positions) sorted by digit in shared memory
-//     and writes them out in that order, so each digit's run goes to
-//     consecutive addresses.
-// Positions are int32 (n < 2^30: a status word holds a count in 30 bits) and
-// are not read in pass 1, which writes them from the tile's index; the last
-// pass writes them widened to int64. Ping-pong: the keys go between keys_out
-// and keys_tmp so that the last pass lands in keys_out; the positions
-// between pos_tmp and the int64 output's own storage (free until the last
-// pass, which reads pos_tmp). Look-back buffers alternate between two
-// passes; a pass zeroes, for its own tile, the buffer of the next pass.
+//  3. a launch a digit (`radix_digit_pass`, onesweep style), on a persistent
+//     grid: as many blocks as the card holds at once (the occupancy API: 3 a
+//     multiprocessor), never more than the pass's tiles. A tile is kTile =
+//     kParts * kPart keys of one row; tickets from a counter on the card hand
+//     the tiles out in order (row after row, tile after tile). A block holds
+//     one ticket; its tile's parts arrive by the TMA (`cp.async.bulk`, whole
+//     16-byte pieces, so a row that starts off a 16-byte boundary lands a few
+//     words into its slot) in a ring of kParts slots in shared memory, each
+//     completing on its own mbarrier. On arrival the block counts the tile's
+//     digits (shared-memory atomics) and publishes the counts (flag
+//     `kAggregate`; the row's first tile `kPrefix`). It then ranks each part
+//     in turn: each warp holds kItems keys a lane, lane-fastest
+//     (`warp * 32 kItems + i * 32 + lane`), so that (part, warp, item, lane)
+//     is the keys' order in the row; one ballot a digit bit gives the lanes
+//     that hold a key's digit, and the lowest of them adds their count to the
+//     warp's counter of the digit, item after item, so the rank is stable.
+//     Per-warp counts scanned over the warps and the digits give each key its
+//     place in the part sorted by digit, where the block stages it (with its
+//     position) in the slot it came in. A digit's start in the output row is
+//     the row's exclusive histogram sum (scanned from the histograms) plus
+//     the counts of the row's earlier tiles, found by decoupled look-back over
+//     per-(tile, digit) status words (a thread a digit walks back, adding
+//     counts, until it meets an inclusive prefix, then publishes its own),
+//     plus the digit's keys in the tile's earlier parts. Its look-back done,
+//     the block takes its next ticket; it writes the tile out part by part,
+//     each digit's run to consecutive addresses, and as each slot is read
+//     the next tile's part is loaded into it, so the next tile's keys are in
+//     flight while this one is written.
+// Why the persistent grid cannot deadlock: a tile's look-back waits only on
+// tiles with lower tickets, and only until they have published their
+// counts, which a tile does on arrival with no wait of its own. A block
+// takes tickets in increasing order and works on them in that order, and
+// takes its next only once its look-back is done, so it never holds an
+// unpublished tile while it waits. Tickets are taken only by running blocks.
+// So the lowest unpublished ticket belongs to a running block that is not
+// waiting (its tile's keys are coming by the TMA, which waits on nothing),
+// and every look-back ends.
+// Positions are int32 (n < 2^30: a status word holds a count in 30 bits);
+// the first pass takes each key's place in its row as its position, and
+// between passes keys and positions travel as 8-byte (key, position) pairs,
+// one scattered stream (two scattered 4-byte streams to the same places were
+// measured 30 % slower a pass); the last pass writes keys and int64
+// positions. Ping-pong: keys alone between keys_out and tmp, so that the last
+// pass lands in keys_out; pairs between tmp and the int64 output's own
+// storage (free until the last pass, which reads tmp). Look-back buffers
+// alternate between two passes; a pass zeroes, for each of its tiles, the
+// buffer of the next pass.
 //
-// What bounds it on an H100: bytes. A call reads the keys once for the
+// What bounds it on an H100: not bytes. A call reads the keys once for the
 // histograms and, a pass, reads and writes the keys and (but in pass 1) the
-// positions: 4 + 12 + 16 + 16 + 20 = 68 bytes an entry with positions at 8
-// bits (6.65 ms at 3.35 TB/s for (256, 1.28M)), 36 keys alone. The floor of
-// any sort: read the keys and write keys and int64 positions once, 16 bytes
-// an entry. As built, a digit pass takes about twice its bytes' time
-// (measured, PERF.md): a block's phases (load, rank, look-back, scatter)
-// follow one another, and 3 blocks of 8 warps a multiprocessor (80
-// registers a thread) likely keep too few loads in flight (the stalls
-// were not measured). The design (8-bit digits, 15 keys a thread, 3 blocks
-// a multiprocessor, ballots, the positions loaded with the keys) was the
-// fastest of an ablation on the H100 (PERF.md, PR 17): 11-bit digits in
-// three passes, `__match_any_sync`, positions loaded after the ranking,
-// 2 or 4 blocks and 8 to 20 keys a thread were slower.
+// positions: 4 + 12 + 16 + 16 + 20 = 68 bytes an entry with positions (6.65
+// ms at 3.35 TB/s for (256, 1.28M)), 36 keys alone; any sort moves at least
+// 16 (keys in and out, int64 positions out), 8 keys alone. A pass is bound
+// by each tile's chain of latencies, at ~2.8 tiles in flight a
+// multiprocessor (80 registers a thread, 71 KB of shared memory a block),
+// and by its scattered writes (measured with clock64 stamps, PERF.md, PR
+// 20: at (1000, 1.28M) a tile of 7680 keys with positions lives ~28 us:
+// ballots ~9, counting ~3.8, scans and staging ~5.7, look-back ~4.8 (~8
+// dependent L2 reads a digit, no wait on an unpublished tile), scatter ~5;
+// waits for the TMA ~0.1). The sort takes 48.8 ms there: 53 % of its
+// design's bytes, 13 % of any sort's. Reading several status words at once, tickets interleaved
+// across rows, the ticket taken before the look-back, tiles of one part,
+// and writing each digit's run across both parts at once were measured
+// slower; the ranking (8-bit digits, 15 keys a thread, 3 blocks a
+// multiprocessor, ballots) won PR 17's ablation over 11-bit digits,
+// `__match_any_sync`, and 2 or 4 blocks with 8 to 20 keys a thread.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 15;  // keys a thread in a digit pass
-constexpr int kTile = kThreads * kItems;  // keys a block in a digit pass
+constexpr int kItems = 15;  // keys a thread ranks at once in a digit pass
+constexpr int kPart = kThreads * kItems;  // keys a block ranks at once
+constexpr int kParts = 2;  // parts of a tile, each in a slot of the ring
+constexpr int kTile = kParts * kPart;  // keys a ticket and a status word
 // digit-pass blocks a multiprocessor must hold (caps the registers)
 constexpr int kMinBlocks = 3;
 constexpr int kBits = 8;  // digit width
@@ -186,205 +213,348 @@ radix_histogram(const uint32_t* __restrict__ keys, int n, int chunks,
   }
 }
 
-// dynamic shared memory of a pass block: the warp sums and the ticket, the
-// digit bases, then the per-warp counters, later reused as the staging area
+// Dynamic shared memory of a pass block: the ring's mbarriers, the ticket
+// held, the warp sums, the digit bases of each part, the tile's digit
+// counts, the per-warp digit counters, then the ring: kParts slots, each a
+// part of keys or (kPos) of key-position pairs.
+constexpr int kOffHeld = 8 * kParts;
+constexpr int kOffSums = kOffHeld + 16;
+constexpr int kOffBase = kOffSums + 8 * kWarps;
+constexpr int kOffTileCnt = kOffBase + 4 * kParts * kRadix;
+constexpr int kOffCnt = kOffTileCnt + 4 * kRadix;
+constexpr int kOffRing = (kOffCnt + 4 * kWarps * kRadix + 127) / 128 * 128;
+
+// bytes of a ring slot: a part of 4-byte keys or 8-byte pairs, and the
+// words of a 16-byte piece before an unaligned part
 template <bool kPos>
-__host__ __device__ constexpr int digit_pass_smem_bytes() {
-  return kWarps * 8 + 16 + 4 * kRadix +
-         (kWarps * kRadix > kTile * (kPos ? 2 : 1)
-              ? 4 * kWarps * kRadix
-              : 4 * kTile * (kPos ? 2 : 1));
+__host__ __device__ constexpr int slot_bytes() {
+  return (kPos ? 8 : 4) * kPart + 16;
 }
 
-// One digit pass over every tile of every row (see the header). keys_in /
-// keys_out (p, n) as bits; pos_in null in the first pass (positions from the
-// tile's index), pos_out (int32) or, in the last pass (kLast), order_out
-// (int64); status this pass's look-back words (tiles, radix), status_next
-// the next pass's, zeroed here for this block's tile (null in the last).
+template <bool kPos>
+__host__ __device__ constexpr int digit_pass_smem_bytes() {
+  return kOffRing + kParts * slot_bytes<kPos>();
+}
+
+using mdt::mbar_arrive_expect_tx;
+using mdt::mbar_init;
+using mdt::mbar_wait;
+using mdt::smem_u32;
+
+// The 16-byte pieces that hold `count` elements of `size` bytes from `p`
+// on: where they start, how many bytes, and the elements before `p` in the
+// first piece.
+struct Pieces {
+  const void* from;
+  uint32_t bytes;
+  int lead;
+};
+
+__device__ __forceinline__ Pieces pieces(const void* p, int count, int size) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t a0 = a & ~uintptr_t(15);
+  const uintptr_t end = a + (uintptr_t)count * size;
+  return {reinterpret_cast<const void*>(a0),
+          (uint32_t)((end - a0 + 15u) & ~uintptr_t(15)),
+          (int)((a - a0) / size)};
+}
+
+// Key i of a ring slot that holds keys, or pairs (`paired`)
+__device__ __forceinline__ uint32_t key_at(const unsigned char* slot,
+                                           bool paired, int i) {
+  return paired ? reinterpret_cast<const uint2*>(slot)[i].x
+                : reinterpret_cast<const uint32_t*>(slot)[i];
+}
+
+// Part q of tile t into the ring slot `slot` by the TMA, completing on the
+// mbarrier `bar`: the keys, or with positions past the first pass the
+// pairs, in whole 16-byte pieces, so a row that starts off a 16-byte
+// boundary lands `lead` elements in. A part past the row's end moves
+// nothing, and its phase of the mbarrier completes all the same.
+__device__ __forceinline__ void load_part(const uint32_t* keys_in,
+                                          const uint2* pairs_in, int n,
+                                          int tiles, uint32_t t, int q,
+                                          unsigned char* slot, uint32_t bar) {
+  const int row = (int)(t / (uint32_t)tiles);
+  const int start = (int)(t - (uint32_t)row * tiles) * kTile + q * kPart;
+  const int count = min(kPart, n - start);
+  const long long off = (long long)row * n + start;
+  Pieces src{};
+  if (count > 0) {
+    src = pairs_in != nullptr ? pieces(pairs_in + off, count, 8)
+                              : pieces(keys_in + off, count, 4);
+  }
+  mbar_arrive_expect_tx(bar, src.bytes);
+  if (src.bytes) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot)),
+        "l"(src.from), "r"(src.bytes), "r"(bar)
+        : "memory");
+  }
+}
+
+// One digit pass over every tile of every row (see the header): a persistent
+// grid whose blocks take tiles from `ticket` until `total` (p * tiles) are
+// out. Input: keys_in (p, n) as bits, or with positions past the first pass
+// pairs_in (p, n) of (key bits, int32 position); the first pass takes each
+// key's place in its row as its position. Output: keys_out, pairs_out
+// (kPos, not kLast), or keys_out and order_out (int64, kLast). status: this
+// pass's look-back words (total, radix); status_next the next pass's, zeroed
+// here a tile (null in the last).
 template <bool kPos, bool kLast>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 radix_digit_pass(const uint32_t* __restrict__ keys_in,
-            const int* __restrict__ pos_in, uint32_t* __restrict__ keys_out,
-            int* __restrict__ pos_out, long long* __restrict__ order_out,
-            const uint32_t* __restrict__ hist, uint32_t* status,
-            uint32_t* __restrict__ status_next, uint32_t* ticket, int n,
-            int tiles, int pass) {
-  constexpr int kDpt = kRadix / kThreads;  // digits a thread owns
-  static_assert(kDpt * kThreads == kRadix, "radix must be a multiple of 256");
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* warp_sums = reinterpret_cast<unsigned long long*>(smem);
-  uint32_t* bcast = reinterpret_cast<uint32_t*>(smem + kWarps * 8);
-  uint32_t* g_base = reinterpret_cast<uint32_t*>(smem + kWarps * 8 + 16);
-  uint32_t* warp_cnt = g_base + kRadix;  // (kWarps, kRadix)
-  uint32_t* stage_k = warp_cnt;  // kTile keys, then kTile positions
-  int* stage_p = reinterpret_cast<int*>(stage_k + kTile);
+                 const uint2* __restrict__ pairs_in,
+                 uint32_t* __restrict__ keys_out, uint2* __restrict__ pairs_out,
+                 long long* __restrict__ order_out,
+                 const uint32_t* __restrict__ hist, uint32_t* status,
+                 uint32_t* __restrict__ status_next, uint32_t* ticket, int n,
+                 int tiles, int total, int pass) {
+  static_assert(kRadix == kThreads, "a thread owns one digit");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* held = reinterpret_cast<uint32_t*>(smem + kOffHeld);
+  unsigned long long* warp_sums =
+      reinterpret_cast<unsigned long long*>(smem + kOffSums);
+  uint32_t* g_base = reinterpret_cast<uint32_t*>(smem + kOffBase);
+  uint32_t* tile_cnt = reinterpret_cast<uint32_t*>(smem + kOffTileCnt);
+  uint32_t* warp_cnt = reinterpret_cast<uint32_t*>(smem + kOffCnt);
+  constexpr int kSlot = slot_bytes<kPos>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) bcast[0] = atomicAdd(ticket, 1u);
-  uint32_t* my_cnt = warp_cnt + warp * kRadix;
-  for (int j = lane; j < kRadix; j += 32) my_cnt[j] = 0;
-  __syncthreads();
-  const int t = (int)bcast[0];
-  const int row = t / tiles, tile = t - row * tiles;
-  const long long row_off = (long long)row * n;
-  const int tile_start = tile * kTile;
-  const int count = min(kTile, n - tile_start);
+  const int d = tid;  // this thread's digit in the scans and the look-back
   const int shift = pass * kBits;
-  const long long in_off = row_off + tile_start;
-
-  // the tile's keys, lane-fastest in each warp; past the row's end, the
-  // last digit (ranked after every key of the tile, and never written)
-  uint32_t key[kItems];
-  uint32_t rank[kItems];
-  int pos[kItems];
-  const int first = warp * (32 * kItems) + lane;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int idx = first + i * 32;
-    key[i] = idx < count ? __ldg(keys_in + in_off + idx) : 0u;
-  }
-  // the positions: read from the last pass, or the tile's index in the first
-  if (kPos) {
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int idx = first + i * 32;
-      pos[i] = pos_in == nullptr ? tile_start + idx
-                                 : (idx < count ? __ldg(pos_in + in_off + idx)
-                                                : 0);
+  const bool paired = kPos && pairs_in != nullptr;  // pairs in, not keys
+  const int first = warp * (32 * kItems) + lane;  // this thread's first key
+  uint32_t* my_cnt = warp_cnt + warp * kRadix;
+  if (tid == 0) {
+    for (int q = 0; q < kParts; ++q) mbar_init(smem_u32(full + q), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    *held = atomicAdd(ticket, 1u);
+    if (*held < (uint32_t)total) {
+      for (int q = 0; q < kParts; ++q) {
+        load_part(keys_in, pairs_in, n, tiles, *held, q,
+                  smem + kOffRing + q * kSlot, smem_u32(full + q));
+      }
     }
-  }
-
-  // rank among the warp's keys of the same digit, in the keys' order
-  const uint32_t lanes_below = (1u << lane) - 1u;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const uint32_t d = first + i * 32 < count ? digit_of(key[i], shift)
-                                              : kRadix - 1u;
-    const uint32_t peers = peers_of(d);
-    const int leader = __ffs(peers) - 1;
-    uint32_t c = 0;
-    if (lane == leader) {
-      c = my_cnt[d];
-      my_cnt[d] = c + __popc(peers);
-    }
-    c = __shfl_sync(0xffffffffu, c, leader);
-    rank[i] = c + __popc(peers & lanes_below);
-    __syncwarp();
   }
   __syncthreads();
 
-  // per digit: the warps' counts turned into exclusive sums over the warps,
-  // the tile's count published, the row's histogram read
-  uint32_t cnt[kDpt], hcnt[kDpt];
-  unsigned long long both = 0;  // (row histogram sum << 32) | tile count sum
-  const uint32_t* h =
-      hist + ((long long)row * kPasses + pass) * kRadix;
-  uint32_t* st = status + (long long)t * kRadix;
-  const uint32_t pad = (uint32_t)(kTile - count);
-#pragma unroll
-  for (int k = 0; k < kDpt; ++k) {
-    const int d = tid * kDpt + k;
-    uint32_t run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = warp_cnt[w * kRadix + d];
-      warp_cnt[w * kRadix + d] = run;
-      run += c;
-    }
-    cnt[k] = run;
-    const uint32_t valid = run - (d == kRadix - 1 ? pad : 0u);
-    store_relaxed(st + d, (tile == 0 ? kPrefix : kAggregate) | valid);
-    hcnt[k] = __ldg(h + d);
-    both += ((unsigned long long)hcnt[k] << 32) | run;
-  }
-  unsigned long long excl = block_exclusive_sum(both, warp_sums);
+  for (uint32_t phase = 0;; phase ^= 1u) {
+    const uint32_t t = *held;
+    if (t >= (uint32_t)total) break;
+    const int row = (int)(t / (uint32_t)tiles);
+    const int tile = (int)(t - (uint32_t)row * tiles);
+    const long long row_off = (long long)row * n;
+    const int count = min(kTile, n - tile * kTile);
+    // the row's count of this thread's digit, read while the tile ranks
+    const uint32_t hcnt =
+        __ldg(hist + ((long long)row * kPasses + pass) * kRadix + d);
+    uint32_t* st = status + (long long)t * kRadix + d;
 
-  // each digit's base: the row's exclusive histogram sum plus the counts of
-  // the row's earlier tiles (look-back), less the digit's start in the tile
+    // the tile's count of each digit, published as soon as its keys are in,
+    // so that the tiles after it seldom find it unpublished
+    int lead[kParts];  // elements before each part's first in its slot
+    tile_cnt[d] = 0;
+    __syncthreads();
+    for (int q = 0; q < kParts; ++q) {
+      const int part = min(kPart, count - q * kPart);  // keys; <= 0: none
+      const long long off = row_off + tile * kTile + q * kPart;
+      lead[q] = part <= 0 ? 0
+                : paired  ? pieces(pairs_in + off, part, 8).lead
+                          : pieces(keys_in + off, part, 4).lead;
+      const unsigned char* slot = smem + kOffRing + q * kSlot;
+      mbar_wait(smem_u32(full + q), phase);
+      for (int j = tid; j < part; j += kThreads) {
+        atomicAdd(tile_cnt + digit_of(key_at(slot, paired, lead[q] + j), shift),
+                  1u);
+      }
+    }
+    __syncthreads();
+    const uint32_t valid = tile_cnt[d];
+    store_relaxed(st, (tile == 0 ? kPrefix : kAggregate) | valid);
+    uint32_t row_excl = 0;
+    uint32_t before = 0;  // keys of digit d in the tile's parts so far
+
+    for (int q = 0; q < kParts; ++q) {
+      const int start = tile * kTile + q * kPart;
+      const int part = min(kPart, count - q * kPart);
+      unsigned char* slot = smem + kOffRing + q * kSlot;
+      uint32_t* ring_k = reinterpret_cast<uint32_t*>(slot);
+      uint2* ring_kp = reinterpret_cast<uint2*>(slot);
+      for (int j = lane; j < kRadix; j += 32) my_cnt[j] = 0;
+      __syncwarp();
+
+      // the part's keys, lane-fastest in each warp; past the row's end, the
+      // last digit (ranked after every key of the part, and never written)
+      uint32_t key[kItems];
+      uint32_t rank[kItems];  // (digit << 16) | place
 #pragma unroll
-  for (int k = 0; k < kDpt; ++k) {
-    const int d = tid * kDpt + k;
-    const uint32_t row_excl = (uint32_t)(excl >> 32);
-    const uint32_t tile_excl = (uint32_t)excl;
-    excl += ((unsigned long long)hcnt[k] << 32) | cnt[k];
-    for (int w = 0; w < kWarps; ++w) warp_cnt[w * kRadix + d] += tile_excl;
-    uint32_t prefix = 0;
+      for (int i = 0; i < kItems; ++i) {
+        const int idx = first + i * 32;
+        key[i] = idx < part ? key_at(slot, paired, lead[q] + idx) : 0u;
+      }
+
+      // rank among the warp's keys of the same digit, in the keys' order
+      const uint32_t lanes_below = (1u << lane) - 1u;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const uint32_t dg =
+            first + i * 32 < part ? digit_of(key[i], shift) : kRadix - 1u;
+        const uint32_t peers = peers_of(dg);
+        const int leader = __ffs(peers) - 1;
+        uint32_t c = 0;
+        if (lane == leader) {
+          c = my_cnt[dg];
+          my_cnt[dg] = c + __popc(peers);
+        }
+        c = __shfl_sync(0xffffffffu, c, leader);
+        rank[i] = (dg << 16) | (c + __popc(peers & lanes_below));
+        __syncwarp();
+      }
+      __syncthreads();
+
+      // the digit's count over the warps turned into exclusive sums over the
+      // warps, then over the digits (and, with the first part, the row's
+      // histogram's); the digit's base for this part, less the prefix of
+      // the row's earlier tiles, which the look-back adds
+      uint32_t run = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        const uint32_t c = warp_cnt[w * kRadix + d];
+        warp_cnt[w * kRadix + d] = run;
+        run += c;
+      }
+      const unsigned long long excl = block_exclusive_sum(
+          ((unsigned long long)(q == 0 ? hcnt : 0u) << 32) | run, warp_sums);
+      if (q == 0) row_excl = (uint32_t)(excl >> 32);
+      const uint32_t part_excl = (uint32_t)excl;
+      for (int w = 0; w < kWarps; ++w) warp_cnt[w * kRadix + d] += part_excl;
+      g_base[q * kRadix + d] = row_excl + before - part_excl;
+      before += run;
+      // the positions: from the pairs, or the keys' places in the first pass
+      int pos[kPos ? kItems : 1];
+      if (kPos) {
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          const int idx = first + i * 32;
+          pos[i] = !paired     ? start + idx
+                   : idx < part ? (int)ring_kp[lead[q] + idx].y
+                                : 0;
+        }
+      }
+      __syncthreads();  // every key and position read before any is staged
+
+      // each key's place in the part sorted by digit; keys (or pairs)
+      // staged in that order in the slot they came in
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        rank[i] =
+            (rank[i] & 0xffffu) + warp_cnt[warp * kRadix + (rank[i] >> 16)];
+        if (kPos) {
+          ring_kp[rank[i]] = make_uint2(key[i], (uint32_t)pos[i]);
+        } else {
+          ring_k[rank[i]] = key[i];
+        }
+      }
+    }
+
+    // the counts of the row's earlier tiles: decoupled look-back over this
+    // digit's status words, nearest first, until a prefix
     if (tile > 0) {
-      const uint32_t* s = status + (long long)(t - 1) * kRadix + d;
-      uint32_t spins = 0;
+      const uint32_t* word = st - kRadix;
+      uint32_t prefix = 0, spins = 0;
       for (;;) {
-        const uint32_t v = load_relaxed(s);
+        const uint32_t v = load_relaxed(word);
         if (v == 0u) {  // that tile has not published yet
           if (++spins == kMaxSpins) __trap();
           continue;
         }
         prefix += v & kValueMask;
         if ((v & ~kValueMask) == kPrefix) break;
-        s -= kRadix;  // an aggregate: go on to the tile before it
+        word -= kRadix;  // an aggregate: go on to the tile before it
       }
-      const uint32_t valid = cnt[k] - (d == kRadix - 1 ? pad : 0u);
-      store_relaxed(st + d, kPrefix | (prefix + valid));
+      store_relaxed(st, kPrefix | (prefix + valid));
+      for (int q = 0; q < kParts; ++q) g_base[q * kRadix + d] += prefix;
     }
-    g_base[d] = row_excl + prefix - tile_excl;
     if (status_next != nullptr) status_next[(long long)t * kRadix + d] = 0u;
-  }
-  __syncthreads();
+    // this tile waits on no other tile any more: the next ticket, whose
+    // parts land in the slots as this tile's parts leave them
+    if (tid == 0) *held = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const uint32_t next = *held;
 
-  // each key's place in the tile sorted by digit
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const uint32_t d = first + i * 32 < count ? digit_of(key[i], shift)
-                                              : kRadix - 1u;
-    rank[i] += warp_cnt[warp * kRadix + d];
-  }
-  __syncthreads();  // the counters' memory becomes the staging area
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    stage_k[rank[i]] = key[i];
-    if (kPos) stage_p[rank[i]] = pos[i];
-  }
-  __syncthreads();
-
-  // out in tile order sorted by digit: each digit's run to consecutive
-  // addresses of the row
-  for (int j = tid; j < count; j += kThreads) {
-    const uint32_t b = stage_k[j];
-    const uint32_t d = digit_of(b, shift);
-    const long long dst = row_off + (uint32_t)(g_base[d] + (uint32_t)j);
-    keys_out[dst] = b;
-    if (kPos) {
-      if (kLast) {
-        order_out[dst] = stage_p[j];
-      } else {
-        pos_out[dst] = stage_p[j];
+    // out part by part in the order sorted by digit: each digit's run to
+    // consecutive addresses of the row
+    for (int q = 0; q < kParts; ++q) {
+      const int part = min(kPart, count - q * kPart);
+      const unsigned char* slot = smem + kOffRing + q * kSlot;
+      const uint32_t* base = g_base + q * kRadix;
+      for (int j = tid; j < part; j += kThreads) {
+        if (kPos) {
+          const uint2 kp = reinterpret_cast<const uint2*>(slot)[j];
+          const long long dst =
+              row_off + (uint32_t)(base[digit_of(kp.x, shift)] + (uint32_t)j);
+          if (kLast) {
+            keys_out[dst] = kp.x;
+            order_out[dst] = (int)kp.y;
+          } else {
+            pairs_out[dst] = kp;
+          }
+        } else {
+          const uint32_t b = reinterpret_cast<const uint32_t*>(slot)[j];
+          keys_out[row_off + (uint32_t)(base[digit_of(b, shift)] +
+                                        (uint32_t)j)] = b;
+        }
+      }
+      // the slot's reads and writes ordered before the TMA's next write
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      if (tid == 0 && next < (uint32_t)total) {
+        load_part(keys_in, pairs_in, n, tiles, next, q,
+                  smem + kOffRing + q * kSlot, smem_u32(full + q));
       }
     }
   }
 }
 
 template <bool kPos, bool kLast>
-cudaError_t launch_pass(const uint32_t* keys_in, const int* pos_in,
-                        uint32_t* keys_out, int* pos_out, long long* order_out,
-                        const uint32_t* hist, uint32_t* status,
-                        uint32_t* status_next, uint32_t* ticket, int n,
-                        int tiles, long long blocks, int pass,
-                        cudaStream_t st) {
+cudaError_t launch_pass(const uint32_t* keys_in, const uint2* pairs_in,
+                        uint32_t* keys_out, uint2* pairs_out,
+                        long long* order_out, const uint32_t* hist,
+                        uint32_t* status, uint32_t* status_next,
+                        uint32_t* ticket, int n, int tiles, int total,
+                        int pass, cudaStream_t st) {
   constexpr int smem = digit_pass_smem_bytes<kPos>();
   auto kernel = radix_digit_pass<kPos, kLast>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)blocks, kThreads, smem, st>>>(
-      keys_in, pos_in, keys_out, pos_out, order_out, hist, status, status_next,
-      ticket, n, tiles, pass);
+  // the persistent grid: as many blocks as the card holds at once (the
+  // occupancy asked once a kernel), never more than the pass's tiles
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+    if (e != cudaSuccess) return e;
+  }
+  int device = 0, sms = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const int grid = min(max(per_sm, 1) * sms, total);
+  kernel<<<grid, kThreads, smem, st>>>(keys_in, pairs_in, keys_out, pairs_out,
+                                       order_out, hist, status, status_next,
+                                       ticket, n, tiles, total, pass);
   return cudaGetLastError();
 }
 
 cudaError_t sort_rows(const uint32_t* keys, uint32_t* keys_out,
-                      long long* order, uint32_t* keys_tmp, int* pos_tmp,
-                      uint32_t* ws, int n, int p, int hist_chunks,
-                      cudaStream_t st) {
+                      long long* order, void* tmp, uint32_t* ws, int n, int p,
+                      int hist_chunks, cudaStream_t st) {
   const int tiles = (n + kTile - 1) / kTile;
   const long long blocks = (long long)p * tiles;
+  const int total = (int)blocks;
   const long long hist_words = (long long)p * kPasses * kRadix;
   uint32_t* hist = ws;
   uint32_t* tickets = ws + hist_words;
@@ -398,57 +568,62 @@ cudaError_t sort_rows(const uint32_t* keys, uint32_t* keys_out,
                     st>>>(keys, n, hist_chunks, chunk_len, hist);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // the int64 output's storage holds int32 positions until the last pass
-  int* pos_out64 = reinterpret_cast<int*>(order);
-  const uint32_t* src = keys;
-  const int* psrc = nullptr;
-  for (int k = 0; k < kPasses; ++k) {
-    const bool last = k == kPasses - 1;
-    uint32_t* dst = (kPasses - 1 - k) % 2 == 0 ? keys_out : keys_tmp;
-    int* pdst = last ? nullptr
-                     : ((kPasses - 2 - k) % 2 == 0 ? pos_tmp : pos_out64);
-    uint32_t* next = last ? nullptr : status[(k + 1) % 2];
+  for (int k = 0; k < kPasses && e == cudaSuccess; ++k) {
+    uint32_t* next = k == kPasses - 1 ? nullptr : status[(k + 1) % 2];
+    uint32_t* stat = status[k % 2];
     if (order == nullptr) {
+      // keys alone: keys_out and tmp in turns, the last pass to keys_out
+      const uint32_t* src = k == 0 ? keys
+                            : (kPasses - k) % 2 == 0
+                                ? keys_out
+                                : static_cast<uint32_t*>(tmp);
+      uint32_t* dst = (kPasses - 1 - k) % 2 == 0 ? keys_out
+                                                 : static_cast<uint32_t*>(tmp);
       e = launch_pass<false, false>(src, nullptr, dst, nullptr, nullptr, hist,
-                                    status[k % 2], next, tickets + k, n, tiles,
-                                    blocks, k, st);
-    } else if (last) {
-      e = launch_pass<true, true>(src, psrc, dst, nullptr, order, hist,
-                                  status[k % 2], next, tickets + k, n, tiles,
-                                  blocks, k, st);
+                                    stat, next, tickets + k, n, tiles, total,
+                                    k, st);
     } else {
-      e = launch_pass<true, false>(src, psrc, dst, pdst, nullptr, hist,
-                                   status[k % 2], next, tickets + k, n, tiles,
-                                   blocks, k, st);
+      // pairs between tmp and the int64 output's storage (free until the
+      // last pass, which reads tmp): keys -> tmp -> order -> tmp -> out
+      uint2* a = static_cast<uint2*>(tmp);
+      uint2* b = reinterpret_cast<uint2*>(order);
+      if (k == 0) {
+        e = launch_pass<true, false>(keys, nullptr, nullptr, a, nullptr, hist,
+                                     stat, next, tickets + k, n, tiles, total,
+                                     k, st);
+      } else if (k < kPasses - 1) {
+        e = launch_pass<true, false>(nullptr, k % 2 ? a : b, nullptr,
+                                     k % 2 ? b : a, nullptr, hist, stat, next,
+                                     tickets + k, n, tiles, total, k, st);
+      } else {
+        e = launch_pass<true, true>(nullptr, a, keys_out, nullptr, order, hist,
+                                    stat, next, tickets + k, n, tiles, total,
+                                    k, st);
+      }
     }
-    if (e != cudaSuccess) return e;
-    src = dst;
-    psrc = pdst;
   }
-  return cudaSuccess;
+  return e;
 }
 
 }  // namespace
 
 // Sort each row of keys (p, n) float32 (as bits) ascending and stable into
 // keys_out; order (p, n) int64, the position of each sorted key in its row,
-// or null for the keys alone. keys_tmp (p, n) 4-byte scratch, pos_tmp (p, n)
-// int32 scratch (unused without order), ws the workspace of
+// or null for the keys alone. tmp: (p, n) scratch of 8 bytes an entry with
+// order (key-position pairs), 4 without; ws the workspace of
 // `sort_plan(p, n)["ws_words"]` 4-byte words (kernels/radix_sort.py);
-// hist_chunks the histogram blocks a row. 1 <= n < 2^30.
+// hist_chunks the histogram blocks a row. 1 <= n < 2^30, p * tiles < 2^31.
 extern "C" int mdt_radix_sort(const void* keys, void* keys_out, void* order,
-                              void* keys_tmp, void* pos_tmp, void* ws, int n,
-                              int p, int hist_chunks, void* stream) {
-  if (n < 1 || n >= (1 << kMaxLog2N) || p < 0 || hist_chunks < 1) {
+                              void* tmp, void* ws, int n, int p,
+                              int hist_chunks, void* stream) {
+  if (n < 1 || n >= (1 << kMaxLog2N) || p < 0 || hist_chunks < 1 ||
+      (long long)p * ((n + kTile - 1) / kTile) >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (p == 0) return 0;
-  const auto* k = static_cast<const uint32_t*>(keys);
-  auto* ko = static_cast<uint32_t*>(keys_out);
-  auto* o = static_cast<long long*>(order);
-  auto* kt = static_cast<uint32_t*>(keys_tmp);
-  auto* pt = static_cast<int*>(pos_tmp);
-  auto* w = static_cast<uint32_t*>(ws);
-  return (int)sort_rows(k, ko, o, kt, pt, w, n, p, hist_chunks,
+  return (int)sort_rows(static_cast<const uint32_t*>(keys),
+                        static_cast<uint32_t*>(keys_out),
+                        static_cast<long long*>(order), tmp,
+                        static_cast<uint32_t*>(ws), n, p, hist_chunks,
                         (cudaStream_t)stream);
 }

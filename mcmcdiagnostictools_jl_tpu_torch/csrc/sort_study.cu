@@ -91,6 +91,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 // ---- K7 / K8 ---------------------------------------------------------------
@@ -117,56 +119,11 @@ struct PassWalk {
   int stage_segs, parts, stages;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity `parity` has completed. A ring whose
-// phases went wrong would spin forever; after 10 s the block traps instead,
-// so the fault is a launch error, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  unsigned long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = global_ns();
-    else if (global_ns() - start > 10000000000ULL)
-      __trap();
-  }
-}
+using mdt::mbar_arrive;
+using mdt::mbar_arrive_expect_tx;
+using mdt::mbar_init;
+using mdt::mbar_wait;
+using mdt::smem_u32;
 
 // The copies' L2 policy: evict-first in the timing study, else unused.
 __device__ __forceinline__ uint64_t l2_policy() {

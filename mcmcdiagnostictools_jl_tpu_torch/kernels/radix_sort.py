@@ -6,14 +6,15 @@ Stands for the JAX package's ``_sort_pair``
 not a Pallas kernel), the exact rank mode's sort. The CUDA source is
 ``csrc/radix_sort.cu``: a least-significant-digit radix sort of all rows at
 once, one launch for the histograms of every digit and one a digit pass
-(onesweep style: tiles handed out in order by a ticket on the card, ranked
-in the warp by ballots, placed by decoupled look-back), in
-place of PyTorch's one cub radix sort a row; its header says what bounds it
-on an H100.
+(onesweep style: tiles handed out in order by a ticket on the card to a
+persistent grid whose blocks load the next tile by the TMA while they work
+on this one, ranked in the warp by ballots, placed by decoupled look-back),
+in place of PyTorch's one cub radix sort a row; its header says what bounds
+it on an H100.
 
 The order is cub's for floats, bit for bit what the card's
-``torch.sort(dim=1, stable=True)`` gives (checked on an H100 at rows of 10
-to 1.28M entries): by the bits, a negative key's all flipped, any other's
+``torch.sort(dim=1, stable=True)`` gives (checked on an H100 at rows of 1
+to 30.7M entries): by the bits, a negative key's all flipped, any other's
 sign bit, so a NaN with the sign bit set sorts before ``-inf`` and any other
 NaN after ``+inf``; ``-0.0`` ties ``+0.0``; tied keys keep their order in
 the row (stable). The keys come out with their own bits.
@@ -33,11 +34,16 @@ import torch
 from .. import backend
 from . import _build
 
-# as csrc/radix_sort.cu builds them: threads a block, keys a thread of a
-# digit pass, digit width, ticket words, the longest row (a count in 30 bits)
+# as csrc/radix_sort.cu builds them: threads a block, keys a thread ranks at
+# once, the parts of a tile (a ticket, a look-back word a digit), digit-pass
+# blocks a multiprocessor, digit width, ticket words, the longest row (a
+# count in 30 bits)
 THREADS = 256
 ITEMS = 15
-TILE = THREADS * ITEMS
+PART = THREADS * ITEMS
+PARTS = 2
+TILE = PARTS * PART
+BLOCKS_PER_SM = 3
 BITS = 8
 RADIX = 1 << BITS
 PASSES = 32 // BITS
@@ -50,20 +56,27 @@ MAX_BLOCK_BYTES = 227 * 1024  # the most shared memory one block may take
 
 def pass_smem(positions: bool = True) -> int:
     """Dynamic shared memory of a digit-pass block
-    (``digit_pass_smem_bytes`` in the source): warp sums and the ticket, the
-    digit bases, and the per-warp digit counters, whose memory then stages
-    the tile's keys and positions."""
+    (``digit_pass_smem_bytes`` in the source): the ring's mbarriers and the
+    ticket held, the warp sums, the digit bases of each part, the tile's
+    digit counts, the per-warp digit counters, and the ring: ``PARTS``
+    slots, each a part of 4-byte keys or, with positions, of 8-byte
+    key-position pairs (16 bytes over, for a part that starts off a 16-byte
+    boundary)."""
     warps = THREADS // 32
-    staged = 4 * TILE * (2 if positions else 1)
-    return warps * 8 + 16 + 4 * RADIX + max(4 * warps * RADIX, staged)
+    head = (8 * PARTS + 16 + 8 * warps + 4 * PARTS * RADIX + 4 * RADIX
+            + 4 * warps * RADIX)
+    slot = (8 if positions else 4) * PART + 16
+    return -(-head // 128) * 128 + PARTS * slot
 
 
 def sort_plan(p: int, n: int, *, sms: int = H100_SMS,
               positions: bool = True) -> dict:
     """The launches of a sort of ``(p, n)``, as a dict:
 
-    - ``tiles`` of ``TILE`` keys a row, ``blocks`` = ``p * tiles``, the grid
-      of each digit pass (one block a tile, handed out in order);
+    - ``tiles`` of ``TILE`` keys a row; ``tickets`` = ``p * tiles``, handed
+      out in order to the persistent ``grid`` of each digit pass (as many
+      blocks as the card holds at once, ``BLOCKS_PER_SM`` a multiprocessor,
+      never more than the tickets; the source asks the occupancy API);
     - ``hist_chunks``: histogram blocks a row, so that the histogram grid
       (``hist_blocks``) aims at ``HIST_BLOCKS_PER_SM`` blocks a
       multiprocessor, at most one a tile;
@@ -75,18 +88,20 @@ def sort_plan(p: int, n: int, *, sms: int = H100_SMS,
     - ``smem``: a digit-pass block's dynamic shared memory;
     - ``launches``: the memset, the histogram and the passes.
 
-    Raises ``ValueError`` for ``n`` outside ``[1, 2^30)`` and a grid past
-    ``2^31 - 1`` blocks."""
+    Raises ``ValueError`` for ``n`` outside ``[1, 2^30)`` and tickets past
+    ``2^31 - 1``."""
     if not 1 <= n <= MAX_N:
         raise ValueError(f"rows of 1 to {MAX_N} entries, got {n}")
     tiles = -(-n // TILE)
-    blocks = p * tiles
-    if blocks >= 2**31:
-        raise ValueError(f"{blocks} tiles is past the grid's 2^31 - 1 blocks")
+    tickets = p * tiles
+    if tickets >= 2**31:
+        raise ValueError(f"{tickets} tiles is past 2^31 - 1 tickets")
     hist_chunks = max(1, min(tiles, -(-HIST_BLOCKS_PER_SM * sms // max(p, 1))))
     hist_words = p * PASSES * RADIX
-    status_words = blocks * RADIX
-    return dict(tiles=tiles, blocks=blocks, hist_chunks=hist_chunks,
+    status_words = tickets * RADIX
+    return dict(tiles=tiles, tickets=tickets,
+                grid=min(BLOCKS_PER_SM * sms, tickets),
+                hist_chunks=hist_chunks,
                 hist_blocks=p * hist_chunks, chunk_len=-(-n // hist_chunks),
                 hist_words=hist_words, status_words=status_words,
                 ws_words=hist_words + TICKET_WORDS + 2 * status_words,
@@ -144,8 +159,8 @@ def sort_rows(x: torch.Tensor):
     and stable in the order of the module docstring, ``order`` ``(P, N)``
     int64 contiguous, the position in its row of each sorted value. On the
     card ``x`` must be contiguous float32 with ``N < 2^30``; the call takes
-    8 bytes an entry of scratch (keys and int32 positions) and a workspace
-    of ~2 KB a tile of 3840 entries beside its outputs."""
+    8 bytes an entry of scratch (pairs of a key and its int32 position) and
+    a workspace of ~2 KB a tile of 7680 entries beside its outputs."""
     if not backend.use_kernels(x):
         return sort_rows_plain(x)
     return _sort(x, positions=True)
@@ -176,14 +191,13 @@ def _sort(x: torch.Tensor, *, positions: bool):
     lib = _build.library()
     plan = sort_plan(p, n, sms=torch.cuda.get_device_properties(
         x.device).multi_processor_count, positions=positions)
-    keys_tmp = torch.empty((p, n), dtype=torch.int32, device=x.device)
-    pos_tmp = (torch.empty((p, n), dtype=torch.int32, device=x.device)
-               if positions else None)
+    tmp = torch.empty((p, n), dtype=torch.int64 if positions else torch.int32,
+                      device=x.device)
     ws = torch.empty(plan["ws_words"], dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         code = lib.mdt_radix_sort(
-            x.data_ptr(), xs.data_ptr(), _ptr(order), keys_tmp.data_ptr(),
-            _ptr(pos_tmp), ws.data_ptr(), n, p, plan["hist_chunks"],
+            x.data_ptr(), xs.data_ptr(), _ptr(order), tmp.data_ptr(),
+            ws.data_ptr(), n, p, plan["hist_chunks"],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "mdt_radix_sort")
     sort_rows.launches += 1

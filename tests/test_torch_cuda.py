@@ -48,9 +48,12 @@ every exact call, the other columns bit-equal to the ``+nan`` sample's and
 within the slice's limits of the CPU (BASELINE.md's 1e-6 in float64). The
 K13's keys are bit for bit those of the card's ``torch.sort(dim=1,
 stable=True)`` and its positions equal, on rows with ties, +-0.0, +-inf and
-NaNs of either sign, off its tile and at the flagship width, two runs
-bit-equal; the exact calls through K13 equal, bit for bit, the same calls
-through its plain version. The
+NaNs of either sign, off its tile and its parts, with ten times more tiles
+than its persistent grid and fewer, on rows that start off 16-byte
+boundaries and at the flagship width, two runs bit-equal; a sort launches
+one ``radix_histogram`` and four ``radix_digit_pass``, one of them
+``<true, true>`` with positions and none alone; the exact calls through K13
+equal, bit for bit, the same calls through its plain version. The
 HMC core on float64 draws tracks the CPU to 1e-8; the JAX method names
 launch K5 (``pallas``) and K1 (``fused``). Float32 matrix
 products run in full float32:
@@ -1637,6 +1640,98 @@ def test_k13_at_the_flagship_width(cuda_device, rows):  # noqa: F811
     torch.cuda.synchronize()
     assert _same_sort(got, want)
     assert _same_sort(got, again)
+
+
+# the digit pass's geometry (kernels/radix_sort.py: PART keys ranked at
+# once, TILE = 2 PART keys a ticket; a persistent grid of 3 blocks a
+# multiprocessor, 396 on an H100)
+_K13_PART, _K13_TILE, _K13_GRID = 3840, 7680, 396
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 1000 * _K13_TILE),  # 4000 tiles: ten times the persistent grid
+    (5, 3 * _K13_TILE - 1), (5, 3 * _K13_TILE), (5, 3 * _K13_TILE + 1),
+    (3, _K13_PART - 1), (3, _K13_PART), (3, _K13_PART + 1),
+    (3, _K13_TILE + _K13_PART - 1), (3, _K13_TILE + _K13_PART + 1),
+    (7, 5000), (1, 7),  # fewer tiles than the grid
+], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["normal", "mixed"])
+def test_k13_persistent_grid_and_tile_edges(cuda_device, kind, shape):  # noqa: F811
+    """More tiles than the persistent grid by ten times, rows one short of,
+    at and one past a tile and a part, and fewer tiles than the grid: keys
+    and positions bit for bit ``torch.sort(dim=1, stable=True)``'s, with
+    positions and keys alone."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    assert (k13.PART, k13.TILE) == (_K13_PART, _K13_TILE)
+    if shape[1] == 1000 * _K13_TILE:
+        assert k13.sort_plan(*shape)["tickets"] >= 10 * _K13_GRID
+    x = _k13_rows(kind, *shape).to(cuda_device)
+    got = k13.sort_rows(x)
+    keys = k13.sort_rows_keys(x)
+    want = torch.sort(x, dim=1, stable=True)
+    torch.cuda.synchronize()
+    assert _same_sort(got, want)
+    assert torch.equal(keys.view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [4097, 3 * _K13_TILE + 3, 100_003])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k13_rows_off_16_byte_boundaries(cuda_device, offset, n):  # noqa: F811
+    """A contiguous view that starts ``offset`` floats into its storage, with
+    n not a multiple of 4, so that rows start off 16-byte boundaries: the
+    same sort as ``torch.sort``."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    p = 5
+    rows = _k13_rows("mixed", p, n).reshape(-1)
+    buf = torch.zeros(p * n + offset, dtype=torch.float32)
+    buf[offset:] = rows
+    x = buf.to(cuda_device)[offset:].view(p, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    got = k13.sort_rows(x)
+    keys = k13.sort_rows_keys(x)
+    want = torch.sort(x, dim=1, stable=True)
+    torch.cuda.synchronize()
+    assert _same_sort(got, want)
+    assert torch.equal(keys.view(torch.int32), want[0].view(torch.int32))
+
+
+def test_k13_launches_by_name(cuda_device):  # noqa: F811
+    """What the benchmark's readers count, read by name from the profiler:
+    a sort with positions launches one ``radix_histogram`` and four
+    ``radix_digit_pass`` (three ``<true, false>``, one ``<true, true>``), a
+    sort of the keys alone one histogram and four ``<false, false>``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+
+    x = _k13_rows("normal", 6, 50_000).to(cuda_device)
+    k13.sort_rows(x)
+    k13.sort_rows_keys(x)
+    torch.cuda.synchronize()
+
+    def names(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type.name == "CUDA"
+                and ("radix_histogram" in e.name
+                     or "radix_digit_pass" in e.name)]
+
+    def count(ns, key):
+        return sum(key in nm for nm in ns)
+
+    with_pos = names(lambda: k13.sort_rows(x))
+    assert count(with_pos, "radix_histogram") == 1
+    assert count(with_pos, "radix_digit_pass") == 4
+    assert count(with_pos, "radix_digit_pass<true, true>") == 1
+    assert count(with_pos, "radix_digit_pass<true, false>") == 3
+    keys_only = names(lambda: k13.sort_rows_keys(x))
+    assert count(keys_only, "radix_histogram") == 1
+    assert count(keys_only, "radix_digit_pass<false, false>") == 4
+    assert count(keys_only, "radix_digit_pass<true, true>") == 0
 
 
 def test_k13_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa: F811

@@ -10,11 +10,15 @@
   ``+0.0`` (tied keys keep their order in the row). Against the CPU's own
   ``torch.sort(stable=True)`` it is bit-equal wherever a row holds no
   sign-bit NaN, and otherwise differs only by moving those first;
-- the launch plan (``sort_plan``): tiles cover a row, the grids, shared
-  memory within a block's 227 KB, the workspace and its memset, the bytes
-  the design moves, the limits that raise, and the constants and the C
-  signature against ``csrc/radix_sort.cu``; a numpy model of the digit
-  passes, tile by tile with the kernel's bookkeeping, equals the plain
+- the launch plan (``sort_plan``): tiles cover a row, the tickets and the
+  persistent grid, shared memory within a block's 227 KB and three blocks
+  to a multiprocessor, the workspace and its memset, the bytes the design
+  moves, the limits that raise, and the constants and the C signature
+  against ``csrc/radix_sort.cu``; a numpy model of the digit passes with
+  the kernel's bookkeeping (a persistent grid taking tickets in order, the
+  next one once a tile's look-back is done, a tile's count published on
+  arrival, ranked in parts, key-position pairs between passes), run in
+  random interleavings of its blocks, never stalls and equals the plain
   sort;
 - the routed callers (``sort_with_positions``, ``tiedrank``,
   ``batched_quantile``, the quantile MCSE, ``fold_impl="sort"``) against the
@@ -156,7 +160,10 @@ def test_plan_tiles_every_row(shape):
     p, n = shape
     plan = rs.sort_plan(p, n)
     assert (plan["tiles"] - 1) * rs.TILE < n <= plan["tiles"] * rs.TILE
-    assert plan["blocks"] == p * plan["tiles"] < 2**31
+    assert plan["tickets"] == p * plan["tiles"] < 2**31
+    # the persistent grid: what the card holds at once, never more tickets
+    assert plan["grid"] == min(rs.BLOCKS_PER_SM * rs.H100_SMS,
+                               plan["tickets"])
     assert rs.PASSES * rs.BITS == 32 and rs.RADIX == 2**rs.BITS
     assert plan["launches"] == 2 + rs.PASSES
     # the histogram chunks cover each row once, none of them empty
@@ -173,9 +180,14 @@ def test_plan_shared_memory_fits_a_block(positions):
     smem = rs.pass_smem(positions)
     assert smem <= rs.MAX_BLOCK_BYTES
     warps = rs.THREADS // 32
-    assert smem >= 4 * warps * rs.RADIX and smem >= 4 * rs.TILE * (
-        2 if positions else 1)
+    # the ring: a slot a part, of keys or key-position pairs, and the
+    # per-warp digit counters beside it
+    assert smem >= 4 * warps * rs.RADIX + rs.PARTS * rs.PART * (
+        8 if positions else 4)
     assert smem % 16 == 0
+    # BLOCKS_PER_SM blocks to a multiprocessor's 228 KB (1 KB a block is
+    # the system's)
+    assert rs.BLOCKS_PER_SM * (smem + 1024) <= 228 * 1024
     assert rs.sort_plan(3, 5000, positions=positions)["smem"] == smem
 
 
@@ -192,8 +204,8 @@ def test_plan_workspace():
     assert plan["memset_bytes"] == 4 * (plan["ws_words"]
                                         - plan["status_words"])
     assert rs.TICKET_WORDS >= rs.PASSES
-    # (256, 1.28M): 334 tiles a row, ~175 MB of look-back
-    assert tiles == 334 and 8 * plan["status_words"] < 180e6
+    # (256, 1.28M): 167 tiles a row, ~88 MB of look-back
+    assert tiles == 167 and 8 * plan["status_words"] < 90e6
 
 
 def test_plan_bytes():
@@ -208,26 +220,36 @@ def test_plan_bytes():
 
 @pytest.mark.parametrize("args,match", [
     ((2, 0), "rows of 1"), ((2, 2**30), "rows of 1"),
-    ((2**22, 600 * rs.TILE), "grid")])
+    ((2**22, 600 * rs.TILE), "tickets")])
 def test_plan_limits_raise(args, match):
     with pytest.raises(ValueError, match=match):
         rs.sort_plan(*args)
 
 
-def _model_digit_passes(x):
-    """K13's passes in numpy, tile by tile, as ``csrc/radix_sort.cu`` runs
-    them: the histograms of every digit first; then a pass ranks each tile's
-    keys stably by digit (keys past the row's end take the last digit and
-    rank after the tile's own), and writes each key to the row's exclusive
-    histogram sum of its digit plus the counts of the row's earlier tiles
-    (the look-back, which leaves out the padding) plus its rank among the
-    tile's keys of that digit. Returns the last pass's keys (as bits) and
-    positions; raises if a key would land outside its row or on a slot
-    already written."""
+def _model_digit_passes(x, grid=3, seed=0):
+    """K13's passes in numpy with ``csrc/radix_sort.cu``'s bookkeeping, its
+    ``grid`` persistent blocks stepped in a random order (``seed``): the
+    histograms of every digit first; then in a pass each block holds one
+    ticket (handed out in order) and takes its next only once its tile's
+    look-back is done. A tile, on arrival, publishes its count of each digit
+    (the row's first tile as a prefix); ranks each part of ``PART`` keys
+    stably by digit (keys past the row's end take the last digit and rank
+    after the part's own); looks back over the row's earlier tiles' words,
+    nearest first, adding counts until a prefix (a block whose walk meets an
+    unpublished word waits), and publishes its own prefix; then writes each
+    key to the row's exclusive histogram sum of its digit plus the prefix
+    plus the digit's keys in the tile's earlier parts plus its rank in its
+    part. Between passes keys and positions travel as pairs; the first pass
+    takes each key's place in its row as its position. Returns the last
+    pass's keys (as bits) and positions; raises if the blocks stall, or a
+    key would land outside its row or on a slot already written."""
     p, n = x.shape
     plan = rs.sort_plan(p, n)
+    tiles, total = plan["tiles"], plan["tickets"]
     keys = x.view(np.uint32).copy()
-    pos = None  # pass 1 takes the positions from the tile's index
+    pos = np.tile(np.arange(n), (p, 1))  # the first pass: the keys' places
+    rng = np.random.default_rng(seed)
+    agg, pre = 1, 2  # a word's flag: the tile's count, or its prefix
 
     def ordered(b):
         b = np.where(b == 0x80000000, np.uint32(0), b).astype(np.uint32)
@@ -241,47 +263,89 @@ def _model_digit_passes(x):
     hist = np.stack([[np.bincount(digit(keys[r], k), minlength=rs.RADIX)
                       for k in range(rs.PASSES)] for r in range(p)])
     for k in range(rs.PASSES):
+        flag = np.zeros((total, rs.RADIX), np.int64)
+        value = np.zeros((total, rs.RADIX), np.int64)
         out_k = np.zeros_like(keys)
         out_p = np.full((p, n), -1, np.int64)
-        for r in range(p):
-            row_excl = np.cumsum(hist[r, k]) - hist[r, k]
-            earlier = np.zeros(rs.RADIX, np.int64)  # the look-back's sums
-            for tile in range(plan["tiles"]):
-                start = tile * rs.TILE
-                count = min(rs.TILE, n - start)
-                d = np.full(rs.TILE, rs.RADIX - 1)
-                d[:count] = digit(keys[r, start:start + count], k)
-                tile_pos = (start + np.arange(count) if pos is None
-                            else pos[r, start:start + count])
-                cnt = np.bincount(d, minlength=rs.RADIX)
-                tile_excl = np.cumsum(cnt) - cnt
-                rank = np.empty(rs.TILE, np.int64)
-                rank[np.argsort(d, kind="stable")] = np.arange(rs.TILE)
-                assert (rank[:count] < count).all()  # padding staged last
-                dst = row_excl[d[:count]] + earlier[d[:count]] + (
-                    rank[:count] - tile_excl[d[:count]])
-                assert ((0 <= dst) & (dst < n)).all()
-                assert (out_p[r, dst] == -1).all()
-                out_k[r, dst] = keys[r, start:start + count]
-                out_p[r, dst] = tile_pos
-                valid = cnt.copy()
-                valid[-1] -= rs.TILE - count
-                earlier += valid
-                assert earlier.max() <= rs.MAX_N  # a status word's 30 bits
+        next_ticket = min(grid, total)
+        blocks = [dict(t=b, step="arrive") for b in range(next_ticket)]
+        while any(blk["step"] != "done" for blk in blocks):
+            moved = False
+            for blk in (blocks[i] for i in rng.permutation(len(blocks))):
+                t, step = blk["t"], blk["step"]
+                row, tile = divmod(t, tiles)
+                if step == "done":
+                    continue
+                if step == "arrive":
+                    start = tile * rs.TILE
+                    count = min(rs.TILE, n - start)
+                    d = digit(keys[row, start:start + count], k)
+                    blk["cnt"] = np.bincount(d, minlength=rs.RADIX)
+                    flag[t] = pre if tile == 0 else agg
+                    value[t] = blk["cnt"]
+                    parts = []
+                    for q in range(rs.PARTS):
+                        part = max(0, min(rs.PART, count - q * rs.PART))
+                        dq = np.full(rs.PART, rs.RADIX - 1)
+                        dq[:part] = d[q * rs.PART:q * rs.PART + part]
+                        rank = np.empty(rs.PART, np.int64)
+                        rank[np.argsort(dq, kind="stable")] = np.arange(rs.PART)
+                        assert (rank[:part] < part).all()  # padding ranks last
+                        cq = np.bincount(dq, minlength=rs.RADIX)
+                        parts.append((start + q * rs.PART, part, dq, rank,
+                                      np.cumsum(cq) - cq))
+                    blk["parts"], blk["step"] = parts, "look back"
+                elif step == "look back":
+                    prefix = np.zeros(rs.RADIX, np.int64)
+                    if tile > 0:
+                        found = np.zeros(rs.RADIX, bool)
+                        for back in range(t - 1, t - tile - 1, -1):
+                            if (flag[back][~found] == 0).any():
+                                break  # a word not out yet: wait
+                            prefix += np.where(found, 0, value[back])
+                            found |= flag[back] == pre
+                            if found.all():
+                                break
+                        if not found.all():
+                            continue
+                        flag[t], value[t] = pre, prefix + blk["cnt"]
+                    blk["prefix"], blk["step"] = prefix, "write"
+                    blk["next"] = next_ticket
+                    next_ticket += 1
+                else:  # "write"
+                    row_excl = np.cumsum(hist[row, k]) - hist[row, k]
+                    earlier = np.zeros(rs.RADIX, np.int64)  # the tile's parts
+                    for start, part, dq, rank, part_excl in blk["parts"]:
+                        d = dq[:part]
+                        dst = (row_excl[d] + blk["prefix"][d] + earlier[d]
+                               + rank[:part] - part_excl[d])
+                        assert ((0 <= dst) & (dst < n)).all()
+                        assert (out_p[row, dst] == -1).all()
+                        out_k[row, dst] = keys[row, start:start + part]
+                        out_p[row, dst] = pos[row, start:start + part]
+                        earlier += np.bincount(dq, minlength=rs.RADIX)
+                    assert (blk["prefix"] + blk["cnt"]).max() <= rs.MAX_N
+                    blk["t"] = blk["next"]
+                    blk["step"] = "arrive" if blk["t"] < total else "done"
+                moved = True
+            assert moved, "every block waits: the look-back stalled"
         keys, pos = out_k, out_p
     return keys, pos
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (3, 300), (2, rs.TILE + 1),
-                                   (1, 3 * rs.TILE - 7)],
+@pytest.mark.parametrize("grid", [1, 3, 7])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 300), (2, rs.PART + 1),
+                                   (2, rs.TILE + 1), (1, 3 * rs.TILE - 7)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("kind", KINDS)
-def test_model_of_the_digit_passes_equals_the_plain_sort(kind, shape):
+def test_model_of_the_digit_passes_equals_the_plain_sort(kind, shape, grid):
     """The kernel's bookkeeping (digits of cub's key map with ``-0.0`` read
-    as ``+0.0``, stable ranks in a tile, the padding of a row's last tile,
-    histogram sums plus look-back) gives the plain version's sort."""
+    as ``+0.0``, stable ranks in a part, the padding of a row's last tile,
+    histogram sums plus look-back plus the tile's earlier parts, tickets
+    taken after the look-back by a persistent grid) gives the plain
+    version's sort in any interleaving of the blocks."""
     x = _rows(kind, *shape, np.float32)
-    keys, pos = _model_digit_passes(x)
+    keys, pos = _model_digit_passes(x, grid=grid, seed=len(kind) + grid)
     xs, order = rs.sort_rows_plain(t(x))
     np.testing.assert_array_equal(keys.view(np.int32), _bits(xs.numpy()))
     np.testing.assert_array_equal(pos, order.numpy())
@@ -299,11 +363,13 @@ def test_constants_agree_with_the_cuda_source():
 
     assert const("kThreads") == rs.THREADS
     assert const("kItems") == rs.ITEMS
+    assert const("kParts") == rs.PARTS
+    assert const("kMinBlocks") == rs.BLOCKS_PER_SM
     assert const("kBits") == rs.BITS
     assert re.search(r"constexpr int kPasses = 32 / kBits;", src)
     assert const("kTicketWords") == rs.TICKET_WORDS
     assert 2 ** const("kMaxLog2N") - 1 == rs.MAX_N
-    assert rs.TILE == rs.THREADS * rs.ITEMS
+    assert rs.TILE == rs.PARTS * rs.PART == rs.PARTS * rs.THREADS * rs.ITEMS
 
 
 def test_signature_agrees_with_the_cuda_source():
