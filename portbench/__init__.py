@@ -6,5 +6,7 @@ to one configuration, traffic mix, cell or metric is a file of its own,
 found by its name: ``configs/<config>.json``, ``mixes/<traffic>.json``,
 ``limits/<cell>.json``, ``metrics/<metric>.py``. The yardstick lives here
 too: the sample generator, the plain references (``reference/``), the peaks
-of the card (``peaks.json``) and the comparison that decides ``correct``.
+of the card (``peaks.json``) and the comparison that decides ``correct``. A
+cell whose mix names the argument kind ``"mesh"`` runs as a world of ranks,
+one process a card (``world.py``).
 """

@@ -10,6 +10,12 @@ The mix's ``launches`` say which of the port's kernels every call of every
 pass must go through (``each_call``: a pass launches it at least as often as
 it calls the port) and which no pass may launch (``never``), read from the
 port's own launch counters around each pass of the window.
+
+In a world of ranks (``world.py``) rank 0's outputs are held to the
+references, computed on rank 0 from the global sample's parameter blocks
+gathered from every rank; the launch rules hold on every rank's passes; and
+``ranks_agree`` counts the output values of every other rank that differ
+from rank 0's bit for bit, or are missing: its limit is 0.
 """
 
 from __future__ import annotations
@@ -48,16 +54,18 @@ def gaps_of_pass(mix: dict, out: dict, refs: dict) -> dict:
 
 
 def judge(mix: dict, limits: dict, results: list[dict], refs: dict,
-          launches: list[dict] | None, calls: int = 1):
+          launches: list[dict] | None, calls: int = 1,
+          bad_passes=frozenset()):
     """``(correct, failed passes, checks)``; ``checks`` maps each short
     name to ``{"value", "limit"}`` (a launch check ``{"value", "limit",
     "at_least"}``). ``launches`` holds each pass's ``{kernel: launches}``,
     ``calls`` the calls of the port a pass makes; None (a run on the host,
-    where no kernel exists) leaves the launch rules out."""
+    where no kernel exists) leaves the launch rules out. ``bad_passes``:
+    the indices of passes found wrong elsewhere, counted failed."""
     checks, failed = {}, 0
-    for out in results:
+    for i, out in enumerate(results):
         g = gaps_of_pass(mix, out, refs)
-        if any(not v <= limits[k]["limit"] for k, v in g.items()):
+        if i in bad_passes or any(not v <= limits[k]["limit"] for k, v in g.items()):
             failed += 1
         for k, v in g.items():
             prev = checks.get(k, {"value": 0.0})["value"]
@@ -76,6 +84,35 @@ def judge(mix: dict, limits: dict, results: list[dict], refs: dict,
         checks[f"{k}_launches"] = {"value": total, "limit": 0}
         correct &= total == 0
     return bool(correct), failed, checks
+
+
+def _values_differ(a, b) -> int:
+    """Values of ``a`` and ``b`` that differ bit for bit (all of them where
+    one is missing or the two differ in type or shape)."""
+    if a is None or b is None:
+        return int(np.size(a if b is None else b))
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.size, b.size)
+    bits_a = a.reshape(a.size, 1).view(np.uint8)
+    bits_b = b.reshape(b.size, 1).view(np.uint8)
+    return int((bits_a != bits_b).any(axis=1).sum())
+
+
+def disagreement(results_by_rank: list[list[dict]]) -> tuple[int, set]:
+    """``(values, passes)``: the output values of ranks 1.. that differ from
+    rank 0's bit for bit or are missing, and the passes that hold one."""
+    base, n, bad = results_by_rank[0], 0, set()
+    for res in results_by_rank[1:]:
+        for i in range(max(len(base), len(res))):
+            mine = res[i] if i < len(res) else {}
+            ref = base[i] if i < len(base) else {}
+            d = sum(_values_differ(ref.get(k), mine.get(k))
+                    for k in ref.keys() | mine.keys())
+            if d:
+                n += d
+                bad.add(i)
+    return n, bad
 
 
 def lines(checks: dict) -> list[str]:

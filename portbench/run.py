@@ -15,8 +15,13 @@ and every pass's outputs are compared with the plain reference
 beside its limit; the last line on standard output is the result, a JSON
 object whose last key, ``checks``, repeats them.
 
+A cell whose mix names the argument kind ``"mesh"`` runs as a world of
+``chips`` ranks, one process a card, which this process starts, watches and
+reads (``world.py``); every other cell runs here, in this one process.
+
 Exits 2 without a result when there is no card, too few cards, or no port
-to run; 3 when a module of the JAX side was loaded.
+to run; 3 when a module of the JAX side was loaded; in a world, non-zero
+when a rank failed.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ WARMUP_PASSES = 2
 
 @dataclass
 class RunContext:
-    """What a metric's reader may read (``metrics/<name>.py``)."""
+    """What a metric's reader may read (``metrics/<name>.py``). In a world
+    of ranks every field is rank 0's, but the peak: the largest over the
+    cards."""
 
     config: dict
     device_kind: str
@@ -103,29 +110,57 @@ def _libraries(port) -> set:
     return set(Path(port.__file__).resolve().parent.glob("_build/**/*.so"))
 
 
-def run_cell(bench: dict, cell_name: str, *, seed: int, seconds: float,
-             traced: bool, device, port, t0: float, config: dict | None = None):
-    """Set up, measure and judge one cell; returns the result dict (``checks``
-    its last key). ``config`` replaces the cell's configuration (the CPU
-    tests run a cell at a small size)."""
-    cell = spec.cell(bench, cell_name)
-    config = config or spec.config(bench, cell["config"])
-    mix, limits = spec.mix(cell["traffic"]), spec.limits(cell_name)
-    cuda = _cuda(device)
+def read_metrics(bench: dict, cell_name: str, ctx: RunContext,
+                 traced: bool) -> dict:
+    """The cell's metrics of the run's group that a reader finds."""
+    group = "per_layer" if traced else "end_to_end"
+    metrics = {}
+    for m in spec.metrics_for(bench, cell_name, group):
+        value = spec.metric_reader(m["name"]).read(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    return metrics
 
+
+@dataclass
+class Prepared:
+    """A cell's program, set up and warmed up, and what its set-up read."""
+
+    x: torch.Tensor       # the sample (in a world, this rank's block)
+    one_pass: object      # one pass of the mix over ``x``
+    timed: object         # ``one_pass`` counting its launches into ``per_pass``
+    per_pass: list
+    parts: dict           # the set-up's parts, the result's ``setup``
+    peak_setup: int
+    resident: int         # bytes allocated on the card before the window
+
+    def free(self) -> None:
+        """Drop the program's state, so that the reference runs beside the
+        sample alone."""
+        self.one_pass = self.timed = None
+        gc.collect()
+        if self.x.is_cuda:
+            torch.cuda.empty_cache()
+
+
+def prepare(make_x, mix: dict, config: dict, port, t0: float,
+            mesh=None) -> Prepared:
+    """Make the sample (``make_x()``), build the mix's pass over it and warm
+    it up, reading the set-up's parts and the peak of set-up."""
     libraries = _libraries(port)
     t_start = time.perf_counter()
-    x = make_sample(config, seed, device)
+    x = make_x()
+    cuda = x.is_cuda
     if cuda:
         torch.cuda.synchronize()
     t_sample = time.perf_counter()
-    one_pass = traffic.build_pass(mix, config, x, port)
+    one_pass = traffic.build_pass(mix, config, x, port, mesh=mesh)
     for _ in range(WARMUP_PASSES):
         one_pass()
     t_warm = time.perf_counter()
     built = bool(_libraries(port) - libraries)
-    setup_parts = {"to_the_cell_s": t_start - t0, "sample_s": t_sample - t_start,
-                   "warmup_s": t_warm - t_sample, "library_built_here": built}
+    parts = {"to_the_cell_s": t_start - t0, "sample_s": t_sample - t_start,
+             "warmup_s": t_warm - t_sample, "library_built_here": built}
     print(f"setup: {t_start - t0:.3f} s to the cell, sample {t_sample - t_start:.3f} s, "
           f"{WARMUP_PASSES} warm-up passes {t_warm - t_sample:.3f} s"
           f"{' (the kernel library built in them)' if built else ''}",
@@ -137,52 +172,86 @@ def run_cell(bench: dict, cell_name: str, *, seed: int, seconds: float,
         torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated() if cuda else 0
     timed, per_pass = counting(one_pass, port)
-    setup_s = time.perf_counter() - t0
+    return Prepared(x, one_pass, timed, per_pass, parts, peak_setup, resident)
 
-    tr = None
+
+@dataclass
+class Window:
+    """What the measured window gave."""
+
+    results: list         # each pass's outputs
+    pass_s: list          # seconds of each pass; empty in a traced run
+    window_s: float
+    trace: trace.Trace | None
+
+
+def run_window(timed, traced: bool, seconds: float, loop=measure) -> Window:
+    """``trace.TRACE_PASSES`` passes under the profiler, or ``loop(timed,
+    seconds)``'s passes."""
     if traced:
         tr, results = trace.run_traced(timed)
-        pass_s, window_s = [], (tr.window[1] - tr.window[0]) / 1e6
-    else:
-        results, pass_s, window_s = measure(timed, seconds)
-    launches = {k: sum(p[k] for p in per_pass) for k in per_pass[0]}
-    calls = traffic.calls_a_pass(mix, config)
-    peak_window = torch.cuda.max_memory_allocated() if cuda else 0
-    ctx = RunContext(
-        config=config, device_kind=torch.cuda.get_device_name(0) if cuda else "cpu",
-        setup_s=setup_s, passes=len(results), pass_s=pass_s,
-        window_s=window_s, launches=launches,
-        peak_above_sample_bytes=peak_window - resident, trace=tr,
-        calls_a_pass=calls)
+        return Window(results, [], (tr.window[1] - tr.window[0]) / 1e6, tr)
+    return Window(*loop(timed, seconds), None)
 
-    group = "per_layer" if traced else "end_to_end"
-    metrics = {}
-    for m in spec.metrics_for(bench, cell_name, group):
-        value = spec.metric_reader(m["name"]).read(ctx)
-        if value is not None:
-            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    # the program's state goes before the reference runs beside the sample
-    del one_pass, timed
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    refs = check.references(mix, x, config)
-    correct, failed, checks = check.judge(
-        mix, limits, results, refs, per_pass if cuda else None, calls)
+def context(config: dict, cuda: bool, setup_s: float, win: Window,
+            per_pass: list, above: int, calls: int) -> RunContext:
+    return RunContext(
+        config=config, device_kind=torch.cuda.get_device_name() if cuda else "cpu",
+        setup_s=setup_s, passes=len(win.results), pass_s=win.pass_s,
+        window_s=win.window_s,
+        launches={k: sum(p[k] for p in per_pass) for k in per_pass[0]},
+        peak_above_sample_bytes=above, trace=win.trace, calls_a_pass=calls)
 
-    dev = {"platform": "gpu" if cuda else "cpu", "kind": ctx.device_kind,
-           "count": cell["chips"],
-           "memory_peak_bytes": max(peak_setup, peak_window)}
-    out = {"correct": correct, "attempted": len(results), "failed": failed,
+
+def assemble(judged: tuple, win: Window, ctx: RunContext, metrics: dict, *,
+             cuda: bool, count: int, peak: int, busy_s: float | None,
+             parts: dict) -> dict:
+    """The result line's object from ``check.judge``'s ``(correct, failed,
+    checks)``; ``checks`` its last key."""
+    correct, failed, checks = judged
+    dev = {"platform": "gpu" if cuda else "cpu",
+           "kind": ctx.device_kind, "count": count, "memory_peak_bytes": peak}
+    out = {"correct": correct, "attempted": len(win.results), "failed": failed,
            "metrics": metrics, "device": dev}
-    if tr is not None:
-        dev["busy_s"] = trace.busy_us(tr) / 1e6
-        dev["window_s"] = window_s
-        out["breakdown"] = trace.breakdown(tr)
-    out["setup"] = setup_parts
+    if win.trace is not None:
+        dev["busy_s"] = busy_s
+        dev["window_s"] = win.window_s
+        out["breakdown"] = trace.breakdown(win.trace)
+    out["setup"] = parts
     out["checks"] = checks
     return out
+
+
+def run_cell(bench: dict, cell_name: str, *, seed: int, seconds: float,
+             traced: bool, device, port, t0: float, config: dict | None = None):
+    """Set up, measure and judge one cell; returns the result dict (``checks``
+    its last key). ``config`` replaces the cell's configuration (the CPU
+    tests run a cell at a small size)."""
+    cell = spec.cell(bench, cell_name)
+    config = config or spec.config(bench, cell["config"])
+    mix, limits = spec.mix(cell["traffic"]), spec.limits(cell_name)
+    cuda = _cuda(device)
+
+    prep = prepare(lambda: make_sample(config, seed, device), mix, config,
+                   port, t0)
+    setup_s = time.perf_counter() - t0
+    win = run_window(prep.timed, traced, seconds)
+    calls = traffic.calls_a_pass(mix, config)
+    peak_window = torch.cuda.max_memory_allocated() if cuda else 0
+    ctx = context(config, cuda, setup_s, win, prep.per_pass,
+                  peak_window - prep.resident, calls)
+    metrics = read_metrics(bench, cell_name, ctx, traced)
+
+    # the program's state goes before the reference runs beside the sample
+    prep.free()
+    refs = check.references(mix, prep.x, config)
+    judged = check.judge(mix, limits, win.results, refs,
+                         prep.per_pass if cuda else None, calls)
+    busy_s = trace.busy_us(win.trace) / 1e6 if win.trace else None
+    return assemble(judged, win, ctx, metrics, cuda=cuda, count=cell["chips"],
+                    peak=max(prep.peak_setup, peak_window), busy_s=busy_s,
+                    parts=prep.parts)
 
 
 def parse_args(argv=None):
@@ -206,6 +275,12 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
+    if traffic.names_mesh(spec.mix(cell["traffic"])):
+        from . import world
+
+        return world.main(bench, args.workload, seed=args.seed,
+                          seconds=args.seconds, traced=bool(args.trace),
+                          device="cuda", port=PORT, t0=_T0)
     try:
         port = importlib.import_module(PORT)
     except ImportError as exc:

@@ -7,12 +7,12 @@ its layer boundaries; its ``utils/profiling.py`` lists them. A device
 operation belongs to the innermost ``mdt.`` region open on the host when it
 was launched, which may have closed before the operation ran. A ``Trace``
 keeps the device operations and the host events, each ``(name, start,
-end)`` on the profiler's clock, but not which runtime call launched which
-operation. On one stream the k-th launching call of a kind runs the k-th
-operation of that kind, so the launches are paired with the operations by
-order within each kind (kernels, copies, memsets). Where a kind's counts
-differ, the pairing is unknown and the readers find nothing (None), as they
-do on a program that opens no ``mdt.`` region.
+end)`` on the profiler's clock, each operation's correlation id and the
+start of the runtime call with the same id: the launch of each operation,
+on whatever stream it ran (NCCL's kernels run on NCCL's own), and in any
+rank's trace. Where an operation has no such call, the pairing is unknown
+and the readers find nothing (None), as they do on a program that opens no
+``mdt.`` region.
 
     python3 -m portbench.spans --workload <cell> --seed <n>
 
@@ -52,18 +52,12 @@ def op_kind(name: str) -> str:
 
 def launch_times(tr: trace.Trace) -> list | None:
     """The host time of the call that launched each of ``tr.device``, in
-    its order, or None where a kind's launches and operations differ in
-    number."""
-    out = [0.0] * len(tr.device)
-    for kind, names in LAUNCHES.items():
-        ops = sorted((a, i) for i, (n, a, _) in enumerate(tr.device)
-                     if op_kind(n) == kind)
-        calls = sorted(a for n, a, _ in tr.host if n in names)
-        if len(ops) != len(calls):
-            return None
-        for (_, i), t in zip(ops, calls):
-            out[i] = t
-    return out
+    its order, by correlation id, or None where an operation has no
+    runtime call with its id."""
+    if len(tr.corr) != len(tr.device):
+        return None
+    out = [tr.launched.get(i) for i in tr.corr]
+    return None if None in out else out
 
 
 class Regions:

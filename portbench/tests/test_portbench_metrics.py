@@ -147,3 +147,36 @@ def test_short_names():
 
 def test_values_per_pass():
     assert ctx().values_per_pass == 120
+
+
+def _host_op_at(tr, t):
+    """The definition: the latest-started host operation covering ``t``."""
+    best, best_start = "python", float("-inf")
+    for name, a, b in tr.host:
+        if a <= t <= b and a > best_start and name != "portbench.window":
+            best, best_start = name, a
+    return best
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_the_breakdown_names_each_gap_by_its_definition(seed):
+    import random
+
+    rng = random.Random(seed)
+    host = [("portbench.window", 0.0, 1000.0)]
+    for i in range(300):
+        a = rng.choice([rng.uniform(0, 990), float(rng.randrange(0, 990, 10))])
+        host.append((f"op{i % 17}", a, a + rng.choice([0.0, 1.0, rng.uniform(0, 80)])))
+    device = []
+    for _ in range(200):
+        a = rng.uniform(0, 995)
+        device.append(("k", a, a + rng.uniform(0, 5)))
+    tr = trace.Trace(device=device, host=host, window=(0.0, 1000.0), passes=2)
+    mids = sorted(rng.uniform(-5, 1005) for _ in range(400))
+    assert trace.host_ops_at(tr, mids) == [_host_op_at(tr, t) for t in mids]
+    idle = {}
+    for a, b in trace.gaps([(a, b) for _, a, b in device], 0.0, 1000.0):
+        name = _host_op_at(tr, (a + b) / 2)
+        idle[name] = idle.get(name, 0.0) + (b - a) / 1e6 / 2
+    want = [[k, v] for k, v in sorted(idle.items(), key=lambda kv: -kv[1])[:10]]
+    assert trace.breakdown(tr)["idle_gaps"] == want

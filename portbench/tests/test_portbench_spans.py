@@ -1,6 +1,6 @@
 """The readers by the port's own regions (``portbench/spans.py``) on a
 synthetic trace counted by hand: launches paired with device operations by
-kind and order, the innermost ``mdt.`` region open at a launch takes the
+correlation id, the innermost ``mdt.`` region open at a launch takes the
 operation, idle time inside the call regions, the synchronizing calls by
 region, the coverage, and the new metrics' readers; the readers by kernel
 name read the same with or without the runtime calls and regions."""
@@ -48,9 +48,21 @@ RUNTIME = [
 ]
 
 
+# correlation ids: each runtime call's, and each device operation's (that of
+# the call that launched it)
+RUNTIME_IDS = [11, 12, 13, 14, 15, 16, 17, 18, 19]
+DEVICE_IDS = [11, 12, 14, 15, 16, 17, 19]
+
+
 def _trace(host=REGIONS + RUNTIME, device=DEVICE):
+    """The trace as ``trace.run_traced`` keeps it: the ids of the device
+    operations, and the start of each runtime call by its id."""
+    corr = [DEVICE_IDS[DEVICE.index(op)] for op in device]
+    launched = {RUNTIME_IDS[RUNTIME.index(h)]: h[1] for h in host
+                if h in RUNTIME and RUNTIME_IDS[RUNTIME.index(h)] in corr}
     return trace.Trace(device=list(device), host=list(host),
-                       window=(0.0, 200.0), passes=2)
+                       window=(0.0, 200.0), passes=2, corr=corr,
+                       launched=launched)
 
 
 def ctx(tr, **kw):
@@ -66,15 +78,37 @@ def read(name, c):
 
 
 def test_launches_pair_with_operations_by_kind_and_order():
+    # on one stream the ids pair the k-th launch of a kind with the k-th
+    # operation of that kind, as the pairing by order did
     tr = _trace()
     assert spans.launch_times(tr) == [12.0, 21.0, 38.0, 46.0, 80.0, 91.0, 150.0]
     # the device's list in another order pairs the same
     shuffled = _trace(device=DEVICE[::-1])
     assert spans.launch_times(shuffled) == [150.0, 91.0, 80.0, 46.0, 38.0, 21.0, 12.0]
-    # a launch with no operation leaves the pairing unknown
+    # a launch with no operation changes nothing
     extra = _trace(host=REGIONS + RUNTIME + [("cudaLaunchKernel", 170.0, 171.0)])
-    assert spans.launch_times(extra) is None
-    assert spans.by_span(extra) is None
+    assert spans.launch_times(extra) == spans.launch_times(tr)
+    assert spans.by_span(extra) == spans.by_span(tr)
+
+
+def test_launches_pair_with_operations_by_correlation_id():
+    # a collective's kernel on its own stream: launched at 32, inside the
+    # rank region, it runs at 100-105, after k3 and k4 ran on the other
+    # stream; paired by order, each kernel from k2 on would take an earlier launch
+    nccl = ("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+            100.0, 105.0)
+    host = REGIONS + RUNTIME + [("cudaLaunchKernelExC", 32.0, 33.0)]
+    tr = _trace(host=host, device=DEVICE)
+    tr.device.append(nccl)
+    tr.corr.append(20)
+    tr.launched[20] = 32.0
+    times = spans.launch_times(tr)
+    assert times == [12.0, 21.0, 38.0, 46.0, 80.0, 91.0, 150.0, 32.0]
+    assert spans.attributed(tr)[-1][0] == "mdt.rank.exact"
+    # an operation with no runtime call of its id leaves the pairing unknown
+    del tr.launched[20]
+    assert spans.launch_times(tr) is None
+    assert spans.by_span(tr) is None
 
 
 def test_innermost_region_at_launch_takes_the_operation():

@@ -2,11 +2,15 @@
 sample, as a pipeline that diagnoses a sampler's output makes them.
 
 A mix (``mixes/<traffic>.json``) lists the ``calls`` of one pass: each a
-public function of the port by name (``fn``), its positional arguments by
+public function of the port by name (``fn``; a dotted name is a path in
+the port, ``"parallel.rhat_nested_sharded"``), its positional arguments by
 kind (``args``: ``"sample"``, the device-resident sample; ``"superchain_ids"``,
-one id a chain, ``config["superchains"]`` contiguous runs), its keyword
-arguments as data (``kwargs``) and the names of its outputs (``outputs``),
-one value a parameter each. A call with ``param_slice`` goes through the
+one id a chain, ``config["superchains"]`` contiguous runs; ``"mesh"``, the
+port's ``MeshConfig``), its keyword arguments as data (``kwargs``) and the
+names of its outputs (``outputs``), one value a parameter each. A mix that
+names ``"mesh"`` runs as a world of ranks (``world.py``): there
+``"sample"`` is this rank's block of chains and ``"superchain_ids"`` the
+global ids. A call with ``param_slice`` goes through the
 parameters in slices of that many, one call a slice, as a caller does whose
 sample leaves the card too little room for one call over all of it; its
 outputs are joined along the parameters. A pass ends when every output is
@@ -14,6 +18,8 @@ on the host, which is what the user reads.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,9 +31,20 @@ def superchain_ids(config: dict) -> np.ndarray:
 
 
 ARG_KINDS = {
-    "sample": lambda sample, config: sample,
-    "superchain_ids": lambda sample, config: superchain_ids(config),
+    "sample": lambda sample, config, mesh: sample,
+    "superchain_ids": lambda sample, config, mesh: superchain_ids(config),
+    "mesh": lambda sample, config, mesh: mesh,
 }
+
+
+def names_mesh(mix: dict) -> bool:
+    """Whether the mix runs as a world of ranks: a call takes the mesh."""
+    return any("mesh" in call.get("args", ()) for call in mix["calls"])
+
+
+def port_function(port, name: str):
+    """The port's function ``name``, a dotted name a path of attributes."""
+    return functools.reduce(getattr, name.split("."), port)
 
 
 def param_slices(call: dict, nparams: int) -> list[tuple[int, int]]:
@@ -41,15 +58,17 @@ def calls_a_pass(mix: dict, config: dict) -> int:
     return sum(len(param_slices(c, config["params"])) for c in mix["calls"])
 
 
-def build_pass(mix: dict, config: dict, sample: torch.Tensor, port):
+def build_pass(mix: dict, config: dict, sample: torch.Tensor, port,
+               mesh=None):
     """A callable that makes one pass and returns ``{output: numpy}``. The
-    port's functions are looked up here, once, by name."""
+    port's functions are looked up here, once, by name. ``mesh``: this
+    rank's ``MeshConfig`` in a world of ranks."""
     calls = []
     for call in mix["calls"]:
-        fn = getattr(port, call["fn"])
+        fn = port_function(port, call["fn"])
         for s0, s1 in param_slices(call, config["params"]):
             part = sample if (s0, s1) == (0, config["params"]) else sample[:, :, s0:s1]
-            args = [ARG_KINDS[kind](part, config)
+            args = [ARG_KINDS[kind](part, config, mesh)
                     for kind in call.get("args", ["sample"])]
             calls.append((call["fn"], fn, args, call.get("kwargs", {}),
                           call["outputs"]))
