@@ -586,9 +586,10 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
     from mcmcdiagnostictools_jl_tpu_torch.kernels import seghist, valley
     from mcmcdiagnostictools_jl_tpu_torch.ops.moments import (
         chain_stats, stats_from_chain_moments)
+    from mcmcdiagnostictools_jl_tpu_torch.kernels.tiedrank import (
+        tied_blom_plain)
     from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
-        _avg_ranks_sorted, _blom_normal, _rows, _transpose, _unsort,
-        sort_with_positions, sorted_quantile)
+        _rows, _transpose, _unsort, sort_with_positions, sorted_quantile)
     from mcmcdiagnostictools_jl_tpu_torch.utils.split import split_chains_reshape
 
     xk = with_bad_columns(x3)
@@ -636,7 +637,7 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
                      **bound))
 
     k12_row = phase_k12(xs, order, bad, fs)
-    zf = _blom_normal(_avg_ranks_sorted(fs), n)
+    zf = tied_blom_plain(fs)
     del fs
     a = seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2)
     b = seghist.segment_moments(zf, forder, DRAWS, CHAINS, 2)
@@ -707,7 +708,7 @@ def phase_fold_kernels(x3: torch.Tensor) -> dict:
     check(torch.equal(_rows(x3), xf.t().contiguous()), "_rows differs")
     rows_ms = time_ms(lambda: _rows(x3))
     rows_t_ms = time_ms(lambda: xf.t().contiguous())
-    z = _blom_normal(_avg_ranks_sorted(xs), n)
+    z = tied_blom_plain(xs)
 
     def direct():
         out = z.new_empty((n, p))
@@ -2185,7 +2186,7 @@ def phase_rstar_bigk() -> dict:
     check(same and lv_err <= 5e-6,
           "class-chunked fit differs from the dense fit")
     return {"mean": mean, "wall_s": wall, "fit_s": fit_s, "peak_gb": peak,
-            "device_ms": split, "slice_leaf_value_max_abs": lv_err,
+            "slice_leaf_value_max_abs": lv_err,
             "slice_fit_dense_s": walls[-1], "slice_fit_chunked_s": walls[64]}
 
 

@@ -14,9 +14,12 @@
 // the tied rank (first + last) / 2 of the run of equal values holding j
 // (1-based positions; `==` decides equality, so each NaN is a run of one and
 // -0.0 joins +0.0; first + last is an integer, rounded once to float32), or,
-// with `blom`, its Blom normal score ndtri((rank - 0.375) * inv_b). inv_b is
-// 1 / (n + 0.25) rounded to float32, as PyTorch's division by a Python
-// scalar on the card computes it (a product with the scalar's reciprocal).
+// with `blom`, its Blom normal score ndtri((rank - 3/8) / (n + 1/4)), formed
+// as `blom_score` says: the numerator exact in integers and, on the upper
+// half of the row, taken from the far end, so that the top score stays
+// finite however long the row. inv_b is 1 / (n + 0.25) rounded to float32,
+// as PyTorch's division by a Python scalar on the card computes it (a
+// product with the scalar's reciprocal).
 // The value goes to out[r, j], or to out[r, order[r, j]] when order is given
 // (the bulk transform's scatter back along the row). A row with bad[r] set
 // comes out NaN throughout, and nothing of it is read.
@@ -41,7 +44,7 @@
 //
 // The Blom scores, from a table. A score depends only on k, and n is the
 // same for every row of a launch, so for n <= kTableMaxN = 2^22 a small
-// kernel first fills T[k] = ndtri((float(k) * 0.5 - 0.375) * inv_b) for k in
+// kernel first fills T[k] = blom_score(k) for k in
 // [0, 2n] (`blom_table_kernel`, 2n + 1 evaluations: 2.56 M at n = 1.28M, tens
 // of microseconds), and the main kernel reads T[k] in place of running ndtri
 // once an entry (327 M times at (256, 1.28M)). The table's entries are
@@ -244,14 +247,30 @@ __device__ __forceinline__ float tied_rank(long long k) {
   return __ll2float_rn(k) * 0.5f;
 }
 
-__device__ __forceinline__ float blom_score(long long k, float inv_b) {
-  return ndtri_f32((tied_rank(k) - 0.375f) * inv_b);
+// the Blom score ndtri((r - 3/8) / (n + 1/4)) of the tied rank r = k / 2 in
+// a row of n. In float32 the argument of the top rank rounds to 1 from n =
+// 2^24 on (ndtri: +inf), and r itself stops being exact, so the numerator is
+// formed exactly in 64-bit integers, eight times over, and on the upper half
+// (k > n) from the far end, n - r + 5/8, with the score's sign flipped
+// (ndtri(1 - y) = -ndtri(y)): a8 = 8 min(r - 3/8, n - r + 5/8), the distance
+// of 8 (r - 3/8) from the middle c8 = 8 (n / 2 + 1 / 8) taken off c8 (= 4
+// min(k, 2n + 2 - k) - 3). a8 is rounded once to float32 (exact up to 2^24),
+// then multiplied by 1/8 (exact) and by inv_b; the plain version
+// (kernels/tiedrank.py, `blom_scores`) forms the same a8 and rounds it alike.
+// (A 32-bit form with a 64-bit fallback for n >= 2^28 read 9 % slower in the
+// scatter's pass A at 125 x 6.25M, against 0.9 % for this one.)
+__device__ __forceinline__ float blom_score(long long k, int n, float inv_b) {
+  const long long c8 = 4LL * n + 1;
+  const long long d8 = 4LL * k - 3 - c8;
+  const long long a8 = c8 - (d8 < 0 ? -d8 : d8);
+  const float z = ndtri_f32(__ll2float_rn(a8) * 0.125f * inv_b);
+  return k > n ? -z : z;
 }
 
 __global__ void __launch_bounds__(kTableThreads)
-blom_table_kernel(int count, float inv_b, float* __restrict__ table) {
+blom_table_kernel(int n, float inv_b, float* __restrict__ table) {
   const int k = blockIdx.x * kTableThreads + threadIdx.x;
-  if (k < count) table[k] = blom_score(k, inv_b);
+  if (k <= 2 * n) table[k] = blom_score(k, n, inv_b);
 }
 
 // Pass A's second half: the values v of this thread's entries e = t + i
@@ -454,7 +473,7 @@ tied_ranks_kernel(const float* __restrict__ xs,
     } else if constexpr (kMode == kBlomTable) {
       s_key[slot(e0 + i)] = (int)k;  // looked up below, a warp's together
     } else {
-      s_val[slot(e0 + i)] = blom_score(k, inv_b);
+      s_val[slot(e0 + i)] = blom_score(k, n, inv_b);
     }
   }
   __syncthreads();
@@ -563,7 +582,7 @@ cudaError_t launch_rows(const float* xs, const long long* order,
 extern "C" int mdt_blom_table(int n, float inv_b, float* table, void* stream) {
   const int count = 2 * n + 1;
   blom_table_kernel<<<(count + kTableThreads - 1) / kTableThreads,
-                      kTableThreads, 0, (cudaStream_t)stream>>>(count, inv_b,
+                      kTableThreads, 0, (cudaStream_t)stream>>>(n, inv_b,
                                                                table);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,10 @@ write whole sectors.
 ``tied_blom`` launches the kernels for a CUDA float32 tensor and runs
 ``tied_blom_plain`` for any other, never falling back from one to the other.
 The plain version is the exact mode's code as it was before the kernel:
-``_avg_ranks_sorted`` (a cummax and a reverse cummin over the run
-boundaries), ``_blom_normal``, the ``bad`` mask and ``_scatter_rows``;
-``ops/ranknorm.py`` exports those names.
+``_run_sums`` (a cummax and a reverse cummin over the run boundaries), the
+ranks or their Blom scores (``blom_scores``, the arithmetic K12 follows),
+the ``bad`` mask and ``_scatter_rows``; ``ops/ranknorm.py`` exports those
+names.
 """
 
 from __future__ import annotations
@@ -34,15 +35,16 @@ _TABLE_MAX_N = 2**22  # longest row whose scores come from a table (kTableMaxN)
 _RANKS, _BLOM_TABLE, _BLOM_NDTRI = 0, 1, 2
 
 
-def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
-    """Tied ("average") 1-based ranks of the presorted rows ``xs`` ``(P,
-    N)``, in sorted order: each run of equal values gets the mean of its
-    1-based positions, (first + last) / 2, the first by a cummax and the
-    last by a reverse cummin over the run boundaries, along the contiguous
-    axis. Entry ``j`` starts a run where it differs from entry ``j - 1``
-    (``first``), and ends one where entry ``j + 1`` starts one, so the
-    reverse scan reads ``first`` flipped as bytes (reversed position ``r``
-    is entry ``n - 1 - r``) and one int32 result is flipped back."""
+def _run_sums(xs: torch.Tensor) -> torch.Tensor:
+    """``(P, N)`` int32: for each entry of the presorted rows ``xs`` ``(P,
+    N)``, in sorted order, the sum ``k`` of the 1-based first and last
+    positions of its run of equal values (its tied rank is ``k / 2``): the
+    first by a cummax and the last by a reverse cummin over the run
+    boundaries, along the contiguous axis. Entry ``j`` starts a run where
+    it differs from entry ``j - 1`` (``first``), and ends one where entry
+    ``j + 1`` starts one, so the reverse scan reads ``first`` flipped as
+    bytes (reversed position ``r`` is entry ``n - 1 - r``) and one int32
+    result is flipped back."""
     p, n = xs.shape
     pos = torch.arange(1, n + 1, dtype=torch.int32, device=xs.device)
     first = torch.empty((p, n), dtype=torch.bool, device=xs.device)
@@ -55,11 +57,39 @@ def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
     end = torch.full((p, n), n, dtype=torch.int32, device=xs.device)
     torch.where(first_rev[:, :-1], pos.flip(0)[1:], pos[-1], out=end[:, 1:])
     end = torch.cummin(end, dim=1).values.flip(1)
-    return start.add_(end).to(xs.dtype) * 0.5
+    return start.add_(end)
 
 
-def _blom_normal(ranks: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.special.ndtri((ranks - 0.375) / (n + 0.25))
+def _avg_ranks_sorted(xs: torch.Tensor) -> torch.Tensor:
+    """Tied ("average") 1-based ranks of the presorted rows ``xs`` ``(P,
+    N)``, in sorted order: each run of equal values gets the mean of its
+    1-based positions, (first + last) / 2, rounded once to ``xs``'s
+    dtype."""
+    return _run_sums(xs).to(xs.dtype) * 0.5
+
+
+def blom_scores(k: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """Blom normal scores ``ndtri((r - 3/8) / (n + 1/4))``, in ``dtype``, of
+    the tied ranks ``r = k / 2`` in a row of ``n`` entries, ``k`` an integer
+    tensor (each run's 1-based first plus last position; the ring route's
+    ``2 cl + ce + 1``).
+
+    Formed as K12 forms them (``csrc/tied_ranks.cu``, ``blom_score``): the
+    numerator exactly in integers, eight times over, and on the upper half
+    (``k > n``) from the far end, ``n - r + 5/8``, with the sign flipped
+    (``ndtri(1 - y) = -ndtri(y)``): ``8 min(r - 3/8, n - r + 5/8) = 4
+    min(k, 2n + 2 - k) - 3``; then rounded once to ``dtype`` and multiplied
+    by ``1 / (8 (n + 1/4))`` (in float32 PyTorch's product with the
+    reciprocal rounded to float32, as the card divides by a Python scalar;
+    the 1/8 is exact). In float32 ``(r - 3/8) / (n + 1/4)`` rounds to 1 for
+    the top rank from ``n = 2^24`` on, where ``ndtri`` gives +inf; here
+    every argument lies in (0, 1/2]. The integers are int32 while ``8 n <
+    2^31``."""
+    k = k.to(torch.int32 if 8 * n < 2**31 else torch.int64)
+    upper = k > n
+    a8 = torch.minimum(k, (2 * n + 2) - k).mul_(4).sub_(3)
+    z = torch.special.ndtri(a8.to(dtype).mul_(0.125 / (n + 0.25)))
+    return torch.where(upper, -z, z)
 
 
 def _scatter_rows(values_sorted: torch.Tensor,
@@ -73,9 +103,8 @@ def tied_blom_plain(xs: torch.Tensor, order: torch.Tensor | None = None,
                     bad: torch.Tensor | None = None, *,
                     blom: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K12 (see ``tied_blom``)."""
-    v = _avg_ranks_sorted(xs)
-    if blom:
-        v = _blom_normal(v, xs.shape[1])
+    k = _run_sums(xs)
+    v = blom_scores(k, xs.shape[1], xs.dtype) if blom else k.to(xs.dtype) * 0.5
     if bad is not None:
         v = v.masked_fill_(bad[:, None], torch.nan)
     return v if order is None else _scatter_rows(v, order)
@@ -95,8 +124,9 @@ def tied_blom(xs: torch.Tensor, order: torch.Tensor | None = None,
     Equal is ``==``: each NaN is a run of its own, ``-0.0`` and ``+0.0`` one
     run. The ranks are bit-equal to the plain version's (first + last is an
     integer rounded once to float32, then halved), and the scores follow
-    PyTorch's division by ``N + 0.25`` on the card (a product with its
-    float32 reciprocal) and its ``ndtri``. The kernel finds the runs that
+    its ``blom_scores`` (an exact numerator, from the far end on the upper
+    half, so that they stay finite for rows of 2^24 entries and more) and
+    PyTorch's ``ndtri``. The kernel finds the runs that
     cross its tiles' edges by searches that assume NaN last in the row; the
     card's sort puts a sign-bit NaN first, so a caller masks every row that
     holds a NaN (``ops.ranknorm._nan_rows``), by ``bad`` or afterwards: such
@@ -157,7 +187,7 @@ def group_rows(p: int) -> int:
 def blom_table(n: int, device) -> torch.Tensor:
     """``(2N + 1,)`` float32 on the card: entry ``k`` the Blom score of an
     entry whose run's 1-based first and last positions add up to ``k``,
-    ``ndtri((k / 2 - 0.375) / (N + 0.25))`` as the kernel computes it."""
+    ``blom_scores(k, N)`` as the kernel computes it."""
     table = torch.empty(2 * n + 1, dtype=torch.float32, device=device)
     with torch.cuda.device(table.device):
         code = _build.library().mdt_blom_table(

@@ -26,11 +26,13 @@ R-hat takes its split-chain moments straight from them
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..kernels.radix_sort import sort_rows, sort_rows_keys
 from ..kernels.tiedrank import (  # noqa: F401  (K12's plain pieces)
-    _avg_ranks_sorted, _blom_normal, _scatter_rows, tied_blom)
+    _avg_ranks_sorted, _scatter_rows, blom_scores, tied_blom)
 from ..kernels.valley import _VALLEY_BLOCK, valley_merge, valley_sort_2d
 from ..utils.profiling import host_sync
 
@@ -145,14 +147,25 @@ def rank_normalize(x3: torch.Tensor) -> torch.Tensor:
 
 def sorted_quantile(xs: torch.Tensor, p: float) -> torch.Tensor:
     """Type-7 quantile ``(P,)`` of presorted rows ``xs`` ``(P, N)``: linear
-    interpolation at ``h = (N-1) p`` (Julia ``Statistics.quantile``)."""
+    interpolation at ``h = (N-1) p`` (Julia ``Statistics.quantile``), ``h``
+    formed in float64 as Julia forms it (in float32 ``h`` rounds from ``N =
+    2^24`` on, and the median of an even row of 25M entries became its upper
+    middle value), the weight ``g = h - floor(h)`` applied in ``xs``'s
+    dtype."""
     n = xs.shape[1]
-    h = (n - 1) * torch.tensor(p, dtype=xs.dtype)  # host scalar, xs's dtype
-    lo = min(max(int(torch.floor(h)), 0), n - 1)
-    hi = min(lo + 1, n - 1)
+    lo, hi, g = quantile_index(n, p)
     with host_sync("quantile_offset"):
-        g = (h - lo).to(xs.device)
+        g = torch.tensor(g, dtype=xs.dtype).to(xs.device)
     return xs[:, lo] + g * (xs[:, hi] - xs[:, lo])
+
+
+def quantile_index(n: int, p: float) -> tuple[int, int, float]:
+    """``(lo, hi, g)`` of the type-7 quantile ``p`` of ``n`` sorted values:
+    the 0-based order statistics it interpolates and the weight of ``hi``,
+    from ``h = (n - 1) p`` in float64."""
+    h = (n - 1) * float(p)
+    lo = min(max(math.floor(h), 0), n - 1)
+    return lo, min(lo + 1, n - 1), h - lo
 
 
 def folded_rank_values_sorted(xs, order, med, *, merge: str | None = None):

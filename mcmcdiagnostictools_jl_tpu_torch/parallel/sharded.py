@@ -19,8 +19,8 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
     this rank's chains sliced back out
     (the in-core helpers of ``ops/ranknorm.py``, on rows ``(P, N)``);
   - ``"ring"``: tied ranks by the ring merge-count of ``ring_rank.py``,
-    O(N_local) memory, on this rank's block as ``(N_local, P)`` (its own
-    sort along dim 0; the shared helpers take it transposed);
+    O(N_local) memory, on this rank's rows ``(P, N_local)`` (sorted by
+    kernel K13 on a CUDA float32 block, as in the gather path);
   - ``"hist"`` (opt-in, approximate like ``rank_mode="fast"``): local
     histograms by kernel K3, one SUM all-reduce of the bin moments, then the
     local lookup by kernel K4 against the global CDF: no element leaves its
@@ -31,6 +31,15 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
   straight off the sort that ranked it, by the positions it carries
   (``ops/seghist.py``, kernel K11 on a CUDA float32 block): only the bulk
   values, whose ESS needs it, go back to (draw, chain) order.
+
+Nested R-hat has a rank-local entry, ``rhat_nested_local``: each rank
+passes its own block of chains, where the sampler left it, with the global
+superchain ids, and its superchains must sit whole on it; the across level
+is SUM all-reduces. ``rhat_nested_sharded`` hands each rank its block of
+the global sample, superchains made contiguous, and calls it. Every
+collective goes through ``comm.py`` (the ``mdt.comm`` region, counted);
+the local work of the nested R-hat opens ``mdt.rank.ring``,
+``mdt.rank.exact`` (gather) and ``mdt.nested``, never around a collective.
 
 Results come back on every rank as full ``(P,)`` tensors (one ``all_gather``
 over the ``params`` group), as JAX returns global arrays. Ranks compute the
@@ -44,8 +53,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
-import torch.distributed as dist
 
 from .. import backend
 from ..diagnostics.ess_rhat import (
@@ -60,6 +69,7 @@ from ..diagnostics.rhat_nested import (
     _validate_superchain_ids,
 )
 from ..kernels.fastrank import hist_moments, pack_tables
+from ..kernels.radix_sort import sort_rows
 from ..kernels.tiedrank import tied_blom
 from ..ops.autocov import mean_autocov_curve
 from ..ops.fastrank import (
@@ -73,7 +83,7 @@ from ..ops.fastrank import (
 )
 from ..ops.geyer import geyer_ess_from_rho
 from ..ops.ranknorm import (
-    _transpose,
+    _unsort,
     folded_rank_values_sorted,
     rank_normalize,
     rank_normalize_from_sort,
@@ -81,10 +91,16 @@ from ..ops.ranknorm import (
     sorted_quantile,
 )
 from ..ops.seghist import split_chain_moments
+from ..utils.indices import unique_indices
 from ..utils.layout import maybe_scalar
+from ..utils.profiling import annotate, host_sync
 from ..utils.split import split_chains_reshape
+from .comm import all_gather as _all_gather
+from .comm import all_reduce as _sum
+from .comm import all_reduce_max as _max
 from .mesh import MeshConfig, canonical_host, shard_canonical
 from .ring_rank import (
+    RING,
     quantiles_from_positions,
     rank_normal_from_counts,
     ring_rank_counts,
@@ -95,27 +111,7 @@ _RANK_IMPLS = ("auto", "gather", "ring", "hist")
 _RING_AUTO_BYTES = 1 << 27  # ring above this full-sample size
 # the hist path's bin counts are float32 sums: exact below 2^24 elements
 _HIST_MAX_N = 1 << 24
-
-_all_gather_into = (getattr(dist, "all_gather_single", None)
-                    or dist.all_gather_into_tensor)
-
-
-def _all_gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
-    """Every rank's ``x`` of ``group`` (``size`` ranks), stacked: ``(size,
-    *x.shape)`` (gathered concatenated along dim 0, the form gloo takes)."""
-    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
-    _all_gather_into(out, x.contiguous(), group=group)
-    return out.view(size, *x.shape)
-
-
-def _sum(t: torch.Tensor, group) -> torch.Tensor:
-    dist.all_reduce(t, group=group)
-    return t
-
-
-def _max(t: torch.Tensor, group) -> torch.Tensor:
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return t
+NESTED = "mdt.nested"  # the region of the nested reductions' local work
 
 
 def _all_gather_chains(xb: torch.Tensor, cfg: MeshConfig) -> torch.Tensor:
@@ -260,41 +256,36 @@ def _gather_kernel(xb, cfg, kind, basic, q):
 
 def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     """One local sort and one ring pass: ``(xs, order, z_sorted, quants,
-    bad)``: the local sorted values, their local flat rows, the rank-normal
-    values in sorted order, the global type-7 quantiles ``(len(ps), P)`` and
-    the NaN-poisoned columns."""
-    d, c_loc, p = xb.shape
-    xf = xb.reshape(d * c_loc, p)
-    xs, order = torch.sort(xf, dim=0, stable=True)
+    bad)``: this rank's rows ``(P, N_local)`` sorted (K13 on the card), the
+    flat position of each value in its row, the rank-normal values in
+    sorted order, the global type-7 quantiles ``(len(ps), P)`` and the
+    NaN-poisoned rows."""
+    d, c_loc, _ = xb.shape
     g = cfg.chain_group
-    bad = _max(torch.isnan(xf).any(0).to(xf.dtype), g) > 0
+    with annotate(RING):
+        xs, order, nan = sort_with_positions(xb)
+    bad = _max(nan.to(xs.dtype), g) > 0
     cl, ce, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
     ntot = d * c_loc * cfg.chain_shards
-    z_sorted = rank_normal_from_counts(cl, ce, ntot, xs.dtype)
+    with annotate(RING):
+        z_sorted = rank_normal_from_counts(cl, ce, ntot, xs.dtype)
+        del cl, ce
     quants = quantiles_from_positions(xs, gpos, ntot, ps, g)
     return xs, order, z_sorted, torch.where(bad[None], torch.nan, quants), bad
 
 
-def _ring_moments(values, positions, d: int, c_loc: int, split: int):
-    """``split_chain_moments`` of this rank's ``(N_local, P)`` sorts. The
-    rank-normal values come laid out as rows (``ring_rank_counts`` works on
-    the transpose), the positions sample-major: the values go to the
-    positions' layout (a two-pass transpose), and both are passed
-    transposed, as the ``(P, N)`` the moments take."""
-    if values.stride() != positions.stride():
-        values = _transpose(values.t())
-    return split_chain_moments(values.t(), positions.t(), d, c_loc, split)
-
-
 def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
     """Rank-normal values of ``|x - med|`` in this rank's fold-sorted order,
-    with their local flat positions: a second local (stable) sort and ring
-    pass over the ``ntot`` elements of the chain group."""
-    fs, fidx = torch.sort(torch.abs(xs - med[None, :]), dim=0, stable=True)
+    with their local flat positions: a second local sort of the rows and
+    ring pass over the ``ntot`` elements of the chain group."""
+    with annotate(RING):
+        fs, fidx = sort_rows(torch.abs(xs - med[:, None]))
+        forder = order.gather(1, fidx)
+        del fidx
     cl, ce, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
                                  cfg.chain_shards)
-    return (rank_normal_from_counts(cl, ce, ntot, xs.dtype),
-            order.gather(0, fidx))
+    with annotate(RING):
+        return rank_normal_from_counts(cl, ce, ntot, xs.dtype), forder
 
 
 def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,
@@ -305,7 +296,7 @@ def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,
     d, c_loc, _ = shape3
     zf, forder = _ring_fold(xs, order, med, cfg,
                             d * c_loc * cfg.chain_shards)
-    cm, cv, vmin, vmax = _ring_moments(zf, forder, d, c_loc, split)
+    cm, cv, vmin, vmax = split_chain_moments(zf, forder, d, c_loc, split)
     w, var_plus = _pooled(cm, cv, d // split,
                           _global_degenerate(vmin, vmax, cfg.chain_group), cfg)
     return torch.where(bad, torch.nan, torch.sqrt(var_plus / w))
@@ -324,8 +315,7 @@ def _ring_kernel(xb, cfg, kind, basic, q):
     if kind == "tail":
         return _tail_ess(xb, quants[0], quants[1], cfg, basic), tail_rhat()
     # the ESS needs the bulk values in (draw, chain) order: one scatter
-    z = torch.empty_like(z_sorted).scatter_(0, order, z_sorted)
-    z = torch.where(bad[None], torch.nan, z)
+    z = torch.where(bad[None], torch.nan, _unsort(z_sorted, order))
     ess, rhat_bulk = _sharded_basic(z.reshape(d, c_loc, p), cfg, **basic)
     if kind == "bulk":
         return ess, rhat_bulk
@@ -499,80 +489,106 @@ def ess_rhat_sharded(samples, cfg: MeshConfig, *, kind: str = "rank",
 
 
 def _nested_rhat_dist(chain_mean, chain_var, nsuper_local: int,
-                      cfg: MeshConfig, degenerate):
+                      cfg: MeshConfig, degenerate, rows=None):
     """Nested R-hat from per-rank split-chain moments ``(C_local, P)``,
-    superchains whole and contiguous on their rank: the within level reduces
-    locally, the across level is SUM all-reduces (src/rhat_nested.jl:144-185);
-    NaN where ``degenerate``."""
-    ctot_loc, nparams = chain_mean.shape
-    m = ctot_loc // nsuper_local
+    superchains whole on their rank and contiguous (or made so by ``rows``,
+    the moments' order): the within level reduces locally, the across level
+    is SUM all-reduces (src/rhat_nested.jl:144-185); NaN where
+    ``degenerate``."""
     g = cfg.chain_group
     nsuper = nsuper_local * cfg.chain_shards
-    cm = chain_mean.reshape(nsuper_local, m, nparams)
-    cv = chain_var.reshape(nsuper_local, m, nparams)
-    wk = cv.mean(1)
-    sm = cm.mean(1)
-    if m > 1:
-        dm = cm - sm[:, None]
-        bk = (dm * dm).sum(1) / (m - 1)
-    else:
-        bk = torch.zeros_like(wk)
-    sums = _sum(torch.stack([(wk + bk).sum(0), sm.sum(0)]), g)
-    var_within, grand = sums[0] / nsuper, sums[1] / nsuper
-    ds = sm - grand[None]
-    var_between = _sum((ds * ds).sum(0), g) / (nsuper - 1)
-    var_between = torch.where(degenerate, torch.nan, var_between)
-    return torch.sqrt(1.0 + var_between / var_within)
+    with annotate(NESTED):
+        if rows is not None:
+            chain_mean, chain_var = chain_mean[rows], chain_var[rows]
+        ctot_loc, nparams = chain_mean.shape
+        m = ctot_loc // nsuper_local
+        cm = chain_mean.reshape(nsuper_local, m, nparams)
+        cv = chain_var.reshape(nsuper_local, m, nparams)
+        wk = cv.mean(1)
+        sm = cm.mean(1)
+        if m > 1:
+            dm = cm - sm[:, None]
+            bk = (dm * dm).sum(1) / (m - 1)
+        else:
+            bk = torch.zeros_like(wk)
+        part = torch.stack([(wk + bk).sum(0), sm.sum(0)])
+    sums = _sum(part, g)
+    with annotate(NESTED):
+        var_within, grand = sums[0] / nsuper, sums[1] / nsuper
+        ds = sm - grand[None]
+        part = (ds * ds).sum(0)
+    var_between = _sum(part, g)
+    with annotate(NESTED):
+        var_between = torch.where(degenerate, torch.nan,
+                                  var_between / (nsuper - 1))
+        return torch.sqrt(1.0 + var_between / var_within)
 
 
-def _nested_split(z3, nsuper_local: int, split: int, cfg: MeshConfig):
+def _nested_split(z3, nsuper_local: int, split: int, cfg: MeshConfig, rows):
     """Nested R-hat of a block in (draw, chain) order."""
-    samples = split_chains_reshape(z3, split)
-    chain_mean, _, chain_var = _chain_moments(samples)
+    with annotate(NESTED):
+        samples = split_chains_reshape(z3, split)
+        chain_mean, _, chain_var = _chain_moments(samples)
+        vmin, vmax = samples.amin((0, 1)), samples.amax((0, 1))
     return _nested_rhat_dist(chain_mean, chain_var, nsuper_local, cfg,
-                             _all_same(samples, cfg.chain_group))
+                             _global_degenerate(vmin, vmax, cfg.chain_group),
+                             rows)
 
 
-def _nested_gather(xb, cfg, kind, nsuper: int, split: int):
+def _nested_gather(xb, cfg, kind, nsuper: int, split: int, rows):
     """The rank kinds from one sort of the gathered sample, the same on
     every rank: both transforms' split-chain moments straight off the sort,
-    neither routed back to (draw, chain) order."""
+    neither routed back to (draw, chain) order. ``rows``: the global split
+    chains' order that makes superchains contiguous (None: they are)."""
     full = _all_gather_chains(xb, cfg)
     d, c, _ = full.shape
-    xs, order, bad = sort_with_positions(full)
 
     def nested(values_sorted, positions):
-        cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions, d,
-                                                  c, split)
-        r = _nested_from_moments(cm, cv, nsuper, vmin == vmax)
-        return torch.where(bad, torch.nan, r)
+        with annotate(NESTED):
+            cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions,
+                                                     d, c, split)
+            if rows is not None:
+                cm, cv = cm[rows], cv[rows]
+            r = _nested_from_moments(cm, cv, nsuper, vmin == vmax)
+            return torch.where(bad, torch.nan, r)
 
+    with annotate("mdt.rank.exact"):
+        xs, order, bad = sort_with_positions(full)
+        if kind != "tail":
+            z = tied_blom(xs)
     if kind != "tail":
-        bulk = nested(tied_blom(xs), order)
+        bulk = nested(z, order)
+        del z
         if kind == "bulk":
             return bulk
-    med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
-    tail = nested(*folded_rank_values_sorted(xs, order, med))
+    with annotate("mdt.rank.exact"):
+        med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
+        zf, forder = folded_rank_values_sorted(xs, order, med)
+    tail = nested(zf, forder)
     if kind == "tail":
         return tail
     return torch.maximum(bulk, tail)
 
 
-def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int):
+def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int, rows):
     """Ranks by the ring merge-count; both transforms' split-chain moments
     straight off this rank's sorts."""
     d, c_loc, _ = xb.shape
     xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, (0.5,))
 
     def nested(values_sorted, positions):
-        cm, cv, vmin, vmax = _ring_moments(values_sorted, positions, d,
-                                           c_loc, split)
+        with annotate(NESTED):
+            cm, cv, vmin, vmax = split_chain_moments(values_sorted,
+                                                     positions, d, c_loc,
+                                                     split)
         r = _nested_rhat_dist(cm, cv, nsuper_local, cfg,
-                              _global_degenerate(vmin, vmax, cfg.chain_group))
+                              _global_degenerate(vmin, vmax, cfg.chain_group),
+                              rows)
         return torch.where(bad, torch.nan, r)
 
     if kind != "tail":
         bulk = nested(z_sorted, order)
+        del z_sorted
         if kind == "bulk":
             return bulk
     tail = nested(*_ring_fold(xs, order, quants[0], cfg,
@@ -582,13 +598,15 @@ def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int):
     return torch.maximum(bulk, tail)
 
 
-def _nested_hist(xb, cfg, kind, nsuper_local: int, split: int, nbins: int):
+def _nested_hist(xb, cfg, kind, nsuper_local: int, split: int, nbins: int,
+                 rows):
     """Ranks by the distributed histogram (K3, one all-reduce, K4)."""
     d, c_loc, p = xb.shape
     xf = xb.reshape(d * c_loc, p).contiguous()
 
     def nested(z, bad):
-        r = _nested_split(z.reshape(d, c_loc, p), nsuper_local, split, cfg)
+        r = _nested_split(z.reshape(d, c_loc, p), nsuper_local, split, cfg,
+                          rows)
         return torch.where(bad, torch.nan, r)
 
     z, cdf = _sharded_fast_rank(xf, cfg, nbins)
@@ -601,6 +619,97 @@ def _nested_hist(xb, cfg, kind, nsuper_local: int, split: int, nbins: int):
     return torch.maximum(nested(z, cdf.bad), tail)
 
 
+def _local_superchains(superchain_ids, c_loc: int, cfg: MeshConfig):
+    """``(global chain order, local chain order, nsuper)`` of the global
+    ids, one a chain in global chain order, for this rank's block of
+    ``c_loc`` chains: each order makes the superchains contiguous (None
+    where they already are), and every superchain must lie whole in one
+    rank's block."""
+    k = cfg.chain_shards
+    ids = np.asarray(superchain_ids)
+    if ids.ndim != 1 or len(ids) != c_loc * k:
+        raise ValueError(
+            f"`superchain_ids` has length {ids.size} but the mesh's "
+            f"{k} chain shards hold {c_loc} chains each ({c_loc * k})")
+    perm, nsuper = _validate_superchain_ids(ids, c_loc * k)
+    groups = perm.reshape(nsuper, -1)
+    owner = groups // c_loc
+    split = np.flatnonzero((owner != owner[:, :1]).any(1))
+    if split.size:
+        uniq, _ = unique_indices(ids)
+        raise ValueError(
+            f"superchain {uniq[split[0]]!r} spans the blocks of several "
+            f"chain shards: each rank's {c_loc} chains must hold whole "
+            "superchains (permute the chains so that each superchain sits "
+            "on one rank, as rhat_nested_sharded does)")
+    i = cfg.chain_index
+    local = groups[owner[:, 0] == i].reshape(-1) - i * c_loc
+    return _unless_identity(perm), _unless_identity(local), nsuper
+
+
+def _unless_identity(order):
+    return None if np.array_equal(order, np.arange(len(order))) else order
+
+
+def _moment_rows(chain_order, split: int, device):
+    """The split chains' rows (chain-major) in ``chain_order``, on the
+    device, or None."""
+    if chain_order is None:
+        return None
+    rows = (chain_order[:, None] * split + np.arange(split)).reshape(-1)
+    with host_sync("superchain_ids"):
+        return torch.as_tensor(rows, device=device)
+
+
+def rhat_nested_local(block, superchain_ids, cfg: MeshConfig, *,
+                      kind: str = "rank", split_chains: int = 2,
+                      rank_impl: str = "auto",
+                      rank_nbins: int = DEFAULT_NBINS):
+    """Nested R-hat over the mesh from the chains each rank holds: every
+    rank calls it with its own ``(draws, chains / k, P / m)`` block, on its
+    device, and the **global** ``superchain_ids`` (one a global chain, in
+    global chain order: rank ``i`` of the chain shards holds chains ``[i
+    c, (i + 1) c)``), and gets the same ``(P,)`` result bit for bit.
+
+    Each rank's chains must form whole superchains, in any order; no data
+    crosses ranks to regroup them (a ``ValueError`` says which superchain
+    does not). The within-superchain level reduces locally and the across
+    level is SUM all-reduces. ``rank_impl`` is resolved from the global
+    shape as in :func:`ess_rhat_sharded` (``"auto"``: the ring above 2^27
+    bytes of global sample). Kinds as in ``rhat_nested``.
+    """
+    if kind not in _KINDS:
+        raise ValueError(
+            f"the `kind` `{kind}` is not supported by `rhat_nested_local`")
+    with annotate("mdt.rhat_nested"):
+        if block.dim() != 3:
+            raise ValueError("rhat_nested_local takes a (draws, chains, "
+                             f"params) block, got {tuple(block.shape)}")
+        d, c_loc, p_loc = block.shape
+        if not block.is_floating_point():  # as utils.layout.canonicalize
+            block = block.to(torch.get_default_dtype())
+        backend.use_kernels(block)  # a CUDA block of another dtype raises
+        gperm, lperm, nsuper = _local_superchains(superchain_ids, c_loc, cfg)
+        shape = (d, c_loc * cfg.chain_shards, p_loc * cfg.param_shards)
+        impl = _resolve_rank_impl(rank_impl, shape, block.element_size(),
+                                  kind)
+        nsuper_local = nsuper // cfg.chain_shards
+        if impl == "gather" and kind != "basic":
+            r = _nested_gather(block, cfg, kind, nsuper, split_chains,
+                               _moment_rows(gperm, split_chains, block.device))
+        else:
+            rows = _moment_rows(lperm, split_chains, block.device)
+            if kind == "basic":
+                r = _nested_split(block, nsuper_local, split_chains, cfg, rows)
+            elif impl == "hist":
+                r = _nested_hist(block, cfg, kind, nsuper_local, split_chains,
+                                 rank_nbins, rows)
+            else:
+                r = _nested_ring(block, cfg, kind, nsuper_local, split_chains,
+                                 rows)
+        return gather_params(r, cfg)
+
+
 def rhat_nested_sharded(samples, superchain_ids, cfg: MeshConfig, *,
                         kind: str = "rank", split_chains: int = 2,
                         rank_impl: str = "auto",
@@ -610,13 +719,10 @@ def rhat_nested_sharded(samples, superchain_ids, cfg: MeshConfig, *,
 
     The chains are permuted on the host so that superchains are contiguous,
     and each chain shard holds whole superchains: the number of superchains
-    must divide evenly across the chain shards. The within-superchain level
-    then reduces locally and the across level is SUM all-reduces.
-    ``rank_impl`` and outputs as in :func:`ess_rhat_sharded`.
+    must divide evenly across the chain shards. Each rank's block then goes
+    to :func:`rhat_nested_local`. ``rank_impl`` and outputs as in
+    :func:`ess_rhat_sharded`.
     """
-    if kind not in _KINDS:
-        raise ValueError(
-            f"the `kind` `{kind}` is not supported by `rhat_nested_sharded`")
     x3, pshape = canonical_host(samples, min_ndim=2)
     perm, nsuper = _validate_superchain_ids(superchain_ids, x3.shape[1])
     kshards = cfg.chain_shards
@@ -625,16 +731,7 @@ def rhat_nested_sharded(samples, superchain_ids, cfg: MeshConfig, *,
             f"number of superchains ({nsuper}) must divide evenly across the "
             f"chain shards ({kshards})")
     xb = shard_canonical(x3, cfg, chain_order=perm)
-    backend.use_kernels(xb)
-    impl = _resolve_rank_impl(rank_impl, x3.shape, xb.element_size(), kind)
-    nsuper_local = nsuper // kshards
-    if kind == "basic":
-        r = _nested_split(xb, nsuper_local, split_chains, cfg)
-    elif impl == "hist":
-        r = _nested_hist(xb, cfg, kind, nsuper_local, split_chains,
-                         rank_nbins)
-    elif impl == "ring":
-        r = _nested_ring(xb, cfg, kind, nsuper_local, split_chains)
-    else:
-        r = _nested_gather(xb, cfg, kind, nsuper, split_chains)
-    return maybe_scalar(gather_params(r, cfg), pshape)
+    ids = np.asarray(superchain_ids)[perm]
+    r = rhat_nested_local(xb, ids, cfg, kind=kind, split_chains=split_chains,
+                          rank_impl=rank_impl, rank_nbins=rank_nbins)
+    return maybe_scalar(r, pshape)

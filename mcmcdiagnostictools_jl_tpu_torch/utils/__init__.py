@@ -13,7 +13,9 @@ from .indices import (
 )
 from .profiling import (
     annotate,
+    comm_counts,
     host_sync,
+    reset_comm_counts,
     reset_sync_counts,
     sync_counts,
     trace,
@@ -31,7 +33,9 @@ __all__ = [
     "split_chain_indices",
     "shuffle_split_stratified",
     "annotate",
+    "comm_counts",
     "host_sync",
+    "reset_comm_counts",
     "reset_sync_counts",
     "sync_counts",
     "trace",

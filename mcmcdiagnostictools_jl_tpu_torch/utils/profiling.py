@@ -10,6 +10,9 @@
   device, counted by :func:`sync_counts` (reset by
   :func:`reset_sync_counts`), one count a pass through the site whatever
   the device.
+- :func:`count_comm`: the bytes a collective of the sharded diagnostics
+  (``parallel/comm.py``) sends and receives on this rank, by kind, read by
+  :func:`comm_counts` (reset by :func:`reset_comm_counts`).
 
 The diagnostics open these regions (names, outermost first):
 
@@ -19,11 +22,15 @@ The diagnostics open these regions (names, outermost first):
 | ``mdt.rank.exact``, ``mdt.rank.fast`` | one rank transform of the call: transposes, sorts, ranks, median, Blom and fold, in both rank modes the tail R-hat's moments |
 | ``mdt.moments`` | the split chains, their moments and autocovariance (K1 / K5) and the autocorrelation |
 | ``mdt.geyer`` | Geyer's reduction of the autocorrelation to an ESS |
-| ``mdt.nested`` | nested R-hat's superchain gather, split and two-level reduction |
+| ``mdt.nested`` | nested R-hat's superchain gather, split and two-level reduction; on a mesh the split-chain moments (K11) and the local superchain reductions |
+| ``mdt.rank.ring`` | on a mesh, the ring route's rank transforms: the local sorts, the merge-counts against each visiting block, the Blom scores, the quantiles' local part and the fold |
+| ``mdt.comm`` | on a mesh, every collective and ring exchange (``parallel/comm.py``) |
 | ``mdt.sync.<site>`` | a host wait: ``geyer_probe`` (the adaptive lag probe's answer), ``superchain_ids`` (the chain permutation to the device), ``quantile_offset`` (the exact median's interpolation weight to the device), ``hist_rank`` (the fast median's rank to the device) |
 
-The layer regions do not nest in each other; a ``mdt.sync.*`` region may
-sit inside one. Every device operation of a public call on these paths is
+The layer regions (every region above but the calls and ``mdt.sync.*``)
+do not nest in each other; a ``mdt.sync.*`` region may sit inside one. On
+a mesh a layer region closes before a collective and opens again after
+it. Every device operation of a public call on these paths is
 launched inside one of them, or inside the call's own region (its last
 elementwise step and the results' shape).
 
@@ -50,6 +57,7 @@ from torch.profiler import ProfilerActivity
 
 _OFF = contextlib.nullcontext()
 _SYNCS: dict[str, int] = {}
+_COMM: dict[str, dict[str, int]] = {}
 
 
 @contextlib.contextmanager
@@ -92,3 +100,21 @@ def sync_counts() -> dict:
 
 def reset_sync_counts() -> None:
     _SYNCS.clear()
+
+
+def count_comm(kind: str, sent: int, received: int) -> None:
+    """Count ``sent`` and ``received`` bytes of one collective of ``kind``
+    on this rank."""
+    c = _COMM.setdefault(kind, {"sent": 0, "received": 0})
+    c["sent"] += sent
+    c["received"] += received
+
+
+def comm_counts() -> dict:
+    """Bytes this rank sent and received since the last reset, by kind:
+    ``{kind: {"sent": bytes, "received": bytes}}``."""
+    return {k: dict(v) for k, v in _COMM.items()}
+
+
+def reset_comm_counts() -> None:
+    _COMM.clear()

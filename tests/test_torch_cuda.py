@@ -1469,13 +1469,38 @@ def test_k12_table_holds_every_score_of_a_row(cuda_device):  # noqa: F811
     table = k12.blom_table(n, cuda_device)
     assert table.shape == (2 * n + 1,) and table.dtype == torch.float32
     k = torch.arange(2, 2 * n + 1, device=cuda_device)
-    assert _max_ulp(table[2:], k12._blom_normal(k.float() * 0.5, n)) <= _K12_Z_ULP
+    assert _max_ulp(table[2:], k12.blom_scores(k, n, torch.float32)) <= _K12_Z_ULP
     j = torch.arange(n, device=cuda_device)
     rows = torch.stack([j, j // 2]).float()
     z = k12.tied_blom(rows)
     bits = table.view(torch.int32)
     assert torch.equal(z[0].view(torch.int32), bits[2 * j + 2])
     assert torch.equal(z[1].view(torch.int32), bits[4 * (j // 2) + 3])
+
+
+def test_k12_on_rows_past_2_24_entries(cuda_device):  # noqa: F811
+    """Rows of 2^24 + 1000 entries with ties (runs of two and three, and
+    runs of up to ~1000 from rounded normals): every score finite, the
+    lowest and highest within 2 float32 ULP of float64's (the float32
+    quotient gives +inf at the top from 2^24 on), sorted and scattered
+    modes the plain version's."""
+    n = 2**24 + 1000
+    rng = np.random.default_rng(n)
+    x = np.stack([np.arange(n) * 2 // 5,
+                  np.round(rng.standard_normal(n) * 100)]).astype(np.float32)
+    xs, order = torch.sort(torch.from_numpy(x).to(cuda_device), dim=1,
+                           stable=True)
+    z = k12.tied_blom(xs)
+    zs = k12.tied_blom(xs, order)
+    want = k12.tied_blom_plain(xs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all())
+    assert _max_ulp(z, want) <= _K12_Z_ULP
+    assert torch.equal(zs, k12._scatter_rows(z, order))
+    k = k12._run_sums(xs).double()
+    exact = torch.special.ndtri((k / 2 - 0.375) / (n + 0.25))
+    ends = torch.tensor([0, n - 1], device=cuda_device)
+    assert _max_ulp(z[:, ends], exact[:, ends].float()) <= 2
 
 
 def test_k12_masks_a_sign_bit_nan_row(cuda_device):  # noqa: F811

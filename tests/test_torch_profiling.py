@@ -17,7 +17,7 @@ from mcmcdiagnostictools_jl_tpu_torch.utils import profiling
 
 CALLS = ("mdt.ess_rhat", "mdt.ess", "mdt.rhat", "mdt.rhat_nested")
 LAYERS = ("mdt.rank.exact", "mdt.rank.fast", "mdt.moments", "mdt.geyer",
-          "mdt.nested")
+          "mdt.nested", "mdt.rank.ring", "mdt.comm")
 
 
 def _sample(draws=400, chains=4, params=3):
@@ -105,6 +105,8 @@ def test_hooks_are_the_utils_names():
     assert mtt.utils.host_sync is profiling.host_sync
     assert mtt.utils.sync_counts is profiling.sync_counts
     assert mtt.utils.reset_sync_counts is profiling.reset_sync_counts
+    assert mtt.utils.comm_counts is profiling.comm_counts
+    assert mtt.utils.reset_comm_counts is profiling.reset_comm_counts
 
 
 @pytest.mark.parametrize("case", sorted(TREES))
@@ -123,6 +125,41 @@ def test_layer_regions_sit_in_the_call_and_not_in_each_other(case):
         assert above and above[-1] in CALLS, name
         if name in LAYERS:
             assert not set(above) & set(LAYERS), (name, above)
+
+
+def _sharded_regions(tmp_path):
+    """Rank 0's regions of ``parallel.rhat_nested_local`` on a gloo world of
+    two chain shards, by route."""
+    from torch_dist import MESH, run_world
+
+    x = _sample(200, 8, 3).float().numpy()
+    ids = np.repeat(np.arange(4), 2)
+    calls = [(impl, "regions_of", ["parallel.rhat_nested_local", x, ids, MESH],
+              dict(rank_impl=impl)) for impl in ("ring", "gather")]
+    return run_world(tmp_path, 2, (2, 1), calls)[0]
+
+
+def test_sharded_layer_regions_sit_in_the_call_and_not_in_each_other(
+        tmp_path):
+    """On a mesh the layer regions close before each collective, which
+    opens ``mdt.comm``, and open again after it: every region of the call
+    sits in ``mdt.rhat_nested`` and in no layer region. The ring route
+    opens ``mdt.rank.ring`` (sorts, merge-counts, Blom, fold), ``mdt.comm``
+    (three exchanges a ring pass in a world of two: one) and ``mdt.nested``;
+    the gather route ``mdt.rank.exact`` in place of the ring."""
+    got = _sharded_regions(tmp_path)
+    for impl, regions in got.items():
+        names = {name for name, _ in regions
+                 if not name.startswith("mdt.sync.")}
+        assert regions[0] == ("mdt.rhat_nested", ()), impl
+        for name, above in regions[1:]:
+            assert above and above[-1] == "mdt.rhat_nested", (impl, name)
+            if name.startswith("mdt.sync."):  # a host wait, in a layer or not
+                continue
+            assert name in LAYERS, (impl, name)
+            assert not set(above) & set(LAYERS), (impl, name, above)
+        rank = "mdt.rank.ring" if impl == "ring" else "mdt.rank.exact"
+        assert names == {"mdt.rhat_nested", rank, "mdt.comm", "mdt.nested"}
 
 
 @pytest.mark.parametrize("case, draws, counts", [

@@ -179,7 +179,8 @@ def assert_pair(got, want, **tol):
 
 def test_public_names():
     for name in ("MeshConfig", "make_mesh", "shard_canonical",
-                 "ess_rhat_sharded", "rhat_nested_sharded"):
+                 "ess_rhat_sharded", "rhat_nested_sharded",
+                 "rhat_nested_local"):
         assert hasattr(mtt.parallel, name)
     assert mtt.models.ShardedGBTClassifier is not None
 

@@ -154,3 +154,43 @@ def sharded_rstar_mean(x, rng, **clf_kw):
 
     return float(rstar(ShardedGBTClassifier(**clf_kw), torch.as_tensor(x),
                        rng=rng).mean())
+
+
+def on_own_block(target, x, ids, cfg, **kwargs):
+    """The port's rank-local ``target`` (``"parallel.rhat_nested_local"``)
+    called with this rank's own block of the global ``x`` (its chains and
+    parameters of the mesh, as a CPU tensor of ``x``'s dtype) and the global
+    ``ids``."""
+    from mcmcdiagnostictools_jl_tpu_torch.parallel import shard_canonical
+
+    return _resolve(target)(shard_canonical(torch.as_tensor(x), cfg), ids,
+                            cfg, **kwargs)
+
+
+def comm_of(target, x, ids, cfg, **kwargs):
+    """The bytes this rank's collectives sent and received in one
+    ``on_own_block`` call, by kind (``utils.profiling.comm_counts``)."""
+    from mcmcdiagnostictools_jl_tpu_torch.utils import profiling
+
+    profiling.reset_comm_counts()
+    on_own_block(target, x, ids, cfg, **kwargs)
+    return profiling.comm_counts()
+
+
+def regions_of(target, x, ids, cfg, **kwargs):
+    """Each ``mdt.`` region one ``on_own_block`` call opened, in order:
+    ``(name, the names of its enclosing mdt. regions, innermost first)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on_own_block(target, x, ids, cfg, **kwargs)
+    out = []
+    events = [e for e in prof.events() if e.name.startswith("mdt.")]
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        above, p = [], e.cpu_parent
+        while p is not None:
+            if p.name.startswith("mdt."):
+                above.append(p.name)
+            p = p.cpu_parent
+        out.append((e.name, tuple(above)))
+    return out
