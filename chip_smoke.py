@@ -36,7 +36,12 @@ and exits nonzero, printing no result, if any phase fails:
    its keys-only form equal, two runs bit-equal, timed beside both with its
    launches one by one; the flagship exact ``ess_rhat`` through K13 and
    through its plain version bit-equal, and the cub radix kernels that call
-   launches (none may be left from the row sort); then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
+   launches (none may be left from the row sort); K14 (the ring's
+   merge-count) in its four modes bit for bit its plain version's, at the
+   sharded cell's block (50, 6.25M) of sorted normals against another and
+   on the sorted rows phase 16's ring counts against the same rows on a
+   grid of 1/4, timed at the block beside its bounds, its plain version
+   and ``torch.searchsorted``; then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
@@ -117,7 +122,8 @@ and exits nonzero, printing no result, if any phase fails:
     the gather, ring and hist rank transforms and ``rhat_nested_sharded`` on
     16 superchains at 10k x 128 x 256, each with its launches counted from
     0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, gather and
-    ring K11 once (nested: twice), gather K12 twice, K1, K2 and K10 never),
+    ring K11 once (nested: twice), gather K12 twice, ring K14 twice (the
+    one shard's own block, bulk and fold), K1, K2 and K10 never),
     its wall beside
     the in-core call's and its largest differences
     from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
@@ -821,6 +827,109 @@ def phase_k13(x3: torch.Tensor) -> dict:
                 launch_ms=pieces, exact_call_cub_radix_launches=cub,
                 exact_call_device_ms=prof["device_ms"],
                 exact_call_device_launches=prof["launches"])
+
+
+# K14's modes: (first, positions); the own block with and without positions
+# (a one-shard ring: phase 16), a visit with them and one of t alone
+K14_MODES = {"own+pos": (True, True), "own t": (True, False),
+             "visit+pos": (False, True), "visit t": (False, False)}
+# the sharded cell's block on one rank: 50 params x 10,000 draws x 625 chains
+K14_CELL_BLOCK = (50, 6_250_000)
+
+
+def k14_bytes(first: bool, pos: bool) -> int:
+    """K14's compulsory bytes an entry of ``a``: the rows read (``a`` alone
+    where it counts against itself), the accumulators updated (8 B) or only
+    written (4 B), as ``k14_roofline`` counts them."""
+    return (4 if first else 8) + (4 if first else 8) * (2 if pos else 1)
+
+
+def k14_against_plain(tag: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Every mode of K14 on ``a`` against ``b`` (the own block's modes
+    against ``a``) bit for bit its plain version's from the same random
+    accumulators, one counted launch each."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    start = [torch.randint(0, 2**20, a.shape, generator=g, device="cuda",
+                           dtype=torch.int32) for _ in range(2)]
+    for mode, (first, pos) in K14_MODES.items():
+        for earlier in ((False,) if first else (True, False)):
+            got = [x.clone() for x in start]
+            want = [x.clone() for x in start]
+            if not pos:
+                got[1] = want[1] = None
+            before = kernels.launch_counts()["K14"]
+            k14.merge_count(a, a if first else b, *got, first=first,
+                            earlier=earlier)
+            check(kernels.launch_counts()["K14"] == before + 1,
+                  f"{tag} {mode}: K14 did not launch once")
+            k14.merge_count_plain(a, a if first else b, *want, first=first,
+                                  earlier=earlier)
+            check(all(w is None or torch.equal(x, w)
+                      for x, w in zip(got, want)),
+                  f"{tag} {mode} (earlier={earlier}): K14 differs from its "
+                  "plain version")
+            del got, want
+
+
+def phase_k14(x3: torch.Tensor) -> dict:
+    """K14 (the ring route's merge-count) in its four modes, bit for bit its
+    plain version's (``merge_count_plain``, ``torch.searchsorted``), at the
+    sharded cell's block (50, 6.25M) of sorted normals against another, and
+    on the rows phase 16's ring counts (the sample's (256, 1.28M), sorted by
+    K13) against the same rows on a grid of 1/4 (ties across the blocks);
+    then timed at the cell's block (behind the timer's queue), each mode
+    beside its bound (``k14_bytes``), the plain version of a visit with
+    positions and one ``torch.searchsorted`` (the library call it
+    replaces, two a block), with a visit's launches one by one."""
+    from mcmcdiagnostictools_jl_tpu_torch.benchmarks import radix_study
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import radix_sort as k13
+    from mcmcdiagnostictools_jl_tpu_torch.ops import ranknorm
+
+    xs = k13.sort_rows_keys(ranknorm._rows(x3))
+    k14_against_plain("[3 K14, phase 16's rows]", xs, torch.round(xs * 4) / 4)
+    ring_shape = tuple(xs.shape)
+    del xs
+
+    p, n = K14_CELL_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.sort(torch.randn(K14_CELL_BLOCK, generator=g, device="cuda"),
+                   dim=1).values
+    b = torch.sort(torch.randn(K14_CELL_BLOCK, generator=g, device="cuda"),
+                   dim=1).values
+    k14_against_plain("[3 K14, the cell's block]", a, b)
+    t = torch.zeros(K14_CELL_BLOCK, dtype=torch.int32, device="cuda")
+    gpos = torch.zeros_like(t)
+    ms, bound = {}, {}
+    for mode, (first, pos) in K14_MODES.items():
+        ms[mode] = time_ms(lambda f=first, q=pos: k14.merge_count(
+            a, a if f else b, t, gpos if q else None, first=f, earlier=True))
+        bound[mode] = roofline(p * n * k14_bytes(first, pos))["bound_ms"]
+        t.zero_()
+        gpos.zero_()
+    plain_ms = time_ms(lambda: k14.merge_count_plain(a, b, t, gpos,
+                                                     earlier=True))
+    lib_ms = time_ms(lambda: torch.searchsorted(b, a, side="left",
+                                                out_int32=True))
+    pieces = [(name[:60], v) for name, v in radix_study.launches_ms(
+        lambda: k14.merge_count(a, b, t, gpos, earlier=True))]
+    del a, b, t, gpos
+    print(f"[3 K14 merge_count] every mode bit for bit its plain version's "
+          f"on rows {ring_shape} and at the cell's block {K14_CELL_BLOCK}; "
+          "ms a launch at the block: "
+          + ", ".join(f"{m} {ms[m]:.3f} (bound {bound[m]:.3f}, "
+                      f"{bound[m] / ms[m]:.0%})" for m in K14_MODES)
+          + f"; plain visit+pos {plain_ms:.3f} ms, torch.searchsorted "
+          f"{lib_ms:.3f} ms a search (two a block); visit+pos launches: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pieces))
+    return dict(err=0.0, ms=ms["visit+pos"], plain_ms=plain_ms,
+                bound_ms=bound["visit+pos"], bound_by="bytes",
+                library_ms=lib_ms, shape=list(K14_CELL_BLOCK),
+                ring_rows=list(ring_shape), mode_ms=ms, mode_bound_ms=bound,
+                launch_ms=pieces)
 
 
 # K1 and K5 in float32 sums of another order than their plain versions,
@@ -2273,7 +2382,7 @@ def check_launches(tag: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` ran exactly that often (None: at least once);
     K1, K2 and K10 (not on the sharded path) never."""
     shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5",
-                                    "K10", "K11", "K12", "K13")}
+                                    "K10", "K11", "K12", "K13", "K14")}
     print(f"   {tag} launches: {shown}")
     for kid, n in {"K1": 0, "K2": 0, "K10": 0, **want}.items():
         ok = counts[kid] >= 1 if n is None else counts[kid] == n
@@ -2314,10 +2423,11 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"{mode} {in_core_walls[mode]:.4f} s")
         check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None, "K11": 0,
-                                     "K12": 0}
+                                     "K12": 0, "K14": 0}
                        if impl == "hist" else
                        {"K3": 0, "K4": 0, "K5": None, "K11": 1,
-                        "K12": 2 if impl == "gather" else 0})
+                        "K12": 2 if impl == "gather" else 0,
+                        "K14": 2 if impl == "ring" else 0})
         for v in res:
             check(v.shape == (PARAMS,) and v.device.type == "cuda"
                   and bool(torch.isfinite(v).all()),
@@ -2335,7 +2445,7 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
             "in_core_wall_s": in_core_walls[mode], "ess_rel": ess_rel,
             "rhat_abs": rhat_abs,
             "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5",
-                                                 "K11", "K12")}}
+                                                 "K11", "K12", "K14")}}
     ring, gather = results["ring"], results["gather"]
     rg_ess = float((ring.ess / gather.ess - 1).abs().max())
     rg_rhat = float((ring.rhat - gather.rhat).abs().max())
@@ -2358,10 +2468,11 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
               f"exact {nested_wall:.4f} s; R-hat abs vs in-core {err:.3e} "
               f"(bound {bound:.0e}{', the fast mode' if impl == 'hist' else ''})")
         check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0, "K11": 0,
-                                     "K12": 0}
+                                     "K12": 0, "K14": 0}
                        if impl == "hist" else
                        {"K3": 0, "K4": 0, "K5": 0, "K11": 2,
-                        "K12": 2 if impl == "gather" else 0})
+                        "K12": 2 if impl == "gather" else 0,
+                        "K14": 2 if impl == "ring" else 0})
         check(r.shape == (PARAMS,) and bool(torch.isfinite(r).all())
               and err <= bound, f"{tag}: != in-core")
         out["nested"][impl] = {"wall_s": wall, "first_call_s": first,
@@ -2379,7 +2490,7 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
     tag = "[16 config 4 streamed onto the mesh]"
     check_launches(tag, counts, {"K3": 2 * stats.n_chunks,
                                  "K4": 2 * stats.n_chunks, "K5": None,
-                                 "K12": 0})
+                                 "K12": 0, "K14": 0})
     rhat_abs = float((res.rhat - streamed.rhat).abs().max())
     sums = {k: sum(getattr(stats, k)) for k in ("fetch_s", "h2d_s",
                                                "compute_s")}
@@ -2745,6 +2856,7 @@ def main() -> int:
     rows = phase_kernels(x3)
     fold = phase_fold_kernels(x3)
     k13_row = phase_k13(x3)
+    k14_row = phase_k14(x3)
     phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
@@ -2807,20 +2919,24 @@ def main() -> int:
          "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:65"),
         ("K13 sort_rows", src + "radix_sort.cu",
          "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:26"),
+        ("K14 merge_count", src + "merge_count.cu",
+         "mcmcdiagnostictools_jl_tpu/parallel/ring_rank.py:63"),
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
-    rows += fold["rows"] + [k13_row]
+    rows += fold["rows"] + [k13_row, k14_row]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
     # phase 10; K10-K13: the exact ess_rhat call of phase 4 (K1-K4 in
-    # the streamed run: "streaming" in the line above)
+    # the streamed run: "streaming" in the line above); K14: phase 16's
+    # ring ess_rhat_sharded call (a one-shard ring: its own block twice)
     launches = {**e2e["counts"], "K5": est["k5_launches"],
                 "K10": e2e["exact_counts"]["K10"],
                 "K11": e2e["exact_counts"]["K11"],
                 "K12": e2e["exact_counts"]["K12"],
                 "K13": e2e["exact_counts"]["K13"],
+                "K14": sharded["ess_rhat"]["ring"]["launches"]["K14"],
                 "K4z": fz["launches"], "K6a": lag["launches"]["a"],
                 "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []

@@ -19,6 +19,9 @@
   walk) beside the first design;
 - ``radix_study``: K13 on the flagship exact call's rows beside
   ``torch.sort``, its launches one by one, and its peak memory.
+- ``mergecount_study``: K14 at the sharded cell's block in each of its
+  modes, beside its bound and its plain version (``torch.searchsorted``
+  and int32 adds).
 
 Each entry point takes an explicit ``device`` (default: the card; it raises
 if there is none), makes its data from an explicit seed with numpy, times

@@ -43,7 +43,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "staging.cuh"
+
 namespace {
+
+using mdt::Chunks;
+using mdt::cover;
+using mdt::cp_async16;
 
 constexpr int kThreads = 256;
 constexpr int kPer = 8;                  // outputs a thread merges
@@ -59,12 +65,6 @@ constexpr int kPosSlots = kTile + 8;
 // torch.sort's ascending order with NaN last: `a` goes no later than `b`
 __device__ __forceinline__ bool key_le(float a, float b) {
   return isnan(b) || (!isnan(a) && a <= b);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
 }
 
 __global__ void valley_split_kernel(const float* __restrict__ xs, int n,
@@ -105,19 +105,6 @@ __global__ void valley_partition_kernel(const float* __restrict__ xs, int n,
   const int c = (int)(idx / nbounds), b = (int)(idx - (long long)c * nbounds);
   const int t = (int)min((long long)b * kTile, (long long)n);
   splits[idx] = merge_path(xs + (size_t)c * n, n, med[c], ksplit[c], t);
-}
-
-// The 16-byte chunks (of `per` entries) that cover the entries [lo, hi):
-// the first chunk and the count, none if the stretch is empty.
-struct Chunks {
-  long long first;
-  int count;
-};
-
-__device__ __forceinline__ Chunks cover(long long lo, long long hi, int per) {
-  if (hi <= lo) return {0, 0};
-  const long long first = lo / per;
-  return {first, (int)((hi - 1) / per - first + 1)};
 }
 
 __global__ void __launch_bounds__(kThreads, 4)

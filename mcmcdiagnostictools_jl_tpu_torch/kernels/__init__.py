@@ -15,6 +15,7 @@
 | K11 | ``seghist.segment_moments`` | ``ops/seghist.py::weighted_segment_moments`` (XLA, not a Pallas kernel) |
 | K12 | ``tiedrank.tied_blom`` | ``ops/ranknorm.py::_avg_ranks_sorted`` + ``ndtri`` + the inverse sort (XLA, not a Pallas kernel) |
 | K13 | ``radix_sort.sort_rows``, ``radix_sort.sort_rows_keys`` (the keys alone) | ``ops/ranknorm.py::_sort_pair`` (``lax.sort``, XLA, not a Pallas kernel) |
+| K14 | ``mergecount.merge_count`` | ``parallel/ring_rank.py::_count_block`` (two sorts of the concatenation and run-boundary scans, XLA, not a Pallas kernel) |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
@@ -26,8 +27,8 @@ K4 also counts its z-mode launches (``blom_n``) on their own, reported as
 launch does.
 """
 
-from . import (autocov, fastrank, lagloop_study, moments_autocov, radix_sort,
-               seghist, sort_study, tiedrank, valley)
+from . import (autocov, fastrank, lagloop_study, mergecount, moments_autocov,
+               radix_sort, seghist, sort_study, tiedrank, valley)
 
 # name -> (wrapper, counter attribute)
 COUNTERS = {
@@ -46,6 +47,7 @@ COUNTERS = {
     "K11": (seghist.segment_moments, "launches"),
     "K12": (tiedrank.tied_blom, "launches"),
     "K13": (radix_sort.sort_rows, "launches"),
+    "K14": (mergecount.merge_count, "launches"),
 }
 
 

@@ -265,11 +265,11 @@ def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     with annotate(RING):
         xs, order, nan = sort_with_positions(xb)
     bad = _max(nan.to(xs.dtype), g) > 0
-    cl, ce, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
+    t, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
     ntot = d * c_loc * cfg.chain_shards
     with annotate(RING):
-        z_sorted = rank_normal_from_counts(cl, ce, ntot, xs.dtype)
-        del cl, ce
+        z_sorted = rank_normal_from_counts(t, ntot, xs.dtype)
+        del t
     quants = quantiles_from_positions(xs, gpos, ntot, ps, g)
     return xs, order, z_sorted, torch.where(bad[None], torch.nan, quants), bad
 
@@ -282,10 +282,10 @@ def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
         fs, fidx = sort_rows(torch.abs(xs - med[:, None]))
         forder = order.gather(1, fidx)
         del fidx
-    cl, ce, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
-                                 cfg.chain_shards)
+    t, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
+                            cfg.chain_shards, positions=False)
     with annotate(RING):
-        return rank_normal_from_counts(cl, ce, ntot, xs.dtype), forder
+        return rank_normal_from_counts(t, ntot, xs.dtype), forder
 
 
 def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,

@@ -53,7 +53,13 @@ than its persistent grid and fewer, on rows that start off 16-byte
 boundaries and at the flagship width, two runs bit-equal; a sort launches
 one ``radix_histogram`` and four ``radix_digit_pass``, one of them
 ``<true, true>`` with positions and none alone; the exact calls through K13
-equal, bit for bit, the same calls through its plain version. The
+equal, bit for bit, the same calls through its plain version. K14's
+accumulators ``t`` and ``gpos`` are bit for bit its plain version's in every
+mode, on random rows, tie runs across its tiles, rows of one value, blocks
+wholly below or above, +-0.0 and +-inf and a row of 25M entries; beside NaN
+rows the clean rows stay exact and the rows around them untouched; at every
+ring position they equal the ``torch.searchsorted`` counts the ring formed
+before them; float64 takes the plain version. The
 HMC core on float64 draws tracks the CPU to 1e-8; the JAX method names
 launch K5 (``pallas``) and K1 (``fused``). Float32 matrix
 products run in full float32:
@@ -84,7 +90,8 @@ from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
 from mcmcdiagnostictools_jl_tpu_torch.kernels import valley as k10
 from mcmcdiagnostictools_jl_tpu_torch.ops import fastrank as fr
 from mcmcdiagnostictools_jl_tpu_torch.ops.fastrank import _hist_scale
-from torch_parity import assert_close, cuda_device, t  # noqa: F401  (fixture)
+from torch_parity import (  # noqa: F401  (fixture)
+    assert_close, cuda_device, old_ring_counts, t)
 
 pytestmark = pytest.mark.cuda
 
@@ -1818,3 +1825,230 @@ def test_exact_calls_launch_k13_and_equal_the_plain_route(
     for g, w in zip(got, want) if isinstance(got, tuple) else [(got, want)]:
         assert bool(torch.isnan(g[4]))
         _assert_equal_nan(g, w)
+
+
+# ---- K14: the ring route's merge-count ----------------------------------------
+
+_K14_TILE = 4096  # merged entries a block (kernels/mergecount.py's _TILE)
+# (first, positions, earlier): the own block with and without positions, a
+# ring-earlier and a ring-later visit with them, a visit of t alone
+_K14_MODES = [(True, True, False), (True, False, False), (False, True, True),
+              (False, True, False), (False, False, False)]
+
+
+def _k14_rows(kind, p, n, seed):
+    """Sorted float32 rows ``(p, n)`` (float order, ``-0.0`` beside
+    ``+0.0``) holding what ``kind`` names."""
+    rng = np.random.default_rng(seed + 11 * n + p)
+    x = rng.standard_normal((p, n))
+    if kind == "ties":  # runs of hundreds to thousands, across tile edges
+        x = np.round(x * 2) / 2
+    elif kind == "few":  # a handful of values, runs past many tiles
+        x = np.round(x)
+    elif kind == "one_value":
+        x[:] = 0.5
+    elif kind == "zeros_infs":
+        x = np.round(x)
+        x[x == 0] = np.where(rng.random((x == 0).sum()) < 0.5, -0.0, 0.0)
+        x[:, ::7] = np.inf
+        x[:, 1::11] = -np.inf
+    elif kind == "below":
+        x -= 100.0
+    elif kind == "above":
+        x += 100.0
+    return torch.sort(torch.from_numpy(x.astype(np.float32)), dim=1,
+                      stable=True).values
+
+
+def _k14_both(a, b, first, pos, earlier, seed=3):
+    """K14 and its plain version from the same accumulators: ``(got,
+    want)``, each ``(t, gpos or None)``."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    g = torch.Generator(device=a.device).manual_seed(seed)
+    start = [torch.randint(0, 2**20, a.shape, generator=g, device=a.device,
+                           dtype=torch.int32) for _ in range(2)]
+    got = [s.clone() for s in start]
+    want = [s.clone() for s in start]
+    if not pos:
+        got[1] = want[1] = None
+    before = k14.merge_count.launches
+    k14.merge_count(a, b, *got, first=first, earlier=earlier)
+    assert k14.merge_count.launches == before + 1
+    k14.merge_count_plain(a, b, *want, first=first, earlier=earlier)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _k14_equal(got, want):
+    return all((g is None and w is None) or torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (2, 7, 3001), (4, 3001, 7), (3, 5000, 5000),
+    (5, _K14_TILE, _K14_TILE), (3, _K14_TILE - 1, _K14_TILE + 1),
+    (2, 3 * _K14_TILE + 5, 2 * _K14_TILE - 3), (3, 40_000, 40_000),
+], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kinds", [
+    ("normal", "normal"), ("ties", "ties"), ("few", "few"),
+    ("one_value", "one_value"), ("one_value", "ties"), ("ties", "one_value"),
+    ("normal", "below"), ("normal", "above"), ("zeros_infs", "zeros_infs"),
+], ids=lambda k: "-".join(k))
+def test_k14_equals_its_plain_version(cuda_device, kinds, shape):  # noqa: F811
+    """Every mode, bit for bit the plain version's integers: random rows,
+    tie runs across tile edges, whole rows of one value, a visiting block
+    wholly below or above, +-0.0 and +-inf; the own block's modes count
+    ``a`` against itself."""
+    p, n, m = shape
+    a = _k14_rows(kinds[0], p, n, 1).to(cuda_device)
+    b = _k14_rows(kinds[1], p, m, 2).to(cuda_device)
+    for first, pos, earlier in _K14_MODES:
+        got, want = _k14_both(a, a if first else b, first, pos, earlier)
+        assert _k14_equal(got, want), (first, pos, earlier)
+
+
+@pytest.mark.parametrize("first, pos, earlier", _K14_MODES)
+def test_k14_nan_rows_stay_in_their_rows(cuda_device, first, pos,  # noqa: F811
+                                         earlier):
+    """Rows that hold NaNs (a sign-bit NaN first and NaNs last, as the
+    card's sort puts them, in ``a``, in ``b`` or in both) beside clean rows:
+    the clean rows' counts exact, and the accumulators' rows around them
+    untouched (the block sits between two guard rows of one buffer)."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    p, n, m = 6, 3 * _K14_TILE + 4, 2 * _K14_TILE + 9
+    a = _k14_rows("ties", p, n, 4)
+    b = a.clone() if first else _k14_rows("ties", p, m, 5)
+    for r, where in ((1, a), (2, b), (3, a), (3, b)):
+        where[r, 0] = -np.nan
+        where[r, -40:] = np.nan
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    bufs = [torch.randint(0, 2**20, (p + 2, n), generator=g, dtype=torch.int32,
+                          device=cuda_device) for _ in range(2)]
+    guards = [x.clone() for x in bufs]
+    acc = [x[1:-1] for x in bufs]
+    want = [x.clone() for x in acc]
+    if not pos:
+        acc[1] = want[1] = None
+    assert acc[0].is_contiguous() and acc[0].data_ptr() % 16 == 0
+    k14.merge_count(a, b, *acc, first=first, earlier=earlier)
+    k14.merge_count_plain(a, b, *want, first=first, earlier=earlier)
+    torch.cuda.synchronize()
+    clean = [0, 4, 5]
+    for got, w in zip(acc, want):
+        if got is not None:
+            assert torch.equal(got[clean], w[clean])
+    for x, guard in zip(bufs, guards):
+        assert torch.equal(x[0], guard[0]) and torch.equal(x[-1], guard[-1])
+
+
+@pytest.mark.parametrize("kshards", [2, 3, 4])
+def test_k14_every_ring_position_equals_the_searchsorted_counts(
+        cuda_device, monkeypatch, kshards):  # noqa: F811
+    """The ring's two accumulators through K14 at every position of a ring
+    of ``kshards`` blocks on one card (each visiting block ring-earlier or
+    later): ``t + 1`` the twice-rank ``2 cl + ce + 1`` and ``gpos`` the
+    global positions that the route formed with ``torch.searchsorted``,
+    and one K14 launch a counted block."""
+    from mcmcdiagnostictools_jl_tpu_torch.parallel import ring_rank
+
+    blocks = [torch.cat([_k14_rows("ties", 2, 5003, 20 + i),
+                         _k14_rows("normal", 2, 5003, 30 + i)]).to(cuda_device)
+              for i in range(kshards)]
+    for index in range(kshards):
+        xs = blocks[index]
+        cl, ce, gpos = old_ring_counts(blocks, index)
+        for positions in (True, False):
+            steps = iter(range(1, kshards))
+            monkeypatch.setattr(
+                ring_rank, "ring_exchange",
+                lambda buf, group, i, k, index=index, steps=steps:
+                blocks[(index - next(steps)) % k])
+            kernels.reset_launch_counts()
+            t, got_gpos = ring_rank.ring_rank_counts(xs, None, index, kshards,
+                                                     positions=positions)
+            assert kernels.launch_counts()["K14"] == kshards
+            assert t.dtype == torch.int32
+            assert torch.equal(t.long() + 1, 2 * cl + ce + 1)
+            if positions:
+                assert torch.equal(got_gpos.long(), gpos)
+            else:
+                assert got_gpos is None
+
+
+def test_k14_on_a_row_of_25m_entries(cuda_device):  # noqa: F811
+    """A row of 25M entries (past 2^24) against another: the own block with
+    positions and a ring-earlier visit, bit for bit the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    a = torch.sort(torch.randn((1, 25_000_000), generator=g,
+                               device=cuda_device), dim=1).values
+    b = torch.sort(torch.randn((1, 25_000_000), generator=g,
+                               device=cuda_device), dim=1).values
+    for first, pos, earlier in [(True, True, False), (False, True, True)]:
+        got, want = _k14_both(a, a if first else b, first, pos, earlier)
+        assert _k14_equal(got, want)
+
+
+def test_k14_float64_takes_the_plain_version(cuda_device):  # noqa: F811
+    """float64 rows on the card launch nothing, and count what the float32
+    rows they hold count through K14 (the same comparisons)."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    a = _k14_rows("ties", 3, 5000, 6).to(cuda_device)
+    b = _k14_rows("ties", 3, 4000, 7).to(cuda_device)
+    for first, pos, earlier in _K14_MODES:
+        got, _ = _k14_both(a, a if first else b, first, pos, earlier)
+        g = torch.Generator(device=cuda_device).manual_seed(3)
+        wide = [torch.randint(0, 2**20, a.shape, generator=g, dtype=torch.int32,
+                              device=cuda_device) for _ in range(2)]
+        if not pos:
+            wide[1] = None
+        before = k14.merge_count.launches
+        k14.merge_count(a.double(), (a if first else b).double(), *wide,
+                        first=first, earlier=earlier)
+        assert k14.merge_count.launches == before
+        assert _k14_equal(got, wide)
+
+
+def test_k14_launches_by_name(cuda_device):  # noqa: F811
+    """What ``k14_roofline`` reads by name: a call launches one
+    ``merge_count_partition`` and one ``merge_count_kernel<kFirst, kPos>``
+    of its mode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    a = _k14_rows("normal", 4, 9000, 8).to(cuda_device)
+    b = _k14_rows("normal", 4, 9000, 9).to(cuda_device)
+    t = torch.zeros(a.shape, dtype=torch.int32, device=cuda_device)
+    gpos = torch.zeros_like(t)
+    for first, pos, earlier in _K14_MODES:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k14.merge_count(a, a if first else b, t, gpos if pos else None,
+                            first=first, earlier=earlier)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA" and "merge_count" in e.name]
+        want = (f"merge_count_kernel<{str(first).lower()}, "
+                f"{str(pos).lower()}>")
+        assert len(names) == 2, names
+        assert sum("merge_count_partition" in nm for nm in names) == 1
+        assert sum(want in nm for nm in names) == 1, names
+
+
+def test_k14_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa: F811
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount as k14
+
+    a = _k14_rows("normal", 4, 64, 1).to(cuda_device)
+    t = torch.zeros((4, 64), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # off a 16-byte boundary
+        k14.merge_count(a.reshape(-1)[1:].reshape(-1)[:252].view(4, 63),
+                        a, t[:, :63].contiguous())
+    with pytest.raises(ValueError):  # rows of b that do not match
+        k14.merge_count(a, a[:3], t)
+    with pytest.raises(ValueError):  # accumulators of another shape
+        k14.merge_count(a, a, t[:, :32].contiguous())
+    with pytest.raises(NotImplementedError):
+        k14.merge_count(a.half(), a.half(), t)

@@ -196,6 +196,20 @@ def test_tied_ranks_constants_agree_with_the_cuda_source():
         f"kBlomNdtri={tiedrank._BLOM_NDTRI}")
 
 
+def test_merge_count_tile_agrees_with_the_cuda_source():
+    """K14's wrapper sizes its partition by the tile that
+    ``csrc/merge_count.cu`` merges a block: threads x entries a thread."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount
+
+    src = (_build.CSRC_DIR / "merge_count.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert const("kTile") == "kThreads * kPer"
+    assert int(const("kThreads")) * int(const("kPer")) == mergecount._TILE
+
+
 def test_ablation_macros_are_in_the_cuda_source():
     """Every macro ``sort_microbench.ablate_chunk_launch`` defines is tested
     by ``csrc/sort_study.cu``."""

@@ -10,12 +10,16 @@ float64 ``rhat_nested`` within ``PARITY_F64``; every rank's result equals
 rank 0's bit for bit. A block that splits a superchain raises; the bytes the
 collectives send are those counted by hand.
 
-Without a world: the Blom scores of the ring route and of K12's plain
-version (``kernels.tiedrank.blom_scores``) stay finite and within 2 float32
-ULP of float64 at the ends of rows of 2^24 to 2^26 entries, where the
-float32 quotient gave +inf; the type-7 median of a row of 25M entries
-interpolates its two middle order statistics with weight 1/2, in
-``sorted_quantile`` and in the ring route's ``quantiles_from_positions``.
+Without a world: the ring's two accumulators ``(t, gpos)`` at every ring
+position of rings of 2, 3 and 4 blocks equal the counts the route formed
+before them (``cl``, ``ce`` and the global positions by
+``torch.searchsorted``), integer for integer; the Blom scores of the ring
+route and of K12's plain version (``kernels.tiedrank.blom_scores``) stay
+finite and within 2 float32 ULP of float64 at the ends of rows of 2^24 to
+2^26 entries, where the float32 quotient gave +inf; the type-7 median of
+a row of 25M entries interpolates its two middle order statistics with
+weight 1/2, in ``sorted_quantile`` and in the ring route's
+``quantiles_from_positions``.
 """
 
 import math
@@ -26,6 +30,7 @@ import torch
 
 import mcmcdiagnostictools_jl_tpu as mdt
 import mcmcdiagnostictools_jl_tpu_torch as mtt
+from mcmcdiagnostictools_jl_tpu_torch import kernels
 from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank
 from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
     quantile_index,
@@ -33,7 +38,7 @@ from mcmcdiagnostictools_jl_tpu_torch.ops.ranknorm import (
 )
 from mcmcdiagnostictools_jl_tpu_torch.parallel import ring_rank
 from torch_dist import MESH, run_world
-from torch_parity import assert_close
+from torch_parity import assert_close, old_ring_counts
 
 KINDS = ["rank", "bulk", "tail", "basic"]
 IMPLS = ["ring", "gather", "auto"]
@@ -167,15 +172,16 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("n", [2**24, 2**24 + 1000, 25_000_000, 2**26,
                                2**30 + 1000])
 def test_ring_scores_at_the_ends_of_long_rows(n):
-    """Synthetic counts, in the dtype ``ring_rank_counts`` gives them (int32
-    below 2^31 entries, where the twice-rank of a row of 2^30 entries and
-    more outgrows it): the lowest and highest element, a tie of three at
-    each end, and the two middle ranks."""
-    dtype = torch.int32 if n < 2**31 else torch.int64
+    """Synthetic counts ``t = 2 cl + ce``, in the dtype
+    ``ring_rank_counts`` gives them (int32 while the twice-rank fits, int64
+    from rows of 2^30 entries on): the lowest and highest element, a tie of
+    three at each end, and the two middle ranks."""
+    dtype = torch.int32 if 2 * n + 1 < 2**31 else torch.int64
     cl = torch.tensor([[0], [1], [n - 1], [n - 3], [n // 2 - 1], [n // 2]],
-                      dtype=dtype)
-    ce = torch.tensor([[1], [3], [1], [3], [1], [1]], dtype=dtype)
-    z = ring_rank.rank_normal_from_counts(cl, ce, n, torch.float32)
+                      dtype=torch.int64)
+    ce = torch.tensor([[1], [3], [1], [3], [1], [1]], dtype=torch.int64)
+    t = (2 * cl + ce).to(dtype)
+    z = ring_rank.rank_normal_from_counts(t, n, torch.float32)
     r = cl.double() + (ce.double() + 1) / 2
     want = torch.special.ndtri((r - 0.375) / (n + 0.25))
     assert z.dtype == torch.float32 and bool(torch.isfinite(z).all())
@@ -239,3 +245,80 @@ def test_ring_quantiles_pick_the_two_middle_order_statistics(monkeypatch):
     xs = torch.tensor([[1.0, 2.0, 4.0, 8.0]])
     got = ring_rank.quantiles_from_positions(xs, gpos, n, (0.5,), None)
     assert got.tolist() == [[3.0]]
+
+
+# ---- the ring's two accumulators against the three counts they replace -----
+
+
+def _tied_blocks(k, seed, p=4, n=60):
+    """``k`` sorted blocks ``(p, n)`` with ties inside and across blocks:
+    a row of normals, one on a coarse grid, one of +-0.0 and +-inf among
+    integers, one of a single value."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((k, p, n), generator=g)
+    x[:, 1] = torch.round(x[:, 1] * 2) / 2
+    x[:, 2] = torch.randint(-2, 3, (k, n), generator=g).float()
+    signed_zero = torch.tensor([-0.0, 0.0])[
+        torch.randint(0, 2, (k, n), generator=g)]
+    x[:, 2] = torch.where(x[:, 2] == 0, signed_zero, x[:, 2])
+    x[:, 2, 0], x[:, 2, 1] = -torch.inf, torch.inf
+    x[:, 3] = 1.5
+    return [torch.sort(b, dim=1, stable=True).values for b in x]
+
+
+def _fake_ring(monkeypatch, blocks, index):
+    """``ring_rank``'s exchanges hand block ``index`` the blocks of its
+    ring-earlier neighbours in turn, as the ring would."""
+    steps = iter(range(1, len(blocks)))
+    monkeypatch.setattr(
+        ring_rank, "ring_exchange",
+        lambda buf, group, i, k: blocks[(index - next(steps)) % k])
+
+
+@pytest.mark.parametrize("kshards", [2, 3, 4])
+def test_ring_accumulators_equal_the_searchsorted_counts(monkeypatch,
+                                                         kshards):
+    blocks = _tied_blocks(kshards, 20261018 + kshards)
+    n_all = sum(b.shape[1] for b in blocks)
+    positions = []
+    kernels.reset_launch_counts()
+    for index in range(kshards):
+        _fake_ring(monkeypatch, blocks, index)
+        t, gpos = ring_rank.ring_rank_counts(blocks[index], None, index,
+                                             kshards)
+        cl, ce, want_gpos = old_ring_counts(blocks, index)
+        assert t.dtype == gpos.dtype == torch.int32
+        assert torch.equal(t.long() + 1, 2 * cl + ce + 1)
+        assert torch.equal(gpos.long(), want_gpos)
+        _fake_ring(monkeypatch, blocks, index)
+        t_alone, none = ring_rank.ring_rank_counts(
+            blocks[index], None, index, kshards, positions=False)
+        assert none is None and torch.equal(t_alone, t)
+        positions.append(gpos)
+    # the copies' global positions: each row a permutation of 0..N-1
+    every = torch.sort(torch.cat(positions, dim=1).long(), dim=1).values
+    assert torch.equal(every, torch.arange(n_all).expand_as(every))
+    assert kernels.launch_counts()["K14"] == 0  # the plain version on the CPU
+
+
+@pytest.mark.parametrize("kshards", [1, 2, 3, 4])
+def test_ring_counts_are_int64_where_k14_cannot_count(kshards):
+    """The accumulators are int32, which sends a block to K14 on the card,
+    only where the twice-rank of a row of the chain group fits and K14
+    takes a block's rows against a block; on a ring of one block K14's
+    limit comes first: int64 from 2^30 - 2048 entries, where the twice-rank
+    would still fit."""
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import mergecount
+
+    twice_rank_edge = -(-(2**31 - 1) // (2 * kshards))  # first n it outgrows
+    for n in sorted({2**30 - 2049, 2**30 - 2048, 2**30 - 1, 2**30,
+                     twice_rank_edge - 1, twice_rank_edge}):
+        narrow = ring_rank._count_dtype(n, kshards) == torch.int32
+        assert narrow == (2 * n * kshards + 1 < 2**31
+                          and mergecount.fits(n, n)), n
+        if narrow:  # the kernel's own check passes
+            assert n + n < 2**31 - mergecount._TILE
+    if kshards == 1:
+        assert ring_rank._count_dtype(2**30 - 2049, 1) == torch.int32
+        assert ring_rank._count_dtype(2**30 - 2048, 1) == torch.int64
+

@@ -35,3 +35,24 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def old_ring_counts(blocks, index):
+    """``(cl, ce, gpos)`` of block ``index`` of a ring of ``blocks`` (sorted
+    rows ``(P, n)``, on any one device) as the ring route formed them with
+    ``torch.searchsorted`` before its two accumulators ``(t, gpos)``: the
+    global counts of smaller and of equal entries, and each copy's global
+    position, ties held by ring-earlier blocks first."""
+    xs, k = blocks[index], len(blocks)
+    cl = torch.searchsorted(xs, xs, side="left")
+    gpos = torch.arange(xs.shape[1], device=xs.device).sub(cl)
+    ce = torch.searchsorted(xs, xs, side="right").sub_(cl)
+    for step in range(1, k):
+        buf = blocks[(index - step) % k]
+        less = torch.searchsorted(buf, xs, side="left")
+        neq = torch.searchsorted(buf, xs, side="right").sub_(less)
+        cl.add_(less)
+        ce.add_(neq)
+        if (index - step) % k < index:
+            gpos.add_(neq)
+    return cl, ce, gpos.add_(cl)
