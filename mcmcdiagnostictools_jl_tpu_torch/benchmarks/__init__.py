@@ -7,11 +7,6 @@
   (``torch.profiler``, by kernel);
 - ``gbt_contract``: the R* GBT's histogram and leaf products at config 5's
   shapes, one product against row blocks through ``torch.bmm``;
-- ``ab_walls``: the flagship calls' walls and peak memory of two checkouts
-  of the port, in turns, one process a run (host walls, each call ending in
-  a synchronize);
-- ``nan_probe``: where the card's sort puts a sign-bit NaN, and the exact
-  calls' values in its column, for checkouts of the port;
 - ``tiedrank_study``: K12 on the flagship exact call's rows, for checkouts
   of the port in turns, and its table fill, scatter passes and group sizes;
 - ``pass_study``: K7 and K8 in turns with ``add_``, for checkouts of the

@@ -35,7 +35,8 @@ versions.
 Numeric contracts: the split-chain remainder-discard rule, the ``(n-1)/n``
 correction, the ``corrected=(nchains>1)`` guard, the ``min(1/tau,
 log10(ntotal))`` cap, ``maxlag`` clamped to ``niter - 4``, and NaN ESS with
-a warning (R-hat still computed) when ``niter <= 4``.
+a warning (R-hat still computed) when ``niter <= 4``. The sharded
+diagnostics call the public helpers with the mesh's chain group.
 """
 
 from __future__ import annotations
@@ -60,7 +61,14 @@ from ..ops.fastrank import (
     hist_quantile,
 )
 from ..ops.geyer import geyer_ess_from_rho
-from ..ops.moments import chain_stats, fused_chain_stats_autocov
+from ..ops.moments import (
+    ONE_CARD,
+    ChainGroup,
+    chain_moments,
+    chain_stats,
+    fused_chain_stats_autocov,
+    stats_from_chain_moments,
+)
 from ..ops.ranknorm import (
     _VALLEY_BLOCK,
     batched_median,
@@ -200,7 +208,7 @@ def _resolve_fold_merge(x3, fold_impl: str = "auto") -> str | None:
     return None
 
 
-def _method_name(autocov_method):
+def method_name(autocov_method):
     """The route of an ``autocov_method``: ``"kernel"`` for the fused one
     (K1), else a name of ``ops.autocov``'s table or a callable."""
     if isinstance(autocov_method, _MARKERS):
@@ -277,21 +285,23 @@ def _geyer_walk_stopped(rho):
     return (~(delta > 0)).any(0)
 
 
-def _basic_ess_rhat(x3, split_chains: int, maxlag: int, method,
-                    relative: bool):
-    """Split -> moments -> autocov curve -> rho -> Geyer on (draws, C, P)
-    (reference ``_ess_rhat_basic!``, src/ess_rhat.jl:488-602)."""
+def basic_ess_rhat(x3, split_chains: int, maxlag: int, method,
+                   relative: bool, group: ChainGroup = ONE_CARD):
+    """Basic ESS and R-hat of this rank's ``(draws, C_local, P)``: split ->
+    moments -> autocov -> rho -> Geyer (src/ess_rhat.jl:488-602)."""
     with annotate("mdt.moments"):
         samples = split_chains_reshape(x3, split_chains)
         niter, nchains, _ = samples.shape
-        stats, rho = _stats_rho(samples, maxlag, method)
-    return geyer_ess_from_rho(rho, niter * nchains, relative), stats.rhat
+        stats, rho = _stats_rho(samples, maxlag, method, group)
+    return (geyer_ess_from_rho(rho, niter * nchains * group.ranks, relative),
+            stats.rhat)
 
 
-def _stats_rho(samples, maxlag: int, method):
+def _stats_rho(samples, maxlag: int, method, group: ChainGroup):
     """``(ChainStats, rho)`` of the split chains: moments, autocovariance
-    and autocorrelation up to ``maxlag`` (the fused route up to
-    ``_ADAPTIVE_L0`` lags alone where every Geyer walk stops inside them)."""
+    and autocorrelation up to ``maxlag`` (the fused route, one card's only,
+    up to ``_ADAPTIVE_L0`` lags alone where every Geyer walk stops inside
+    them)."""
     if method == "kernel":
 
         def stats_rho(lag):
@@ -305,14 +315,18 @@ def _stats_rho(samples, maxlag: int, method):
             if stopped:
                 return stats0, rho0
         return stats_rho(maxlag)
-    stats = chain_stats(samples)
-    centered = samples - stats.chain_mean[None]
-    acov = mean_autocov_curve(centered, stats.chain_var, maxlag, method)
-    return stats, 1.0 - (stats.w[None] - acov) * (1.0 / stats.var_plus)[None]
+    chain_mean, centered, chain_var = chain_moments(samples)
+    stats = stats_from_chain_moments(chain_mean, chain_var, samples.shape[0],
+                                     group.all_same(samples), group)
+    acov = group.mean_of_means(
+        mean_autocov_curve(centered, chain_var, maxlag, method),
+        samples.shape[1])
+    return stats, 1.0 - (stats.w[None] - acov) / stats.var_plus[None]
 
 
-def _basic_rhat(x3, split_chains: int):
-    return chain_stats(split_chains_reshape(x3, split_chains)).rhat
+def basic_rhat(x3, split_chains: int, group: ChainGroup = ONE_CARD):
+    """Basic split R-hat of this rank's ``(draws, C_local, P)``."""
+    return chain_stats(split_chains_reshape(x3, split_chains), group).rhat
 
 
 def _tail_rhat_from_sort(xs, order, med, bad, shape3, split_chains: int,
@@ -331,8 +345,8 @@ def _tail_rhat_from_sort(xs, order, med, bad, shape3, split_chains: int,
     return torch.where(bad, torch.nan, stats.rhat)
 
 
-def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
-                split_chains: int, fold_merge: str | None = None):
+def tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
+               split_chains: int, fold_merge: str | None = None):
     """``(t_lo, t_hi, rhat_tail)`` of the tail kind from one histogram
     (fast) or one sort (exact): the quantiles at ``tail_prob/2`` and
     ``1 - tail_prob/2``, and the R-hat of the rank-normal ``|x - med|``."""
@@ -344,8 +358,8 @@ def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
             cdf = build_hist_cdf(xf, nbins)
             t_lo, t_hi, med = hist_quantile(cdf, ps, nbins)
             z_tail = fast_rank_fold(xf, cdf, med, nbins)
-            return t_lo, t_hi, _basic_rhat(z_tail.reshape(d, c, p),
-                                           split_chains)
+            return t_lo, t_hi, basic_rhat(z_tail.reshape(d, c, p),
+                                          split_chains)
         xs, order, bad = sort_with_positions(x3)
         t_lo, t_hi, med = (torch.where(bad, torch.nan, sorted_quantile(xs, q))
                            for q in ps)
@@ -353,26 +367,24 @@ def _tail_parts(x3, tail_prob: float, rank_mode: str, nbins: int,
                                                 split_chains, fold_merge)
 
 
-def _tail_ess_rhat(x3, *, split_chains, maxlag, method, relative, tail_prob,
-                   rank_mode, nbins, fold_merge=None):
-    """Tail ESS (the two quantile-indicator proxies as one 2P-wide basic
-    call) and tail R-hat."""
+def tail_ess(x3, t_lo, t_hi, *, split_chains: int, maxlag: int, method,
+             relative: bool, group: ChainGroup = ONE_CARD):
+    """Tail ESS: the two quantile indicators as one 2P-wide basic call."""
     p = x3.shape[2]
-    t_lo, t_hi, rhat_tail = _tail_parts(x3, tail_prob, rank_mode, nbins,
-                                        split_chains, fold_merge)
     proxies = torch.cat([_indicator_leq(x3, t_lo), _indicator_leq(x3, t_hi)],
                         dim=2)
-    ess2, _ = _basic_ess_rhat(proxies, split_chains, maxlag, method, relative)
-    return torch.minimum(ess2[:p], ess2[p:]), rhat_tail
+    ess2, _ = basic_ess_rhat(proxies, split_chains, maxlag, method, relative,
+                             group)
+    return torch.minimum(ess2[:p], ess2[p:])
 
 
-def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int,
-                          fold_merge: str | None = None):
+def bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int,
+                         fold_merge: str | None = None):
     """``(z_bulk, rhat_tail)`` for the rank kind."""
     with annotate("mdt.rank." + rank_mode):
         if rank_mode == "fast":
             z_bulk, z_tail, _ = fast_rank_bulk_tail(x3, nbins)
-            return z_bulk, _basic_rhat(z_tail, split_chains)
+            return z_bulk, basic_rhat(z_tail, split_chains)
         xs, order, bad = sort_with_positions(x3)
         med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
         z = rank_normalize_from_sort(xs, order, bad).reshape(x3.shape)
@@ -380,7 +392,8 @@ def _bulk_tail_transforms(x3, rank_mode: str, nbins: int, split_chains: int,
                                        split_chains, fold_merge)
 
 
-def _bulk_transform(x3, rank_mode: str, nbins: int):
+def bulk_transform(x3, rank_mode: str, nbins: int):
+    """The bulk kind's rank-normal sample."""
     with annotate("mdt.rank." + rank_mode):
         if rank_mode == "fast":
             return fast_rank_normalize(x3, nbins)
@@ -418,23 +431,24 @@ def _ess_rhat_pipeline(x3, *, kind: str, split_chains: int, maxlag: int,
     basic = dict(split_chains=split_chains, maxlag=maxlag, method=method,
                  relative=relative)
     if kind == "basic":
-        return _basic_ess_rhat(x3, **basic)
+        return basic_ess_rhat(x3, **basic)
     if kind == "bulk":
-        return _basic_ess_rhat(_bulk_transform(x3, rank_mode, rank_nbins),
-                               **basic)
+        return basic_ess_rhat(bulk_transform(x3, rank_mode, rank_nbins),
+                              **basic)
     if kind == "tail":
-        return _tail_ess_rhat(x3, **basic, tail_prob=0.1 if q is None else q,
-                              rank_mode=rank_mode, nbins=rank_nbins,
-                              fold_merge=fold_merge)
+        t_lo, t_hi, rhat_tail = tail_parts(x3, 0.1 if q is None else q,
+                                           rank_mode, rank_nbins,
+                                           split_chains, fold_merge)
+        return tail_ess(x3, t_lo, t_hi, **basic), rhat_tail
     if kind == "rank":
-        z_bulk, rhat_tail = _bulk_tail_transforms(x3, rank_mode, rank_nbins,
-                                                  split_chains, fold_merge)
-        ess_bulk, rhat_bulk = _basic_ess_rhat(z_bulk, **basic)
+        z_bulk, rhat_tail = bulk_tail_transforms(x3, rank_mode, rank_nbins,
+                                                 split_chains, fold_merge)
+        ess_bulk, rhat_bulk = basic_ess_rhat(z_bulk, **basic)
         return ess_bulk, torch.maximum(rhat_tail, rhat_bulk)
     if kind in _PROXY_KINDS:
         proxy = (_fast_expectand_proxy(kind, x3, q, rank_nbins)
                  if rank_mode == "fast" else _expectand_proxy(kind, x3, q))
-        return _basic_ess_rhat(proxy, **basic)
+        return basic_ess_rhat(proxy, **basic)
     raise ValueError(f"unsupported kind {kind!r}")
 
 
@@ -442,22 +456,27 @@ def _rhat_pipeline(x3, *, kind: str, split_chains: int,
                    fold_merge: str | None = None, rank_mode: str = "exact",
                    rank_nbins: int = DEFAULT_NBINS):
     if kind == "basic":
-        return _basic_rhat(x3, split_chains)
+        return basic_rhat(x3, split_chains)
     if kind == "bulk":
-        return _basic_rhat(_bulk_transform(x3, rank_mode, rank_nbins),
-                           split_chains)
-    z_bulk, rhat_tail = _bulk_tail_transforms(x3, rank_mode, rank_nbins,
-                                              split_chains, fold_merge)
+        return basic_rhat(bulk_transform(x3, rank_mode, rank_nbins),
+                          split_chains)
+    z_bulk, rhat_tail = bulk_tail_transforms(x3, rank_mode, rank_nbins,
+                                             split_chains, fold_merge)
     if kind == "tail":
         return rhat_tail
     if kind == "rank":
-        return torch.maximum(rhat_tail, _basic_rhat(z_bulk, split_chains))
+        return torch.maximum(rhat_tail, basic_rhat(z_bulk, split_chains))
     raise ValueError(f"unsupported kind {kind!r}")
 
 
-def _check_maxlag(maxlag: int):
+def check_maxlag(maxlag: int):
+    """Raise unless ``maxlag`` is positive."""
     if maxlag <= 0:
         raise ValueError("maxlag must be >0.")
+
+
+# the names streaming.py and the tests import
+_method_name, _check_maxlag = method_name, check_maxlag
 
 
 def _check_rank_mode(rank_mode: str):
@@ -573,7 +592,7 @@ def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
     _check_rank_mode(rank_mode)
     with annotate("mdt.ess_rhat"):
         x3, pshape = _canonical_input(samples, device)
-        _check_maxlag(maxlag)
+        check_maxlag(maxlag)
         fold_merge = _resolve_fold_merge(x3, fold_impl)
         niter = x3.shape[0] // split_chains
         if niter <= 4:
@@ -588,7 +607,7 @@ def ess_rhat(samples, *, kind: str = "rank", relative: bool = False,
             ess_vals, rhat_vals = _ess_rhat_pipeline(
                 x3, kind=kind, split_chains=split_chains,
                 maxlag=min(maxlag, niter - 4),
-                method=_method_name(autocov_method), relative=relative,
+                method=method_name(autocov_method), relative=relative,
                 q=tail_prob, param_chunk=param_chunk, fold_merge=fold_merge,
                 rank_mode=rank_mode, rank_nbins=rank_nbins,
             )
@@ -605,7 +624,7 @@ def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,
     """ESS of one kind on canonical ``(draws, chains, P)``, ``(P,)``: the
     core of ``ess``, shared with ``mcse``."""
     _check_rank_mode(rank_mode)
-    _check_maxlag(maxlag)
+    check_maxlag(maxlag)
     niter = x3.shape[0] // split_chains
     if niter <= 4:
         _warn_short(niter)
@@ -613,7 +632,7 @@ def _ess_array(x3, estimator: str, q: float | None, *, split_chains: int = 2,
                           device=x3.device)
     ess_vals, _ = _ess_rhat_pipeline(
         x3, kind=estimator, split_chains=split_chains,
-        maxlag=min(maxlag, niter - 4), method=_method_name(autocov_method),
+        maxlag=min(maxlag, niter - 4), method=method_name(autocov_method),
         relative=relative, q=q, param_chunk=param_chunk,
         fold_merge=fold_merge, rank_mode=rank_mode, rank_nbins=rank_nbins,
     )

@@ -38,14 +38,14 @@ from ..ops.special import betaincinv
 from ..utils.layout import maybe_scalar
 from .ess_rhat import (
     Quantile,
-    _basic_ess_rhat,
     _canonical_input,
-    _check_maxlag,
     _check_rank_mode,
     _ess_array,
     _indicator_leq,
-    _method_name,
     _warn_short,
+    basic_ess_rhat,
+    check_maxlag,
+    method_name,
 )
 
 # standard normal CDF at +1 / -1 (reference src/mcse.jl:1-2)
@@ -142,7 +142,7 @@ def _mcse_quantile_exact(x3, p: float, *, split_chains: int = 2,
     ``x_u``."""
     del rank_nbins
     _check_rank_mode(rank_mode)
-    _check_maxlag(maxlag)
+    check_maxlag(maxlag)
     niter = x3.shape[0] // split_chains
     if niter <= 4:
         _warn_short(niter)
@@ -151,9 +151,9 @@ def _mcse_quantile_exact(x3, p: float, *, split_chains: int = 2,
     xs = sort_rows_keys(_rows(x3))  # (P, N), NaNs at the ends
     bad = _nan_rows(xs)
     thr = torch.where(bad, torch.nan, sorted_quantile(xs, p))
-    s_eff, _ = _basic_ess_rhat(_indicator_leq(x3, thr), split_chains,
-                               min(maxlag, niter - 4),
-                               _method_name(autocov_method), relative)
+    s_eff, _ = basic_ess_rhat(_indicator_leq(x3, thr), split_chains,
+                              min(maxlag, niter - 4),
+                              method_name(autocov_method), relative)
     l, u = _beta_interval_ranks(s_eff, p, xs.shape[1])
     x_l = xs.gather(1, (l.long() - 1)[:, None])[:, 0]
     x_u = xs.gather(1, (u.long() - 1)[:, None])[:, 0]
@@ -173,7 +173,7 @@ def _mcse_quantile_fast(x3, p: float, *, split_chains: int = 2,
     so one coarse inversion alone would carry an error of order one bin over
     the interval width; the zoom leaves about interval / nbins."""
     del rank_mode
-    _check_maxlag(maxlag)
+    check_maxlag(maxlag)
     niter = x3.shape[0] // split_chains
     if niter <= 4:
         _warn_short(niter)
@@ -184,9 +184,9 @@ def _mcse_quantile_fast(x3, p: float, *, split_chains: int = 2,
     n = xf.shape[0]
     cdf = build_hist_cdf(xf, nbins)
     thr = hist_quantile(cdf, (p,), nbins)[0]
-    s_eff, _ = _basic_ess_rhat(_indicator_leq(x3, thr), split_chains,
-                               min(maxlag, niter - 4),
-                               _method_name(autocov_method), relative)
+    s_eff, _ = basic_ess_rhat(_indicator_leq(x3, thr), split_chains,
+                              min(maxlag, niter - 4),
+                              method_name(autocov_method), relative)
     l, u = _beta_interval_ranks(s_eff, p, n)
     # coarse pass: the element of rank h lies in the bin with
     # cum + 1/2 <= h, the last such bin

@@ -7,8 +7,10 @@ initialization). Per parameter and superchain, ``Wk`` (mean within-chain
 variance) and ``Bk`` (between-chain variance) combine as
 ``rhat = sqrt(1 + var(superchain means) / mean(Wk + Bk))``
 (src/rhat_nested.jl:127-188). The chains are permuted so that superchains
-are contiguous, and both levels of the reduction are axis reductions. The
-kinds reuse the exact rank transforms (src/rhat_nested.jl:98-125).
+are contiguous, and both levels of the reduction are axis reductions
+(``ops.moments.nested_rhat``, which the sharded route calls with the mesh's
+chain group). The kinds reuse the exact rank transforms
+(src/rhat_nested.jl:98-125).
 """
 
 from __future__ import annotations
@@ -16,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.moments import nested_rhat_split
 from ..ops.ranknorm import fold_around_median, rank_normalize
 from ..utils.indices import unique_indices
 from ..utils.layout import maybe_scalar
 from ..utils.profiling import annotate, host_sync
-from ..utils.split import split_chains_reshape
 from .ess_rhat import _canonical_input
 
 _KINDS = ("rank", "bulk", "tail", "basic")
@@ -41,19 +43,29 @@ def rhat_nested(samples, superchain_ids, *, kind: str = "rank",
             f"the `kind` `{kind}` is not supported by `rhat_nested`")
     with annotate("mdt.rhat_nested"):
         x3, pshape = _canonical_input(samples, device, min_ndim=2)
-        perm, nsuper = _validate_superchain_ids(superchain_ids, x3.shape[1])
+        perm, nsuper = validate_superchain_ids(superchain_ids, x3.shape[1])
         with host_sync("superchain_ids"):
             perm = torch.as_tensor(perm, device=x3.device)
-        if kind == "rank":
-            bulk = _rhat_nested_basic(_ranked(x3, False), perm, nsuper,
-                                      split_chains)
-            tail = _rhat_nested_basic(_ranked(x3, True), perm, nsuper,
-                                      split_chains)
-            return maybe_scalar(torch.maximum(bulk, tail), pshape)
-        if kind != "basic":
-            x3 = _ranked(x3, kind == "tail")
-        return maybe_scalar(_rhat_nested_basic(x3, perm, nsuper, split_chains),
+
+        def nested(z):
+            with annotate("mdt.nested"):
+                return nested_rhat_split(z[:, perm, :], nsuper, split_chains)
+
+        if kind == "basic":
+            return maybe_scalar(nested(x3), pshape)
+        return maybe_scalar(by_kind(kind, lambda: nested(_ranked(x3, False)),
+                                    lambda: nested(_ranked(x3, True))),
                             pshape)
+
+
+def by_kind(kind: str, bulk, tail):
+    """The nested R-hat of ``kind`` from the calls that give its bulk and
+    its tail R-hat: ``"bulk"``, ``"tail"``, or ``"rank"``, their max (the
+    bulk computed first)."""
+    if kind == "tail":
+        return tail()
+    r = bulk()
+    return r if kind == "bulk" else torch.maximum(r, tail())
 
 
 def _ranked(x3, fold: bool):
@@ -62,7 +74,7 @@ def _ranked(x3, fold: bool):
         return rank_normalize(fold_around_median(x3) if fold else x3)
 
 
-def _validate_superchain_ids(superchain_ids, nchains: int):
+def validate_superchain_ids(superchain_ids, nchains: int):
     """``(chain permutation that makes superchains contiguous, nsuper)``."""
     ids = np.asarray(superchain_ids)
     if ids.ndim != 1 or len(ids) != nchains:
@@ -76,37 +88,3 @@ def _validate_superchain_ids(superchain_ids, nchains: int):
         raise ValueError(
             "all superchains must contain the same number of chains")
     return np.concatenate(groups), nsuper
-
-
-def _rhat_nested_basic(x3, perm, nsuper: int, split_chains: int):
-    """Two-level within/between reduction (src/rhat_nested.jl:127-188),
-    batched over parameters."""
-    with annotate("mdt.nested"):
-        samples = split_chains_reshape(x3[:, perm, :], split_chains)
-        niter, _, nparams = samples.shape
-        chain_mean = samples.mean(0)
-        centered = samples - chain_mean[None]
-        chain_var = (centered * centered).sum(0) / (niter - 1)
-        # an all-identical slice is NaN whatever the rounding of the sums
-        degenerate = (samples == samples[0, 0][None, None]).reshape(
-            -1, nparams).all(0)
-        return _nested_from_moments(chain_mean, chain_var, nsuper, degenerate)
-
-
-def _nested_from_moments(chain_mean, chain_var, nsuper: int, degenerate):
-    """Nested R-hat from split-chain means and variances ``(C, P)``,
-    superchains contiguous (chain-major split chains), NaN where
-    ``degenerate``."""
-    nchains, nparams = chain_mean.shape
-    m = nchains // nsuper  # (split) chains per superchain
-    cm = chain_mean.reshape(nsuper, m, nparams)
-    wk = chain_var.reshape(nsuper, m, nparams).mean(1)  # (S, P)
-    superchain_mean = cm.mean(1)
-    dm = cm - superchain_mean[:, None]
-    # corrected=(m > 1), src/rhat_nested.jl:175
-    bk = (dm * dm).sum(1) / (m - 1) if m > 1 else torch.zeros_like(wk)
-    var_within = (wk + bk).mean(0)  # (P,)
-    ds = superchain_mean - superchain_mean.mean(0)[None]
-    var_between = (ds * ds).sum(0) / (nsuper - 1)
-    var_between = torch.where(degenerate, torch.nan, var_between)
-    return torch.sqrt(1.0 + var_between / var_within)

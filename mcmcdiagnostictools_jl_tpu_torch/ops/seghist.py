@@ -13,9 +13,10 @@ chain``; the remainder-discard rule of the split; split-chain id ``chain *
 split + k`` (chain-major, as ``split_chains_reshape`` lays them out);
 values and positions ``(P, N)``, one row a parameter.
 
-``split_chain_stats_from_sorted`` runs kernel K11 (``kernels/seghist.py``)
-on a CUDA float32 tensor and its plain version (``split_chain_ids_from_flat``
-and ``weighted_segment_moments``) on any other.
+``split_chain_stats_from_sorted`` and ``nested_rhat_from_sorted`` (each over
+a chain group, ``ops.moments``) run kernel K11 (``kernels/seghist.py``) on a
+CUDA float32 tensor and its plain version (``split_chain_ids_from_flat`` and
+``weighted_segment_moments``) on any other.
 """
 
 from __future__ import annotations
@@ -25,10 +26,17 @@ from ..kernels.seghist import (
     split_chain_ids_from_flat,
     weighted_segment_moments,
 )
-from .moments import ChainStats, stats_from_chain_moments
+from .moments import (
+    ONE_CARD,
+    ChainGroup,
+    ChainStats,
+    nested_rhat,
+    stats_from_chain_moments,
+)
 
 __all__ = ["split_chain_ids_from_flat", "weighted_segment_moments",
-           "split_chain_moments", "split_chain_stats_from_sorted"]
+           "split_chain_moments", "split_chain_stats_from_sorted",
+           "nested_rhat_from_sorted"]
 
 
 def split_chain_moments(values_sorted, order_sorted, ndraws: int,
@@ -47,7 +55,8 @@ def split_chain_moments(values_sorted, order_sorted, ndraws: int,
 
 
 def split_chain_stats_from_sorted(values_sorted, order_sorted, ndraws: int,
-                                  nchains: int, split: int) -> ChainStats:
+                                  nchains: int, split: int,
+                                  group: ChainGroup = ONE_CARD) -> ChainStats:
     """``ChainStats`` of ``values`` as if routed back to ``(draws, chains)``
     and split, without routing them (arguments as
     :func:`split_chain_moments`). The same as
@@ -57,4 +66,16 @@ def split_chain_stats_from_sorted(values_sorted, order_sorted, ndraws: int,
     chain_mean, chain_var, vmin, vmax = split_chain_moments(
         values_sorted, order_sorted, ndraws, nchains, split)
     return stats_from_chain_moments(chain_mean, chain_var, ndraws // split,
-                                    vmin == vmax)
+                                    group.same(vmin, vmax), group)
+
+
+def nested_rhat_from_sorted(values_sorted, order_sorted, ndraws: int,
+                            nchains: int, split: int, nsuper: int,
+                            group: ChainGroup = ONE_CARD, rows=None):
+    """``ops.moments.nested_rhat`` of ``values`` as if routed back to
+    ``(draws, chains)`` and split, without routing them (arguments as
+    :func:`split_chain_moments` and ``nested_rhat``)."""
+    chain_mean, chain_var, vmin, vmax = split_chain_moments(
+        values_sorted, order_sorted, ndraws, nchains, split)
+    return nested_rhat(chain_mean, chain_var, nsuper, group.same(vmin, vmax),
+                       group, rows)

@@ -36,9 +36,10 @@ order statistics are formed from them exactly (``rank_normal_from_counts``,
 ``quantiles_from_positions``), so in float64 the ranks, medians and
 quantiles are those of the gather path, and in float32 they stay right on
 rows of 2^24 entries and more. The exchanges and the all-reduce go through
-``comm.py`` (the ``mdt.comm`` region, counted); the local work opens
-``mdt.rank.ring``. NaN rows are poisoned by the caller: what the counts say
-inside them does not matter.
+``comm.py`` (the ``mdt.comm`` region, counted); the callers run this
+module's functions inside ``mdt.rank.ring``, which ``comm.py`` closes
+around each collective. NaN rows are poisoned by the caller: what the
+counts say inside them does not matter.
 """
 
 from __future__ import annotations
@@ -48,10 +49,10 @@ import torch
 from ..kernels.mergecount import fits, merge_count
 from ..kernels.tiedrank import blom_scores
 from ..ops.ranknorm import quantile_index
-from ..utils.profiling import annotate, host_sync
+from ..utils.profiling import host_sync
 from .comm import all_reduce, ring_exchange
 
-RING = "mdt.rank.ring"  # the region of the route's local work
+RING = "mdt.rank.ring"  # the region of the route's work
 
 
 def _count_dtype(n_loc: int, kshards: int):
@@ -70,20 +71,16 @@ def ring_rank_counts(xs: torch.Tensor, group, index: int, kshards: int, *,
     shards: ``(t, gpos)``, each ``(P, N_loc)`` (module docstring; in
     ``_count_dtype``), ``gpos`` None unless ``positions``.
     The counts accumulate in place (K14 on the card), so that a visiting
-    block costs its own buffer alone. Called outside the layer regions: the
-    counting opens ``mdt.rank.ring``, each exchange ``mdt.comm``."""
-    with annotate(RING):
-        t = torch.empty(xs.shape, dtype=_count_dtype(xs.shape[1], kshards),
-                        device=xs.device)
-        gpos = torch.empty_like(t) if positions else None
-        merge_count(xs, xs, t, gpos, first=True)
+    block costs its own buffer alone."""
+    t = torch.empty(xs.shape, dtype=_count_dtype(xs.shape[1], kshards),
+                    device=xs.device)
+    gpos = torch.empty_like(t) if positions else None
+    merge_count(xs, xs, t, gpos, first=True)
     buf = xs
     for step in range(1, kshards):
         buf = ring_exchange(buf, group, index, kshards)
-        with annotate(RING):
-            # the block's owner, (index - step) % kshards, earlier or later
-            merge_count(xs, buf, t, gpos,
-                        earlier=(index - step) % kshards < index)
+        # the block's owner, (index - step) % kshards, earlier or later
+        merge_count(xs, buf, t, gpos, earlier=(index - step) % kshards < index)
     return t, gpos
 
 
@@ -106,18 +103,16 @@ def quantiles_from_positions(xs, gpos, ntotal: int, ps, group):
     one SUM all-reduce: each interpolates the order statistics at
     ``floor(h)`` and the next, ``h = (N - 1) p`` in float64 as
     ``ops.ranknorm.sorted_quantile`` forms it, which exactly one rank holds
-    per row. Called outside the layer regions, as ``ring_rank_counts``."""
+    per row."""
     lows, highs, gs = [], [], []
-    with annotate(RING):
-        for p in ps:
-            lo, hi, g = quantile_index(ntotal, p)
-            lows.append(torch.where(gpos == lo, xs, 0.0).sum(1))
-            highs.append(torch.where(gpos == hi, xs, 0.0).sum(1))
-            gs.append(g)
-        vals = torch.stack(lows + highs)
+    for p in ps:
+        lo, hi, g = quantile_index(ntotal, p)
+        lows.append(torch.where(gpos == lo, xs, 0.0).sum(1))
+        highs.append(torch.where(gpos == hi, xs, 0.0).sum(1))
+        gs.append(g)
+    vals = torch.stack(lows + highs)
     all_reduce(vals, group)
-    with annotate(RING):
-        vlo, vhi = vals[:len(ps)], vals[len(ps):]
-        with host_sync("quantile_offset"):
-            g = torch.tensor(gs, dtype=xs.dtype).to(xs.device)[:, None]
-        return vlo + g * (vhi - vlo)
+    vlo, vhi = vals[:len(ps)], vals[len(ps):]
+    with host_sync("quantile_offset"):
+        g = torch.tensor(gs, dtype=xs.dtype).to(xs.device)[:, None]
+    return vlo + g * (vhi - vlo)

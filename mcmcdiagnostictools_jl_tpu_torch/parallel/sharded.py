@@ -1,23 +1,23 @@
 """ESS / R-hat and nested R-hat over a ``(chains, params)`` process mesh
 (counterpart of the JAX package's ``parallel/sharded.py``).
 
-The single-device pipeline of ``diagnostics/ess_rhat.py`` re-expressed with
-explicit collectives on the mesh's ``chains`` group (``mesh.py``): every rank
-runs the same code on its own ``(draws, chains / k, params / m)`` block.
+The single-device pipeline of ``diagnostics/ess_rhat.py`` run on the mesh's
+``chains`` group (``mesh.py``): every rank runs the same code on its own
+``(draws, chains / k, params / m)`` block, and the cross-chain algebra is the
+in-core code's own, given the mesh's chain group (``comm.mesh_chains``):
 
-- cross-chain statistics (W, var_plus, B): SUM all-reduces of per-chain
-  partial sums, two-pass (grand mean first, then centered second moments);
-  the all-identical check (global min == max) is one MAX all-reduce;
+- W, var_plus, B and nested R-hat's across level: SUM all-reduces of
+  per-chain partial sums, two-pass (grand mean first, then centered second
+  moments); the all-identical check (global min == max) one MAX all-reduce;
 - the mean autocovariance curve: one SUM all-reduce of the local
-  ``(maxlag + 1, P_local)`` curve, computed by kernel K5 on a CUDA float32
-  block (``autocov_method="auto"`` means K5 here: the fused K1 of the
-  in-core path computes moments this path takes from collectives);
+  ``(maxlag + 1, P_local)`` curve, kernel K5's on a CUDA float32 block
+  (``autocov_method="auto"`` means K5 here: the fused K1 of the in-core
+  path computes moments this path takes from collectives);
 - the rank transforms (``rank_impl``):
 
-  - ``"gather"``: one ``all_gather`` of the chain blocks, one sort of the
-    full sample's rows on every rank (kernel K13 on a CUDA float32 block),
-    this rank's chains sliced back out
-    (the in-core helpers of ``ops/ranknorm.py``, on rows ``(P, N)``);
+  - ``"gather"``: one ``all_gather`` of the chain blocks, the in-core rank
+    transforms on the full sample on every rank (kernel K13's sort on a
+    CUDA float32 block), this rank's chains sliced back out;
   - ``"ring"``: tied ranks by the ring merge-count of ``ring_rank.py``,
     O(N_local) memory, on this rank's rows ``(P, N_local)`` (sorted by
     kernel K13 on a CUDA float32 block, as in the gather path);
@@ -34,12 +34,11 @@ runs the same code on its own ``(draws, chains / k, params / m)`` block.
 
 Nested R-hat has a rank-local entry, ``rhat_nested_local``: each rank
 passes its own block of chains, where the sampler left it, with the global
-superchain ids, and its superchains must sit whole on it; the across level
-is SUM all-reduces. ``rhat_nested_sharded`` hands each rank its block of
-the global sample, superchains made contiguous, and calls it. Every
-collective goes through ``comm.py`` (the ``mdt.comm`` region, counted);
-the local work of the nested R-hat opens ``mdt.rank.ring``,
-``mdt.rank.exact`` (gather) and ``mdt.nested``, never around a collective.
+superchain ids, and its superchains must sit whole on it.
+``rhat_nested_sharded`` hands each rank its block of the global sample,
+superchains made contiguous, and calls it. Every collective goes through
+``comm.py`` (the ``mdt.comm`` region, counted), which closes the layer
+regions open around it and opens them again.
 
 Results come back on every rank as full ``(P,)`` tensors (one ``all_gather``
 over the ``params`` group), as JAX returns global arrays. Ranks compute the
@@ -52,6 +51,7 @@ outputs, which has no counterpart here, and is left out.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -59,19 +59,19 @@ import torch
 from .. import backend
 from ..diagnostics.ess_rhat import (
     ESSRhat,
-    _check_maxlag,
-    _indicator_leq,
-    _method_name,
-    _tail_rhat_from_sort,
+    basic_ess_rhat,
+    basic_rhat,
+    bulk_tail_transforms,
+    bulk_transform,
+    check_maxlag,
+    method_name,
+    tail_ess,
+    tail_parts,
 )
-from ..diagnostics.rhat_nested import (
-    _nested_from_moments,
-    _validate_superchain_ids,
-)
+from ..diagnostics.rhat_nested import by_kind, validate_superchain_ids
 from ..kernels.fastrank import hist_moments, pack_tables
 from ..kernels.radix_sort import sort_rows
 from ..kernels.tiedrank import tied_blom
-from ..ops.autocov import mean_autocov_curve
 from ..ops.fastrank import (
     DEFAULT_NBINS,
     HistCDF,
@@ -81,23 +81,21 @@ from ..ops.fastrank import (
     fold_range,
     hist_quantile,
 )
-from ..ops.geyer import geyer_ess_from_rho
+from ..ops.moments import ONE_CARD, nested_rhat_split
 from ..ops.ranknorm import (
     _unsort,
     folded_rank_values_sorted,
-    rank_normalize,
-    rank_normalize_from_sort,
     sort_with_positions,
     sorted_quantile,
 )
-from ..ops.seghist import split_chain_moments
+from ..ops.seghist import nested_rhat_from_sorted, split_chain_stats_from_sorted
 from ..utils.indices import unique_indices
 from ..utils.layout import maybe_scalar
 from ..utils.profiling import annotate, host_sync
-from ..utils.split import split_chains_reshape
 from .comm import all_gather as _all_gather
 from .comm import all_reduce as _sum
 from .comm import all_reduce_max as _max
+from .comm import mesh_chains
 from .mesh import MeshConfig, canonical_host, shard_canonical
 from .ring_rank import (
     RING,
@@ -123,11 +121,6 @@ def _all_gather_chains(xb: torch.Tensor, cfg: MeshConfig) -> torch.Tensor:
     return out.permute(1, 0, 2, 3).reshape(d, k * c_loc, p)
 
 
-def _my_chains(full: torch.Tensor, cfg: MeshConfig, c_loc: int):
-    i = cfg.chain_index
-    return full[:, i * c_loc:(i + 1) * c_loc]
-
-
 def gather_params(values: torch.Tensor, cfg: MeshConfig) -> torch.Tensor:
     """``(..., P_local)`` results of every parameter block laid side by
     side: ``(..., P)``, the same on every rank."""
@@ -136,116 +129,29 @@ def gather_params(values: torch.Tensor, cfg: MeshConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# moments and the basic pipeline
-# ---------------------------------------------------------------------------
-
-
-def _global_degenerate(vmin, vmax, group) -> torch.Tensor:
-    """``(P,)`` True where the global min equals the global max, from one
-    MAX all-reduce of the local max and -min. A slice holding a NaN is NaN
-    whatever this says."""
-    flags = _max(torch.stack([vmax, -vmin]), group)
-    return flags[0] == -flags[1]
-
-
-def _all_same(samples: torch.Tensor, group) -> torch.Tensor:
-    """``(P,)`` True where every element of the ``(n, c, P)`` slices, on
-    every rank, is one value."""
-    return _global_degenerate(samples.amin((0, 1)), samples.amax((0, 1)),
-                              group)
-
-
-def _chain_moments(samples: torch.Tensor):
-    """Per split chain of ``(niter, c, P)``: ``(mean, centered, var)``."""
-    chain_mean = samples.mean(0)
-    centered = samples - chain_mean[None]
-    return chain_mean, centered, (centered * centered).sum(0) / (
-        samples.shape[0] - 1)
-
-
-def _pooled(chain_mean, chain_var, niter: int, degenerate, cfg: MeshConfig):
-    """W and var_plus across every rank's split chains (the all-reduce
-    algebra of ``stats_from_chain_moments``), var_plus NaN where
-    ``degenerate``."""
-    g = cfg.chain_group
-    nchains = chain_mean.shape[0] * cfg.chain_shards
-    sums = _sum(torch.stack([chain_var.sum(0), chain_mean.sum(0)]), g)
-    w, grand = sums[0] / nchains, sums[1] / nchains
-    dm = chain_mean - grand[None]
-    if nchains > 1:
-        between = _sum((dm * dm).sum(0), g) / (nchains - 1)
-    else:
-        between = torch.zeros_like(grand)
-    var_plus = (niter - 1) / niter * w + between
-    return w, torch.where(degenerate, torch.nan, var_plus)
-
-
-def _split_rhat(z3, split_chains: int, cfg: MeshConfig, bad):
-    """Basic split R-hat of a transform in (draw, chain) order, NaN where
-    ``bad``."""
-    samples = split_chains_reshape(z3, split_chains)
-    chain_mean, _, chain_var = _chain_moments(samples)
-    w, var_plus = _pooled(chain_mean, chain_var, samples.shape[0],
-                          _all_same(samples, cfg.chain_group), cfg)
-    return torch.where(bad, torch.nan, torch.sqrt(var_plus / w))
-
-
-def _sharded_basic(xb, cfg: MeshConfig, *, split_chains, maxlag, method,
-                   relative):
-    """Basic ESS and R-hat of this rank's ``(draws, c, P)`` block."""
-    samples = split_chains_reshape(xb, split_chains)
-    niter, c_loc, _ = samples.shape
-    nchains = c_loc * cfg.chain_shards
-    chain_mean, centered, chain_var = _chain_moments(samples)
-    w, var_plus = _pooled(chain_mean, chain_var, niter,
-                          _all_same(samples, cfg.chain_group), cfg)
-    acov_local = mean_autocov_curve(centered, chain_var, maxlag, method)
-    acov = _sum(acov_local * c_loc, cfg.chain_group) / nchains
-    rho = 1.0 - (w[None] - acov) / var_plus[None]
-    return (geyer_ess_from_rho(rho, niter * nchains, relative),
-            torch.sqrt(var_plus / w))
-
-
-def _tail_ess(xb, t_lo, t_hi, cfg, basic):
-    """Tail ESS: the two quantile-indicator proxies as one 2P-wide basic
-    pipeline (one autocovariance all-reduce, not two)."""
-    p = xb.shape[2]
-    proxies = torch.cat([_indicator_leq(xb, t_lo), _indicator_leq(xb, t_hi)],
-                        dim=2)
-    ess2, _ = _sharded_basic(proxies, cfg, **basic)
-    return torch.minimum(ess2[:p], ess2[p:])
-
-
-def _tail_probs(q):
-    tail_prob = 0.1 if q is None else q
-    return tail_prob / 2, 1 - tail_prob / 2
-
-
-# ---------------------------------------------------------------------------
 # gather rank transform
 # ---------------------------------------------------------------------------
 
 
 def _gather_kernel(xb, cfg, kind, basic, q):
+    """The in-core rank transforms on the gathered sample, the same on every
+    rank; the ESS of this rank's chains of it."""
     if kind == "basic":
-        return _sharded_basic(xb, cfg, **basic)
-    c_loc = xb.shape[1]
+        return basic_ess_rhat(xb, **basic)
+    c_loc, split = xb.shape[1], basic["split_chains"]
+    mine = slice(cfg.chain_index * c_loc, (cfg.chain_index + 1) * c_loc)
     full = _all_gather_chains(xb, cfg)
     if kind == "bulk":
-        z = _my_chains(rank_normalize(full), cfg, c_loc)
-        return _sharded_basic(z, cfg, **basic)
+        z = bulk_transform(full, "exact", DEFAULT_NBINS)
+        return basic_ess_rhat(z[:, mine], **basic)
     # one sort of the gathered sample serves the thresholds, the median and
-    # both transforms; the tail R-hat is the same on every rank
-    xs, order, bad = sort_with_positions(full)
-    med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
-    rhat_tail = _tail_rhat_from_sort(xs, order, med, bad, full.shape,
-                                     basic["split_chains"])
+    # both transforms
     if kind == "tail":
-        t_lo, t_hi = (torch.where(bad, torch.nan, sorted_quantile(xs, p))
-                      for p in _tail_probs(q))
-        return _tail_ess(xb, t_lo, t_hi, cfg, basic), rhat_tail
-    z = rank_normalize_from_sort(xs, order, bad).reshape(full.shape)
-    ess, rhat_bulk = _sharded_basic(_my_chains(z, cfg, c_loc), cfg, **basic)
+        t_lo, t_hi, rhat_tail = tail_parts(full, q, "exact", DEFAULT_NBINS,
+                                           split)
+        return tail_ess(xb, t_lo, t_hi, **basic), rhat_tail
+    z, rhat_tail = bulk_tail_transforms(full, "exact", DEFAULT_NBINS, split)
+    ess, rhat_bulk = basic_ess_rhat(z[:, mine], **basic)
     return ess, torch.maximum(rhat_tail, rhat_bulk)
 
 
@@ -262,16 +168,16 @@ def _ring_rank_parts(xb, cfg: MeshConfig, ps):
     NaN-poisoned rows."""
     d, c_loc, _ = xb.shape
     g = cfg.chain_group
-    with annotate(RING):
-        xs, order, nan = sort_with_positions(xb)
-    bad = _max(nan.to(xs.dtype), g) > 0
-    t, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
     ntot = d * c_loc * cfg.chain_shards
     with annotate(RING):
+        xs, order, nan = sort_with_positions(xb)
+        bad = _max(nan.to(xs.dtype), g) > 0
+        t, gpos = ring_rank_counts(xs, g, cfg.chain_index, cfg.chain_shards)
         z_sorted = rank_normal_from_counts(t, ntot, xs.dtype)
         del t
-    quants = quantiles_from_positions(xs, gpos, ntot, ps, g)
-    return xs, order, z_sorted, torch.where(bad[None], torch.nan, quants), bad
+        quants = quantiles_from_positions(xs, gpos, ntot, ps, g)
+        return (xs, order, z_sorted,
+                torch.where(bad[None], torch.nan, quants), bad)
 
 
 def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
@@ -282,41 +188,29 @@ def _ring_fold(xs, order, med, cfg: MeshConfig, ntot: int):
         fs, fidx = sort_rows(torch.abs(xs - med[:, None]))
         forder = order.gather(1, fidx)
         del fidx
-    t, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
-                            cfg.chain_shards, positions=False)
-    with annotate(RING):
+        t, _ = ring_rank_counts(fs, cfg.chain_group, cfg.chain_index,
+                                cfg.chain_shards, positions=False)
         return rank_normal_from_counts(t, ntot, xs.dtype), forder
-
-
-def _ring_tail_rhat(xs, order, med, bad, shape3, split: int,
-                    cfg: MeshConfig):
-    """Tail R-hat by a second ring pass on the folded values: this rank's
-    split-chain moments straight off its fold sort, the cross-chain algebra
-    in SUM / MAX all-reduces."""
-    d, c_loc, _ = shape3
-    zf, forder = _ring_fold(xs, order, med, cfg,
-                            d * c_loc * cfg.chain_shards)
-    cm, cv, vmin, vmax = split_chain_moments(zf, forder, d, c_loc, split)
-    w, var_plus = _pooled(cm, cv, d // split,
-                          _global_degenerate(vmin, vmax, cfg.chain_group), cfg)
-    return torch.where(bad, torch.nan, torch.sqrt(var_plus / w))
 
 
 def _ring_kernel(xb, cfg, kind, basic, q):
     d, c_loc, p = xb.shape
-    split = basic["split_chains"]
-    ps = _tail_probs(q) + (0.5,) if kind == "tail" else (0.5,)
+    ps = (q / 2, 1 - q / 2, 0.5) if kind == "tail" else (0.5,)
     xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, ps)
 
-    def tail_rhat():
-        return _ring_tail_rhat(xs, order, quants[-1], bad, xb.shape, split,
-                               cfg)
+    def tail_rhat():  # a second ring pass, on the folded values
+        zf, forder = _ring_fold(xs, order, quants[-1], cfg,
+                                d * c_loc * cfg.chain_shards)
+        with annotate(RING):
+            stats = split_chain_stats_from_sorted(
+                zf, forder, d, c_loc, basic["split_chains"], basic["group"])
+            return torch.where(bad, torch.nan, stats.rhat)
 
     if kind == "tail":
-        return _tail_ess(xb, quants[0], quants[1], cfg, basic), tail_rhat()
+        return tail_ess(xb, quants[0], quants[1], **basic), tail_rhat()
     # the ESS needs the bulk values in (draw, chain) order: one scatter
     z = torch.where(bad[None], torch.nan, _unsort(z_sorted, order))
-    ess, rhat_bulk = _sharded_basic(z.reshape(d, c_loc, p), cfg, **basic)
+    ess, rhat_bulk = basic_ess_rhat(z.reshape(d, c_loc, p), **basic)
     if kind == "bulk":
         return ess, rhat_bulk
     return ess, torch.maximum(tail_rhat(), rhat_bulk)
@@ -383,19 +277,20 @@ def _sharded_fold_rank(xf, cdf: HistCDF, med, cfg, nbins: int):
 
 def _hist_kernel(xb, cfg, kind, basic, q, nbins: int):
     d, c_loc, p = xb.shape
-    split = basic["split_chains"]
     xf = xb.reshape(d * c_loc, p).contiguous()
     z, cdf = _sharded_fast_rank(xf, cfg, nbins)
     if kind == "tail":
-        t_lo, t_hi, med = hist_quantile(cdf, _tail_probs(q) + (0.5,), nbins)
-        ess = _tail_ess(xb, t_lo, t_hi, cfg, basic)
+        t_lo, t_hi, med = hist_quantile(cdf, (q / 2, 1 - q / 2, 0.5), nbins)
+        ess = tail_ess(xb, t_lo, t_hi, **basic)
     else:
         med = hist_quantile(cdf, (0.5,), nbins)[0]
-        ess, rhat_bulk = _sharded_basic(z.reshape(d, c_loc, p), cfg, **basic)
+        ess, rhat_bulk = basic_ess_rhat(z.reshape(d, c_loc, p), **basic)
         if kind == "bulk":
             return ess, rhat_bulk
     z_tail = _sharded_fold_rank(xf, cdf, med, cfg, nbins)
-    rhat_tail = _split_rhat(z_tail.reshape(d, c_loc, p), split, cfg, cdf.bad)
+    rhat_tail = torch.where(cdf.bad, torch.nan,
+                            basic_rhat(z_tail.reshape(d, c_loc, p),
+                                       basic["split_chains"], basic["group"]))
     if kind == "tail":
         return ess, rhat_tail
     return ess, torch.maximum(rhat_tail, rhat_bulk)
@@ -423,7 +318,7 @@ def _resolve_rank_impl(rank_impl: str, shape, itemsize: int, kind: str) -> str:
 def sharded_method(autocov_method) -> str:
     """The autocovariance method of the sharded path: ``"auto"`` (and the
     fused ``KernelAutocovMethod``) become kernel K5's direct estimator."""
-    method = _method_name(autocov_method)
+    method = method_name(autocov_method)
     return "direct" if method == "kernel" else method
 
 
@@ -432,11 +327,12 @@ def local_ess_rhat(xb, cfg: MeshConfig, *, kind: str, split_chains: int,
                    rank_nbins: int):
     """``(ess, rhat)`` of this rank's parameter block, ``(P_local,)`` each,
     from its ``(draws, chains / k, P_local)`` block; ``rank_impl`` resolved,
-    ``maxlag`` already clamped to ``niter - 4``."""
+    ``maxlag`` already clamped to ``niter - 4``, ``q`` the tail kind's
+    ``tail_prob``."""
     if kind not in _KINDS:
         raise ValueError(f"unsupported kind {kind!r}")
     basic = dict(split_chains=split_chains, maxlag=maxlag, method=method,
-                 relative=relative)
+                 relative=relative, group=mesh_chains(cfg))
     if rank_impl == "hist" and kind != "basic":
         return _hist_kernel(xb, cfg, kind, basic, q, rank_nbins)
     if rank_impl == "ring" and kind != "basic":
@@ -466,7 +362,7 @@ def ess_rhat_sharded(samples, cfg: MeshConfig, *, kind: str = "rank",
     if kind not in _KINDS:
         raise ValueError(
             f"the `kind` `{kind}` is not supported by `ess_rhat_sharded`")
-    _check_maxlag(maxlag)
+    check_maxlag(maxlag)
     x3, pshape = canonical_host(samples)
     niter = x3.shape[0] // split_chains
     if niter <= 4:
@@ -488,51 +384,14 @@ def ess_rhat_sharded(samples, cfg: MeshConfig, *, kind: str = "rank",
 # ---------------------------------------------------------------------------
 
 
-def _nested_rhat_dist(chain_mean, chain_var, nsuper_local: int,
-                      cfg: MeshConfig, degenerate, rows=None):
-    """Nested R-hat from per-rank split-chain moments ``(C_local, P)``,
-    superchains whole on their rank and contiguous (or made so by ``rows``,
-    the moments' order): the within level reduces locally, the across level
-    is SUM all-reduces (src/rhat_nested.jl:144-185); NaN where
-    ``degenerate``."""
-    g = cfg.chain_group
-    nsuper = nsuper_local * cfg.chain_shards
+def _nested_from_sort(values_sorted, positions, *, shape, split: int,
+                      nsuper: int, group, rows, bad):
+    """Nested R-hat of a transform's values in sorted order, by the positions
+    the sort carries in a sample of ``shape``; NaN where ``bad``."""
     with annotate(NESTED):
-        if rows is not None:
-            chain_mean, chain_var = chain_mean[rows], chain_var[rows]
-        ctot_loc, nparams = chain_mean.shape
-        m = ctot_loc // nsuper_local
-        cm = chain_mean.reshape(nsuper_local, m, nparams)
-        cv = chain_var.reshape(nsuper_local, m, nparams)
-        wk = cv.mean(1)
-        sm = cm.mean(1)
-        if m > 1:
-            dm = cm - sm[:, None]
-            bk = (dm * dm).sum(1) / (m - 1)
-        else:
-            bk = torch.zeros_like(wk)
-        part = torch.stack([(wk + bk).sum(0), sm.sum(0)])
-    sums = _sum(part, g)
-    with annotate(NESTED):
-        var_within, grand = sums[0] / nsuper, sums[1] / nsuper
-        ds = sm - grand[None]
-        part = (ds * ds).sum(0)
-    var_between = _sum(part, g)
-    with annotate(NESTED):
-        var_between = torch.where(degenerate, torch.nan,
-                                  var_between / (nsuper - 1))
-        return torch.sqrt(1.0 + var_between / var_within)
-
-
-def _nested_split(z3, nsuper_local: int, split: int, cfg: MeshConfig, rows):
-    """Nested R-hat of a block in (draw, chain) order."""
-    with annotate(NESTED):
-        samples = split_chains_reshape(z3, split)
-        chain_mean, _, chain_var = _chain_moments(samples)
-        vmin, vmax = samples.amin((0, 1)), samples.amax((0, 1))
-    return _nested_rhat_dist(chain_mean, chain_var, nsuper_local, cfg,
-                             _global_degenerate(vmin, vmax, cfg.chain_group),
-                             rows)
+        r = nested_rhat_from_sorted(values_sorted, positions, shape[0],
+                                    shape[1], split, nsuper, group, rows)
+        return torch.where(bad, torch.nan, r)
 
 
 def _nested_gather(xb, cfg, kind, nsuper: int, split: int, rows):
@@ -541,33 +400,23 @@ def _nested_gather(xb, cfg, kind, nsuper: int, split: int, rows):
     neither routed back to (draw, chain) order. ``rows``: the global split
     chains' order that makes superchains contiguous (None: they are)."""
     full = _all_gather_chains(xb, cfg)
-    d, c, _ = full.shape
-
-    def nested(values_sorted, positions):
-        with annotate(NESTED):
-            cm, cv, vmin, vmax = split_chain_moments(values_sorted, positions,
-                                                     d, c, split)
-            if rows is not None:
-                cm, cv = cm[rows], cv[rows]
-            r = _nested_from_moments(cm, cv, nsuper, vmin == vmax)
-            return torch.where(bad, torch.nan, r)
-
     with annotate("mdt.rank.exact"):
         xs, order, bad = sort_with_positions(full)
-        if kind != "tail":
+    nested = partial(_nested_from_sort, shape=full.shape, split=split,
+                     nsuper=nsuper, group=ONE_CARD, rows=rows, bad=bad)
+
+    def bulk():
+        with annotate("mdt.rank.exact"):
             z = tied_blom(xs)
-    if kind != "tail":
-        bulk = nested(z, order)
-        del z
-        if kind == "bulk":
-            return bulk
-    with annotate("mdt.rank.exact"):
-        med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
-        zf, forder = folded_rank_values_sorted(xs, order, med)
-    tail = nested(zf, forder)
-    if kind == "tail":
-        return tail
-    return torch.maximum(bulk, tail)
+        return nested(z, order)
+
+    def tail():
+        with annotate("mdt.rank.exact"):
+            med = torch.where(bad, torch.nan, sorted_quantile(xs, 0.5))
+            zf, forder = folded_rank_values_sorted(xs, order, med)
+        return nested(zf, forder)
+
+    return by_kind(kind, bulk, tail)
 
 
 def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int, rows):
@@ -575,27 +424,14 @@ def _nested_ring(xb, cfg, kind, nsuper_local: int, split: int, rows):
     straight off this rank's sorts."""
     d, c_loc, _ = xb.shape
     xs, order, z_sorted, quants, bad = _ring_rank_parts(xb, cfg, (0.5,))
-
-    def nested(values_sorted, positions):
-        with annotate(NESTED):
-            cm, cv, vmin, vmax = split_chain_moments(values_sorted,
-                                                     positions, d, c_loc,
-                                                     split)
-        r = _nested_rhat_dist(cm, cv, nsuper_local, cfg,
-                              _global_degenerate(vmin, vmax, cfg.chain_group),
-                              rows)
-        return torch.where(bad, torch.nan, r)
-
-    if kind != "tail":
-        bulk = nested(z_sorted, order)
-        del z_sorted
-        if kind == "bulk":
-            return bulk
-    tail = nested(*_ring_fold(xs, order, quants[0], cfg,
-                              d * c_loc * cfg.chain_shards))
-    if kind == "tail":
-        return tail
-    return torch.maximum(bulk, tail)
+    nested = partial(_nested_from_sort, shape=(d, c_loc), split=split,
+                     nsuper=nsuper_local, group=mesh_chains(cfg), rows=rows,
+                     bad=bad)
+    held = [z_sorted]  # the bulk values, let go before the fold's are made
+    del z_sorted
+    return by_kind(kind, lambda: nested(held.pop(), order),
+                   lambda: nested(*_ring_fold(xs, order, quants[0], cfg,
+                                              d * c_loc * cfg.chain_shards)))
 
 
 def _nested_hist(xb, cfg, kind, nsuper_local: int, split: int, nbins: int,
@@ -603,20 +439,19 @@ def _nested_hist(xb, cfg, kind, nsuper_local: int, split: int, nbins: int,
     """Ranks by the distributed histogram (K3, one all-reduce, K4)."""
     d, c_loc, p = xb.shape
     xf = xb.reshape(d * c_loc, p).contiguous()
-
-    def nested(z, bad):
-        r = _nested_split(z.reshape(d, c_loc, p), nsuper_local, split, cfg,
-                          rows)
-        return torch.where(bad, torch.nan, r)
-
     z, cdf = _sharded_fast_rank(xf, cfg, nbins)
-    if kind == "bulk":
-        return nested(z, cdf.bad)
-    med = hist_quantile(cdf, (0.5,), nbins)[0]
-    tail = nested(_sharded_fold_rank(xf, cdf, med, cfg, nbins), cdf.bad)
-    if kind == "tail":
-        return tail
-    return torch.maximum(nested(z, cdf.bad), tail)
+
+    def nested(values):
+        with annotate(NESTED):
+            r = nested_rhat_split(values.reshape(d, c_loc, p), nsuper_local,
+                                  split, mesh_chains(cfg), rows)
+            return torch.where(cdf.bad, torch.nan, r)
+
+    def tail():
+        med = hist_quantile(cdf, (0.5,), nbins)[0]
+        return nested(_sharded_fold_rank(xf, cdf, med, cfg, nbins))
+
+    return by_kind(kind, lambda: nested(z), tail)
 
 
 def _local_superchains(superchain_ids, c_loc: int, cfg: MeshConfig):
@@ -631,7 +466,7 @@ def _local_superchains(superchain_ids, c_loc: int, cfg: MeshConfig):
         raise ValueError(
             f"`superchain_ids` has length {ids.size} but the mesh's "
             f"{k} chain shards hold {c_loc} chains each ({c_loc * k})")
-    perm, nsuper = _validate_superchain_ids(ids, c_loc * k)
+    perm, nsuper = validate_superchain_ids(ids, c_loc * k)
     groups = perm.reshape(nsuper, -1)
     owner = groups // c_loc
     split = np.flatnonzero((owner != owner[:, :1]).any(1))
@@ -700,7 +535,9 @@ def rhat_nested_local(block, superchain_ids, cfg: MeshConfig, *,
         else:
             rows = _moment_rows(lperm, split_chains, block.device)
             if kind == "basic":
-                r = _nested_split(block, nsuper_local, split_chains, cfg, rows)
+                with annotate(NESTED):
+                    r = nested_rhat_split(block, nsuper_local, split_chains,
+                                          mesh_chains(cfg), rows)
             elif impl == "hist":
                 r = _nested_hist(block, cfg, kind, nsuper_local, split_chains,
                                  rank_nbins, rows)
@@ -724,7 +561,7 @@ def rhat_nested_sharded(samples, superchain_ids, cfg: MeshConfig, *,
     :func:`ess_rhat_sharded`.
     """
     x3, pshape = canonical_host(samples, min_ndim=2)
-    perm, nsuper = _validate_superchain_ids(superchain_ids, x3.shape[1])
+    perm, nsuper = validate_superchain_ids(superchain_ids, x3.shape[1])
     kshards = cfg.chain_shards
     if nsuper % kshards:
         raise ValueError(

@@ -30,9 +30,10 @@ The diagnostics open these regions (names, outermost first):
 The layer regions (every region above but the calls and ``mdt.sync.*``)
 do not nest in each other; a ``mdt.sync.*`` region may sit inside one. On
 a mesh a layer region closes before a collective and opens again after
-it. Every device operation of a public call on these paths is
-launched inside one of them, or inside the call's own region (its last
-elementwise step and the results' shape).
+it (:func:`comm_region`), so that callers open one region around work
+that holds collectives. Every device operation of a public call on these
+paths is launched inside one of them, or inside the call's own region (its
+last elementwise step and the results' shape).
 
 The JAX package's third hook, ``enable_compilation_cache``, persists XLA's
 compiled programs and has no counterpart: the port compiles no programs at
@@ -58,6 +59,37 @@ from torch.profiler import ProfilerActivity
 _OFF = contextlib.nullcontext()
 _SYNCS: dict[str, int] = {}
 _COMM: dict[str, dict[str, int]] = {}
+CALLS = ("mdt.ess_rhat", "mdt.ess", "mdt.rhat", "mdt.rhat_nested")
+_OPEN: list = []  # the open regions but the calls', innermost last
+_RF = torch.profiler.record_function
+
+
+class _Region(_RF):
+    """A region, on ``_OPEN`` while it is open unless it is a call's."""
+
+    def __enter__(self):
+        if self.name not in CALLS:
+            _OPEN.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if self.name not in CALLS:
+            _OPEN.pop()
+
+
+@contextlib.contextmanager
+def _between(name: str):
+    """The region ``name`` with the regions of ``_OPEN`` closed around it."""
+    closed = _OPEN[::-1]
+    for region in closed:
+        _RF.__exit__(region, None, None, None)
+    try:
+        with _RF(name):
+            yield
+    finally:
+        for region in reversed(closed):
+            _RF.__enter__(region)
 
 
 @contextlib.contextmanager
@@ -82,7 +114,15 @@ def annotate(name: str):
     """A named region for profiles: ``with annotate("mdt.fold"): ...``; the
     shared no-op context while no profiler runs."""
     if _autograd_profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
+        return _Region(name)
+    return _OFF
+
+
+def comm_region():
+    """``mdt.comm``, a collective's region, with the open layer regions
+    closed around it; the shared no-op context while no profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _between("mdt.comm")
     return _OFF
 
 

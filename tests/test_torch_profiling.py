@@ -2,8 +2,9 @@
 writes a TensorBoard trace of its block into the directory it is given, an
 ``annotate`` region shows up by name among the profiler's events and costs
 a shared no-op while no profiler runs, the diagnostics open their layer
-regions (``mdt.*``) in order and unnested, and ``host_sync`` counts each
-pass through a host-sync site."""
+regions (``mdt.*``) in order and unnested, a collective closes the layer
+regions open around it, and ``host_sync`` counts each pass through a
+host-sync site."""
 
 import json
 
@@ -193,6 +194,44 @@ def test_annotate_is_a_shared_no_op_without_a_profiler():
     assert inside is not a
     assert isinstance(inside, torch.profiler.record_function)
     assert profiling.annotate("mdt.a") is a
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo process group of this process alone."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def test_comm_closes_the_layer_regions_around_a_collective(world_of_one):
+    """A layer region open across ``comm.all_reduce`` shows as two
+    instances, ``mdt.comm`` between them and in neither, all three in the
+    call's region; after the block no region is left open."""
+    from mcmcdiagnostictools_jl_tpu_torch.parallel import comm
+
+    def call():
+        with profiling.annotate("mdt.rhat_nested"):
+            with profiling.annotate("mdt.nested"):
+                t = torch.ones(3) * 2
+                comm.all_reduce(t, world_of_one)
+                return t + 1
+
+    assert call().tolist() == [3.0, 3.0, 3.0]  # no profiler running
+    got = _regions(call)
+    assert [(name, above) for name, above in got] == [
+        ("mdt.rhat_nested", []),
+        ("mdt.nested", ["mdt.rhat_nested"]),
+        ("mdt.comm", ["mdt.rhat_nested"]),
+        ("mdt.nested", ["mdt.rhat_nested"])]
+    assert profiling._OPEN == []
+    a, b = profiling.annotate("mdt.nested"), profiling.comm_region()
+    assert a is b  # the shared no-op, with no profiler
 
 
 def test_host_sync_counts_without_a_profiler():

@@ -17,7 +17,9 @@ absolute of the JAX package's and of the port's in-core fast mode (float32
 bin moments summed across ranks in another order), as
 ``tests/test_torch_fastrank.py`` holds the fast mode; the histogram kinds
 against the exact ones as ``tests/test_sharded.py`` holds them (ESS 1e-3
-relative, R-hat 1e-4 absolute; discrete data 1e-9).
+relative, R-hat 1e-4 absolute; discrete data 1e-9). The chain group's
+cross-chain algebra (``ops.moments``) on a world of two, each rank holding
+half of the chains, within 1e-12 relative of one card's on all of them.
 """
 
 import functools
@@ -90,6 +92,16 @@ def _make_inputs():
 
 
 X = _make_inputs()
+# the chain group's algebra: 8 chains, two ranks of 4 (2 superchains each);
+# parameter 1 constant (degenerate), 2 with a NaN, 3 constant on rank 0's
+# chains only (degenerate there, not over the group)
+_GROUP = np.random.default_rng(SEED + 2).standard_normal((60, 8, 4))
+_GROUP[:, :, 1] = 0.5
+_GROUP[11, 6, 2] = np.nan
+_GROUP[:, :4, 3] = -2.0
+X["group"] = _GROUP
+GROUP_ALGEBRA = ["w", "var_plus", "rhat", "basic_ess", "basic_rhat",
+                 "nested", "nested_rows", "nested_split"]
 IDS = {"nested": np.repeat(np.arange(8), 2), "uneven": np.repeat(np.arange(3), 2),
        "nested_ring": np.repeat(np.arange(8), 4)}
 
@@ -107,6 +119,8 @@ def _calls():
     calls = {layout: [_ess(f"x-{k}", "x", kind=k) for k in KINDS]
              for layout in LAYOUTS}
     calls[(1, 1)] = [_ess("small-rank", "small", kind="rank")]
+    calls[(2, 1)] = [("group", "chain_group_algebra", [X["group"], 4, MESH],
+                      {})]
     calls[(8, 1)] += [
         _ess("const-basic", "const", kind="basic"),
         _ess("odd-split3", "odd", kind="basic", split_chains=3),
@@ -191,6 +205,30 @@ def test_make_mesh_needs_a_process_group():
     for device_type in ("cuda", "cpu"):
         with pytest.raises(RuntimeError, match="process group"):
             mtt.parallel.make_mesh(device_type=device_type)
+
+
+@pytest.mark.parametrize("name", GROUP_ALGEBRA)
+def test_mesh_chain_group_matches_one_card(port, name):
+    """On a gloo world of two, each rank holding half of the chains, the
+    mesh's chain group gives what one card's gives on all of them: the
+    split-chain pooling, the basic ESS/R-hat and nested R-hat, NaN where a
+    parameter is degenerate over the group or holds a NaN."""
+    got = port((2, 1), "group")
+    mesh, one = got["mesh"][name], got["one_card"][name]
+    assert_close(mesh, one, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(np.isnan(mesh), np.isnan(one))
+    if name not in ("w", "basic_ess"):  # W and the ESS of a constant
+        assert np.isnan(mesh[[1, 2]]).all() and np.isfinite(mesh[[0, 3]]).all()
+
+
+@pytest.mark.parametrize("flag", ["all_same", "same"])
+def test_mesh_chain_group_degeneracy_flag(port, flag):
+    """The group-wide flag, from the sample and from a min and a max:
+    parameter 1 alone is one value over the group (3 is on one rank)."""
+    got = port((2, 1), "group")
+    want = np.array([False, True, False, False])
+    np.testing.assert_array_equal(got["mesh"][flag], want)
+    np.testing.assert_array_equal(got["one_card"][flag], want)
 
 
 @needs8

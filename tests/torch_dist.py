@@ -156,6 +156,47 @@ def sharded_rstar_mean(x, rng, **clf_kw):
                        rng=rng).mean())
 
 
+def chain_group_algebra(x, nsuper, cfg):
+    """The cross-chain algebra on this rank's even share of the chains of
+    ``x`` ``(n, C, P)`` with the mesh's chain group, and on all of them
+    with one card's: ``{"mesh": results, "one_card": results}``, each the
+    flags, ``stats_from_chain_moments``' W, var_plus and R-hat, the basic
+    ESS and R-hat (direct estimator) and nested R-hat over ``nsuper``
+    superchains of contiguous chains (from the moments, from moments in
+    reversed order with the ``rows`` that restore it, and from the
+    sample)."""
+    from mcmcdiagnostictools_jl_tpu_torch.diagnostics.ess_rhat import (
+        basic_ess_rhat,
+    )
+    from mcmcdiagnostictools_jl_tpu_torch.ops import moments
+    from mcmcdiagnostictools_jl_tpu_torch.parallel.comm import mesh_chains
+
+    full = torch.as_tensor(x)
+    k, i = cfg.chain_shards, cfg.chain_index
+    c = full.shape[1] // k
+    out = {}
+    for name, group, xs, ns in (
+            ("mesh", mesh_chains(cfg), full[:, i * c:(i + 1) * c], nsuper // k),
+            ("one_card", moments.ONE_CARD, full, nsuper)):
+        mean, _, var = moments.chain_moments(xs)
+        same = group.all_same(xs)
+        stats = moments.stats_from_chain_moments(mean, var, xs.shape[0],
+                                                 same, group)
+        back = torch.arange(xs.shape[1] - 1, -1, -1)
+        ess, rhat = basic_ess_rhat(xs, 2, 20, "direct", False, group)
+        out[name] = {
+            "all_same": same,
+            "same": group.same(xs.amin((0, 1)), xs.amax((0, 1))),
+            "w": stats.w, "var_plus": stats.var_plus, "rhat": stats.rhat,
+            "basic_ess": ess, "basic_rhat": rhat,
+            "nested": moments.nested_rhat(mean, var, ns, same, group),
+            "nested_rows": moments.nested_rhat(mean.flip(0), var.flip(0), ns,
+                                               same, group, rows=back),
+            "nested_split": moments.nested_rhat_split(xs, ns, 2, group),
+        }
+    return out
+
+
 def on_own_block(target, x, ids, cfg, **kwargs):
     """The port's rank-local ``target`` (``"parallel.rhat_nested_local"``)
     called with this rank's own block of the global ``x`` (its chains and
