@@ -41,7 +41,10 @@ and exits nonzero, printing no result, if any phase fails:
    sharded cell's block (50, 6.25M) of sorted normals against another and
    on the sorted rows phase 16's ring counts against the same rows on a
    grid of 1/4, timed at the block beside its bounds, its plain version
-   and ``torch.searchsorted``; then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
+   and ``torch.searchsorted``; K15 (the ring's Blom scores from its counts)
+   bit for bit its plain version's at the cell's block with n = 25M and on
+   every count of a short row, timed beside its bound and the plain
+   passes; then K1 and K5 at lag counts on both sides of a block's span (maxlag 0,
    64, 65, 250, 255, 256, 300), at a draw count off every tile, at series
    counts off 32 and off 4, and at ``maxlag >= niter``;
 4. end to end: ``ess_rhat(x, kind="rank")`` in the fast and exact rank modes
@@ -123,7 +126,8 @@ and exits nonzero, printing no result, if any phase fails:
     16 superchains at 10k x 128 x 256, each with its launches counted from
     0 (hist: K3 and K4 twice, every ``ess_rhat_sharded`` call K5, gather and
     ring K11 once (nested: twice), gather K12 twice, ring K14 twice (the
-    one shard's own block, bulk and fold), K1, K2 and K10 never),
+    one shard's own block, bulk and fold) and K15 twice (the scores of
+    both), K1, K2 and K10 never),
     its wall beside
     the in-core call's and its largest differences
     from the in-core results (ESS 1e-3 relative, R-hat 1e-4 absolute; ring
@@ -930,6 +934,63 @@ def phase_k14(x3: torch.Tensor) -> dict:
                 library_ms=lib_ms, shape=list(K14_CELL_BLOCK),
                 ring_rows=list(ring_shape), mode_ms=ms, mode_bound_ms=bound,
                 launch_ms=pieces)
+
+
+# the sharded cell's rows of the chain group: 625 chains x 10,000 draws on
+# each of four cards
+K15_ROW_N = 4 * K14_CELL_BLOCK[1]
+
+
+def phase_k15() -> dict:
+    """K15 (the ring route's Blom scores from its counts) bit for bit its
+    plain version's (``blom_scores(t + 1, n)``) on every count of a row of
+    1000 entries and 1-7 entries past a multiple of 4, and at the sharded
+    cell's block (50, 6.25M) of one rank of four (n = 25M: counts ``2 gpos
+    + 1``, ``gpos = 4 j + r``); then timed there (behind the timer's queue,
+    fresh counts each call) beside its bound (8 B an entry, as
+    ``k15_roofline`` counts it), the plain passes it replaces and an int32
+    ``add_`` in place (the library's elementwise rate on the same bytes)."""
+    from mcmcdiagnostictools_jl_tpu_torch import kernels
+    from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
+
+    def both(t, n):
+        want = k12.blom_scores(t + 1, n, torch.float32)
+        before = kernels.launch_counts()["K15"]
+        got = k12.blom_from_counts(t.clone(), n)
+        check(kernels.launch_counts()["K15"] == before + 1,
+              "[3 K15] did not launch once")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"[3 K15] differs from its plain version at n={n}, "
+              f"{t.numel()} counts")
+
+    short = torch.arange(2001, dtype=torch.int32, device="cuda")
+    for length in (2001, 1, 2, 3, 5, 6, 7, 1995):
+        both(short[:length], 1000)
+    p, n_loc = K14_CELL_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    t0 = (8 * torch.arange(n_loc, dtype=torch.int32, device="cuda")
+          + 2 * torch.randint(0, 4, K14_CELL_BLOCK, generator=g,
+                              dtype=torch.int32, device="cuda") + 1)
+    both(t0, K15_ROW_N)
+    buf = torch.empty_like(t0)
+
+    def fresh():
+        buf.copy_(t0)
+        return (buf,)
+
+    ms = time_ms(lambda b: k12.blom_from_counts(b, K15_ROW_N), setup=fresh)
+    plain_ms = time_ms(lambda b: k12.blom_scores(b.add_(1), K15_ROW_N,
+                                                 torch.float32), setup=fresh)
+    lib_ms = time_ms(lambda b: b.add_(1), setup=fresh)
+    bound = roofline(p * n_loc * 8)
+    del t0, buf
+    print(f"[3 K15 blom_from_counts] bit for bit its plain version's on every "
+          f"count of a row of 1000 and at the cell's block {K14_CELL_BLOCK}, "
+          f"n = {K15_ROW_N}: {ms:.3f} ms (bound {bound['bound_ms']:.3f}, "
+          f"{bound['bound_ms'] / ms:.0%}); plain passes {plain_ms:.3f} ms; "
+          f"int32 add_ in place {lib_ms:.3f} ms")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                shape=list(K14_CELL_BLOCK), row_n=K15_ROW_N, **bound)
 
 
 # K1 and K5 in float32 sums of another order than their plain versions,
@@ -2382,7 +2443,8 @@ def check_launches(tag: str, counts: dict, want: dict) -> None:
     """Each kernel of ``want`` ran exactly that often (None: at least once);
     K1, K2 and K10 (not on the sharded path) never."""
     shown = {k: counts[k] for k in ("K1", "K2", "K3", "K4", "K4z", "K5",
-                                    "K10", "K11", "K12", "K13", "K14")}
+                                    "K10", "K11", "K12", "K13", "K14",
+                                    "K15")}
     print(f"   {tag} launches: {shown}")
     for kid, n in {"K1": 0, "K2": 0, "K10": 0, **want}.items():
         ok = counts[kid] >= 1 if n is None else counts[kid] == n
@@ -2423,11 +2485,12 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
         print(f"{tag} wall {wall:.4f} s (first call {first:.3f} s); in-core "
               f"{mode} {in_core_walls[mode]:.4f} s")
         check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": None, "K11": 0,
-                                     "K12": 0, "K14": 0}
+                                     "K12": 0, "K14": 0, "K15": 0}
                        if impl == "hist" else
                        {"K3": 0, "K4": 0, "K5": None, "K11": 1,
                         "K12": 2 if impl == "gather" else 0,
-                        "K14": 2 if impl == "ring" else 0})
+                        "K14": 2 if impl == "ring" else 0,
+                        "K15": 2 if impl == "ring" else 0})
         for v in res:
             check(v.shape == (PARAMS,) and v.device.type == "cuda"
                   and bool(torch.isfinite(v).all()),
@@ -2445,7 +2508,8 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
             "in_core_wall_s": in_core_walls[mode], "ess_rel": ess_rel,
             "rhat_abs": rhat_abs,
             "launches": {k: counts[k] for k in ("K3", "K4", "K4z", "K5",
-                                                 "K11", "K12", "K14")}}
+                                                 "K11", "K12", "K14",
+                                                 "K15")}}
     ring, gather = results["ring"], results["gather"]
     rg_ess = float((ring.ess / gather.ess - 1).abs().max())
     rg_rhat = float((ring.rhat - gather.rhat).abs().max())
@@ -2468,11 +2532,12 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
               f"exact {nested_wall:.4f} s; R-hat abs vs in-core {err:.3e} "
               f"(bound {bound:.0e}{', the fast mode' if impl == 'hist' else ''})")
         check_launches(tag, counts, {"K3": 2, "K4": 2, "K5": 0, "K11": 0,
-                                     "K12": 0, "K14": 0}
+                                     "K12": 0, "K14": 0, "K15": 0}
                        if impl == "hist" else
                        {"K3": 0, "K4": 0, "K5": 0, "K11": 2,
                         "K12": 2 if impl == "gather" else 0,
-                        "K14": 2 if impl == "ring" else 0})
+                        "K14": 2 if impl == "ring" else 0,
+                        "K15": 2 if impl == "ring" else 0})
         check(r.shape == (PARAMS,) and bool(torch.isfinite(r).all())
               and err <= bound, f"{tag}: != in-core")
         out["nested"][impl] = {"wall_s": wall, "first_call_s": first,
@@ -2490,7 +2555,7 @@ def phase_sharded(x3: torch.Tensor, fast, exact, in_core_walls: dict,
     tag = "[16 config 4 streamed onto the mesh]"
     check_launches(tag, counts, {"K3": 2 * stats.n_chunks,
                                  "K4": 2 * stats.n_chunks, "K5": None,
-                                 "K12": 0, "K14": 0})
+                                 "K12": 0, "K14": 0, "K15": 0})
     rhat_abs = float((res.rhat - streamed.rhat).abs().max())
     sums = {k: sum(getattr(stats, k)) for k in ("fetch_s", "h2d_s",
                                                "compute_s")}
@@ -2857,6 +2922,7 @@ def main() -> int:
     fold = phase_fold_kernels(x3)
     k13_row = phase_k13(x3)
     k14_row = phase_k14(x3)
+    k15_row = phase_k15()
     phase_lag_shapes()
     e2e = phase_end_to_end(x3, bad_param)
     phase_card_vs_cpu()
@@ -2921,22 +2987,27 @@ def main() -> int:
          "mcmcdiagnostictools_jl_tpu/ops/ranknorm.py:26"),
         ("K14 merge_count", src + "merge_count.cu",
          "mcmcdiagnostictools_jl_tpu/parallel/ring_rank.py:63"),
+        ("K15 blom_from_counts", src + "tied_ranks.cu",
+         "mcmcdiagnostictools_jl_tpu/parallel/ring_rank.py"
+         "::rank_normal_from_counts"),
     ]
     rows += [lag["rows"]["a"], lag["rows"]["b"]]
     rows += [sort["rows"][kid] for kid in ("K7", "K8", "K9")]
-    rows += fold["rows"] + [k13_row, k14_row]
+    rows += fold["rows"] + [k13_row, k14_row, k15_row]
     # K1-K4 launches: the fast ess_rhat call of phase 4; K5: the marker
     # calls of phase 6; K4z: the FUSE_BLOM_Z call of phase 7; K6: the
     # micro_lagloop runs of phase 9; K7-K9: the sort_microbench runs of
     # phase 10; K10-K13: the exact ess_rhat call of phase 4 (K1-K4 in
-    # the streamed run: "streaming" in the line above); K14: phase 16's
-    # ring ess_rhat_sharded call (a one-shard ring: its own block twice)
+    # the streamed run: "streaming" in the line above); K14 and K15: phase
+    # 16's ring ess_rhat_sharded call (a one-shard ring: its own block
+    # twice, the scores of each)
     launches = {**e2e["counts"], "K5": est["k5_launches"],
                 "K10": e2e["exact_counts"]["K10"],
                 "K11": e2e["exact_counts"]["K11"],
                 "K12": e2e["exact_counts"]["K12"],
                 "K13": e2e["exact_counts"]["K13"],
                 "K14": sharded["ess_rhat"]["ring"]["launches"]["K14"],
+                "K15": sharded["ess_rhat"]["ring"]["launches"]["K15"],
                 "K4z": fz["launches"], "K6a": lag["launches"]["a"],
                 "K6b": lag["launches"]["b"], **sort["launches"]}
     kernels_out = []

@@ -631,3 +631,95 @@ extern "C" int mdt_tied_ranks_place(const void* pairs, const int* cursor,
                                          cursor, bad, n, nb, out);
   return (int)cudaGetLastError();
 }
+
+// Kernel K15: the ring route's Blom scores from its counts, in one pass.
+//
+// Stands for the elementwise XLA of the JAX package's
+// `parallel/ring_rank.py::rank_normal_from_counts` (no Pallas kernel), which
+// the port ran as eleven PyTorch passes over the counts (`blom_scores`: the
+// int32 add, compare, subtract, minimum, product and difference, the cast,
+// the float product, `ndtri`, the negation and the `where`), ~94 B an entry.
+//
+// Input: t, `count` int32 entries of a rank's rows, each the twice-rank minus
+// one, 2 cl + ce, of its entry among the n entries of a row of the chain
+// group (kernels/mergecount.py). Output, over t's own storage: the float32
+// blom_score(t + 1, n, inv_b), bit for bit what the plain `blom_scores(t +
+// 1, n)` gives (the same integer numerator and the same ndtri as K12).
+//
+// What bounds it on an H100: 8 bytes an entry, the count read and the score
+// written (2.5 GB at the sharded cell's (50, 6.25M): 0.75 ms at 3.35 TB/s),
+// with ndtri an entry beside it (~50 instructions, a branch that follows the
+// rank: a row's counts ascend, so a warp's entries take one branch but where
+// a row crosses exp(-2) of either end). A score table (K12's, 2n + 1
+// entries) is no help here: at n = 25M it holds 200 MB, and each of a
+// rank's rows reads nearly all of it, one 32-byte sector every entry or two.
+// So: 16-byte loads and stores (a thread's four entries in one int4, out as
+// one float4, streaming: nothing is read again), a grid of
+// kCountBlocksPerSm blocks a multiprocessor walking the flat array with
+// kCountUnroll such loads in flight a thread, and the last count % 4 entries
+// one a thread. t must lie on a 16-byte boundary. At (50, 6.25M), n = 25M,
+// 1.00 ms (74 % of the bound; an int32 add_ in place, 0.83 ms): the shape
+// won an ablation of 4-byte, 8-byte and 16-byte accesses, 1, 2 and 4 loads
+// in flight, 4, 8 and 16 blocks an SM or one vector a thread, and the table
+// (3.9 ms); 31 registers, so 8 blocks of 256 fit an SM and the grid runs in
+// two waves (PERF.md, the kernel tables).
+
+namespace {
+
+constexpr int kCountThreads = 256;
+constexpr int kCountUnroll = 2;       // int4 loads in flight a thread
+constexpr int kCountBlocksPerSm = 16;  // the grid: blocks a multiprocessor
+
+__device__ __forceinline__ float4 blom_scores4(int4 t, int n, float inv_b) {
+  return make_float4(blom_score(t.x + 1LL, n, inv_b),
+                     blom_score(t.y + 1LL, n, inv_b),
+                     blom_score(t.z + 1LL, n, inv_b),
+                     blom_score(t.w + 1LL, n, inv_b));
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+blom_counts_kernel(int* t, long long count, int n, float inv_b) {
+  const long long nvec = count >> 2;
+  const int4* tv = reinterpret_cast<const int4*>(t);
+  float4* zv = reinterpret_cast<float4*>(t);
+  const long long span = (long long)kCountThreads * kCountUnroll;
+  for (long long v0 = blockIdx.x * span + threadIdx.x; v0 < nvec;
+       v0 += gridDim.x * span) {
+    int4 k[kCountUnroll];
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u) {
+      const long long v = v0 + u * kCountThreads;
+      k[u] = v < nvec ? __ldcs(tv + v) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u) {
+      const long long v = v0 + u * kCountThreads;
+      if (v < nvec) __stcs(zv + v, blom_scores4(k[u], n, inv_b));
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (int)(count & 3)) {
+    const long long i = 4 * nvec + threadIdx.x;
+    reinterpret_cast<float*>(t)[i] = blom_score(t[i] + 1LL, n, inv_b);
+  }
+}
+
+}  // namespace
+
+// t (count,) int32 on a 16-byte boundary, in place: the float32 Blom score
+// of each t + 1 in a row of n (K15)
+extern "C" int mdt_blom_counts(int* t, long long count, int n, float inv_b,
+                               void* stream) {
+  if (count <= 0) return 0;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const long long span = (long long)kCountThreads * kCountUnroll;
+  const long long need = ((count >> 2) + span - 1) / span;
+  const long long most = (long long)kCountBlocksPerSm * sms;
+  const int grid = (int)(need < 1 ? 1 : need < most ? need : most);
+  blom_counts_kernel<<<grid, kCountThreads, 0, (cudaStream_t)stream>>>(
+      t, count, n, inv_b);
+  return (int)cudaGetLastError();
+}

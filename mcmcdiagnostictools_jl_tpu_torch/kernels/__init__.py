@@ -16,6 +16,7 @@
 | K12 | ``tiedrank.tied_blom`` | ``ops/ranknorm.py::_avg_ranks_sorted`` + ``ndtri`` + the inverse sort (XLA, not a Pallas kernel) |
 | K13 | ``radix_sort.sort_rows``, ``radix_sort.sort_rows_keys`` (the keys alone) | ``ops/ranknorm.py::_sort_pair`` (``lax.sort``, XLA, not a Pallas kernel) |
 | K14 | ``mergecount.merge_count`` | ``parallel/ring_rank.py::_count_block`` (two sorts of the concatenation and run-boundary scans, XLA, not a Pallas kernel) |
+| K15 | ``tiedrank.blom_from_counts`` | ``parallel/ring_rank.py::rank_normal_from_counts`` (elementwise XLA, not a Pallas kernel) |
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that the main path went through
@@ -48,6 +49,7 @@ COUNTERS = {
     "K12": (tiedrank.tied_blom, "launches"),
     "K13": (radix_sort.sort_rows, "launches"),
     "K14": (mergecount.merge_count, "launches"),
+    "K15": (tiedrank.blom_from_counts, "launches"),
 }
 
 

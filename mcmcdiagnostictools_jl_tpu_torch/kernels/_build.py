@@ -60,6 +60,7 @@ _SIGNATURES = {
     "mdt_blom_table": (_I, _F, _P, _P),
     "mdt_tied_ranks": (_P, _P, _P, _I, _I, _I, _P, _F, _P, _P, _P, _P),
     "mdt_tied_ranks_place": (_P, _P, _P, _I, _I, _P, _P),
+    "mdt_blom_counts": (_P, _L, _I, _F, _P),
     "mdt_radix_sort": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mdt_merge_count": (_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P),
 }

@@ -17,6 +17,10 @@ The plain version is the exact mode's code as it was before the kernel:
 ranks or their Blom scores (``blom_scores``, the arithmetic K12 follows),
 the ``bad`` mask and ``_scatter_rows``; ``ops/ranknorm.py`` exports those
 names.
+
+Kernel K15 (``blom_from_counts``, in the same source) forms the same Blom
+scores from the ring route's integer counts in one pass over them, written
+over the counts' own storage; its plain version is ``blom_scores`` itself.
 """
 
 from __future__ import annotations
@@ -194,6 +198,36 @@ def blom_table(n: int, device) -> torch.Tensor:
             n, _inv_b(n), table.data_ptr(), _stream(table))
     _build.check(code, "mdt_blom_table")
     return table
+
+
+def blom_from_counts(t: torch.Tensor, n: int) -> torch.Tensor:
+    """K15: the float32 Blom scores ``blom_scores(t + 1, n)`` of the ring
+    route's int32 counts ``t`` ``(P, N_loc)``, each the twice-rank minus 1
+    (``2 cl + ce``) of its entry among the ``n`` entries of a row of the
+    chain group (``parallel.ring_rank``), bit for bit the plain version's.
+    Consumes ``t``: on the card the scores are written over its storage
+    (``t.view(torch.float32)``) in one pass, 8 bytes an entry; elsewhere
+    the plain ``blom_scores(t.add_(1), n)``. On the card ``t`` must be
+    contiguous on a 16-byte boundary; ``2n + 1 < 2^31`` everywhere (the
+    twice-rank in int32). One launch counted a call."""
+    if t.dtype != torch.int32 or not 1 <= n or 2 * n + 1 >= 2**31:
+        raise ValueError("blom_from_counts needs int32 counts of rows of "
+                         f"1 <= n < 2^30 entries, got {t.dtype} and n={n}")
+    z = t.view(torch.float32)
+    if not backend.use_kernels(z):
+        return blom_scores(t.add_(1), n, torch.float32)
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("blom_from_counts needs contiguous counts on a "
+                         "16-byte boundary")
+    with torch.cuda.device(t.device):
+        code = _build.library().mdt_blom_counts(
+            t.data_ptr(), t.numel(), n, _inv_b(n), _stream(t))
+    _build.check(code, "mdt_blom_counts")
+    blom_from_counts.launches += 1
+    return z
+
+
+blom_from_counts.launches = 0
 
 
 def _inv_b(n: int) -> float:

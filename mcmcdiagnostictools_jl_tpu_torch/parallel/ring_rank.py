@@ -33,6 +33,7 @@ Counts are integers (int32 while the twice-rank of a row of the chain
 group fits, below 2^30 entries, and K14 takes a block's rows, below 2^30 -
 2048 entries; ``_count_dtype``), and the Blom scores and the quantiles'
 order statistics are formed from them exactly (``rank_normal_from_counts``,
+on the card from int32 counts by kernel K15 in one pass,
 ``quantiles_from_positions``), so in float64 the ranks, medians and
 quantiles are those of the gather path, and in float32 they stay right on
 rows of 2^24 entries and more. The exchanges and the all-reduce go through
@@ -47,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.mergecount import fits, merge_count
-from ..kernels.tiedrank import blom_scores
+from ..kernels.tiedrank import blom_from_counts, blom_scores
 from ..ops.ranknorm import quantile_index
 from ..utils.profiling import host_sync
 from .comm import all_reduce, ring_exchange
@@ -91,7 +92,12 @@ def rank_normal_from_counts(t, ntotal: int, dtype):
     twice-rank ``t + 1 = 2 cl + ce + 1`` exact, so that the scores stay
     right on rows of 2^24 entries and more; in int64 where it outgrows
     int32 (rows of 2^30 entries and more), whatever the counts' dtype.
-    Consumes ``t``: the 1 is added in place."""
+    int32 counts into float32 go through K15 (``blom_from_counts``: one
+    pass on the card, written over ``t``'s storage). Consumes ``t``: the 1
+    is added in place."""
+    if (t.dtype == torch.int32 and dtype == torch.float32
+            and 2 * ntotal + 1 < 2**31):
+        return blom_from_counts(t, ntotal)
     if 2 * ntotal + 1 >= 2**31:
         t = t.long()
     return blom_scores(t.add_(1), ntotal, dtype)

@@ -1051,6 +1051,37 @@ class TestShardedOnTheCard:
                 for _ in range(2))
         assert torch.equal(a.ess, b.ess) and torch.equal(a.rhat, b.rhat)
 
+    def test_ring_scores_through_k15_are_bit_equal(self, nccl_mesh,  # noqa: F811
+                                                   cuda_device, monkeypatch):
+        """One ring ``ess_rhat_sharded(kind="rank")`` call and one ring
+        ``rhat_nested_local`` call, bit for bit the same calls with K15 off
+        (the plain ``blom_scores`` in its place); K15 launches twice a call,
+        bulk and fold."""
+        from mcmcdiagnostictools_jl_tpu_torch.kernels import tiedrank as k12
+        from mcmcdiagnostictools_jl_tpu_torch.parallel import ring_rank
+
+        x = self._x(cuda_device, 32)
+        ids = np.repeat(np.arange(8), 2)
+        calls = [
+            lambda: tuple(mtt.parallel.ess_rhat_sharded(
+                x, nccl_mesh, kind="rank", rank_impl="ring")),
+            lambda: (mtt.parallel.rhat_nested_local(
+                x, ids, nccl_mesh, kind="rank", rank_impl="ring"),),
+        ]
+        for fn in calls:
+            kernels.reset_launch_counts()
+            got = fn()
+            assert kernels.launch_counts()["K15"] == 2
+            with monkeypatch.context() as m:
+                m.setattr(ring_rank, "blom_from_counts",
+                          lambda c, n: k12.blom_scores(c.add_(1), n,
+                                                       torch.float32))
+                want = fn()
+            assert kernels.launch_counts()["K15"] == 2
+            for g, w in zip(got, want):
+                assert g.dtype == torch.float32 and torch.equal(
+                    g.view(torch.int32), w.view(torch.int32))
+
     def test_float64_launches_no_kernel(self, nccl_mesh,  # noqa: F811
                                         cuda_device):
         x = self._x(cuda_device).double()
@@ -2052,3 +2083,129 @@ def test_k14_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa
         k14.merge_count(a, a, t[:, :32].contiguous())
     with pytest.raises(NotImplementedError):
         k14.merge_count(a.half(), a.half(), t)
+
+
+# ---- K15: the ring route's Blom scores from its counts -----------------------
+
+# rows of the chain group: a few entries, past K15's vectors, just below and
+# at 2^24 (where the float32 quotient's top score turned +inf) and the
+# sharded cell's 25M
+_K15_SHORT_N = [1, 2, 3, 5, 1000, 65_537]
+_K15_LONG_N = [2**24 - 1, 2**24, 25_000_000]
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _k15_both(t, n):
+    """K15's scores of the int32 counts ``t`` (a copy, which it consumes)
+    and the plain version's, ``blom_scores(t + 1, n)``."""
+    want = k12.blom_scores(t + 1, n, torch.float32)
+    got = k12.blom_from_counts(t.clone(), n)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("n", _K15_SHORT_N)
+def test_k15_every_count_of_a_short_row(cuda_device, n):  # noqa: F811
+    """Every count t from 0 to 2n (both halves and the k = n / n + 1 edge
+    between them) bit for bit the plain version's, whole and in pieces of
+    1-15 entries from either end (1-7 past a multiple of 4: the scalar
+    tail)."""
+    t = torch.arange(2 * n + 1, dtype=torch.int32, device=cuda_device)
+    got, want = _k15_both(t, n)
+    assert _same_bits(got, want)
+    for length in range(1, min(16, t.numel() + 1)):
+        for part in (t[:length], t[-length:]):
+            assert _same_bits(*_k15_both(part, n)), length
+
+
+@pytest.mark.parametrize("n", _K15_LONG_N)
+def test_k15_on_long_rows(cuda_device, n):  # noqa: F811
+    """Counts at both ends and around the middle of a row of the chain
+    group of ``n`` entries, and random counts in rows ``(3, 4m + 3)``: bit
+    for bit the plain version's, every score finite (the top one too) and
+    the ends the mirror of each other."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    ends = torch.cat([torch.arange(4099), torch.arange(n - 4099, n + 4099),
+                      torch.arange(2 * n - 4098, 2 * n + 1)])
+    rand = torch.randint(0, 2 * n + 1, (3, 400_003), generator=g,
+                         dtype=torch.int32, device=cuda_device)
+    for t in (ends.to(torch.int32).to(cuda_device), rand):
+        got, want = _k15_both(t, n)
+        assert _same_bits(got, want)
+        assert bool(torch.isfinite(got).all())
+    z, _ = _k15_both(ends.to(torch.int32).to(cuda_device), n)
+    assert torch.equal(z[:4099], -z.flip(0)[:4099])
+    assert float(z[-2]) > 5  # t = 2n - 1: the top element, k = 2n
+
+
+def test_k15_counts_one_launch_a_call(cuda_device):  # noqa: F811
+    """``launch_counts()["K15"]``: one a wrapper call, one a call of the
+    ring's ``rank_normal_from_counts`` on int32 counts into float32, and
+    one ``blom_counts_kernel`` on the device a call (what ``k15_roofline``
+    reads by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmcdiagnostictools_jl_tpu_torch.parallel import ring_rank
+
+    n = 100_000
+    t = torch.arange(1, 2 * n, 3, dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    k12.blom_from_counts(t.clone(), n)
+    assert kernels.launch_counts()["K15"] == 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        z = ring_rank.rank_normal_from_counts(t.clone(), n, torch.float32)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts()["K15"] == 2
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert sum("blom_counts_kernel" in nm for nm in names) == 1, names
+    assert _same_bits(z, k12.blom_scores(t + 1, n, torch.float32))
+
+
+def test_k15_int64_and_float64_take_the_plain_version(cuda_device):  # noqa: F811
+    """int64 counts (rows of 2^30 entries and more, or where K14 cannot
+    count) and float64 scores launch nothing and give the plain scores:
+    the int64 counts' float32 scores bit for bit K15's."""
+    from mcmcdiagnostictools_jl_tpu_torch.parallel import ring_rank
+
+    n = 300_001
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    t = torch.randint(0, 2 * n + 1, (2, 5001), generator=g, dtype=torch.int32,
+                      device=cuda_device)
+    kernels.reset_launch_counts()
+    z64 = ring_rank.rank_normal_from_counts(t.long(), n, torch.float32)
+    zd = ring_rank.rank_normal_from_counts(t.clone(), n, torch.float64)
+    assert kernels.launch_counts()["K15"] == 0
+    assert zd.dtype == torch.float64
+    assert torch.equal(zd, k12.blom_scores(t + 1, n, torch.float64))
+    assert _same_bits(z64, k12.blom_from_counts(t.clone(), n))
+    assert kernels.launch_counts()["K15"] == 1
+
+
+def test_k15_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):  # noqa: F811
+    t = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # off a 16-byte boundary
+        k12.blom_from_counts(t[1:], 1000)
+    with pytest.raises(ValueError):  # not contiguous
+        k12.blom_from_counts(t.view(8, 8).t(), 1000)
+    with pytest.raises(ValueError):  # int64 counts
+        k12.blom_from_counts(t.long(), 1000)
+    with pytest.raises(ValueError):  # a twice-rank past int32
+        k12.blom_from_counts(t, 2**30)
+
+
+def test_one_card_calls_launch_no_k15(cuda_device):  # noqa: F811
+    """The one-card exact and fast ``ess_rhat`` and ``rhat_nested`` form
+    their scores in K12 and K4 or its glue: K15 never launches."""
+    x = t(_ar1(33, (1000, 8, 16))).to(torch.float32).to(cuda_device)
+    ids = np.repeat(np.arange(4), 2)
+    for fn in (lambda: mtt.ess_rhat(x, kind="rank"),
+               lambda: mtt.ess_rhat(x, kind="rank", rank_mode="fast"),
+               lambda: mtt.rhat_nested(x, ids)):
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["K15"] == 0

@@ -227,6 +227,51 @@ def test_blom_scores_of_every_rank_of_a_row_of_the_exact_cell():
     assert float(_ulps(old[-1:], want[-1:])) > 1000
 
 
+@pytest.mark.parametrize("counts, dtype, to_k15", [
+    (torch.int32, torch.float32, True),
+    (torch.int64, torch.float32, False),
+    (torch.int32, torch.float64, False),
+    (torch.int64, torch.float64, False),
+])
+def test_ring_scores_go_to_k15_by_their_input(monkeypatch, counts, dtype,
+                                              to_k15):
+    """``rank_normal_from_counts`` hands int32 counts into float32 scores
+    to K15's wrapper (``blom_from_counts``), and every other input to the
+    plain ``blom_scores`` as before: no option decides it. Either way the
+    scores are ``blom_scores(t + 1, n)``."""
+    n = 5000
+    t = torch.arange(1, 2 * n, 7, dtype=counts)[None].repeat(2, 1)
+    seen = []
+
+    def recorder(c, m):
+        seen.append((c.dtype, m))
+        return tiedrank.blom_from_counts(c, m)
+
+    monkeypatch.setattr(ring_rank, "blom_from_counts", recorder)
+    z = ring_rank.rank_normal_from_counts(t.clone(), n, dtype)
+    assert seen == ([(torch.int32, n)] if to_k15 else [])
+    assert z.dtype == dtype
+    assert torch.equal(z, tiedrank.blom_scores(t + 1, n, dtype))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 2**24, 25_000_000])
+def test_k15_wrapper_is_the_plain_version_on_the_cpu(n):
+    """On the CPU ``blom_from_counts`` is ``blom_scores(t + 1, n)`` and
+    launches nothing; it takes int32 counts of rows whose twice-rank fits
+    int32 and raises for any other."""
+    t = torch.cat([torch.arange(0, min(2 * n + 1, 4096)),
+                   torch.arange(max(0, 2 * n - 4095), 2 * n + 1)]).int()
+    kernels.reset_launch_counts()
+    z = tiedrank.blom_from_counts(t.clone(), n)
+    assert kernels.launch_counts()["K15"] == 0
+    assert z.dtype == torch.float32 and bool(torch.isfinite(z).all())
+    assert torch.equal(z, tiedrank.blom_scores(t + 1, n, torch.float32))
+    with pytest.raises(ValueError):
+        tiedrank.blom_from_counts(t.long(), n)
+    with pytest.raises(ValueError):
+        tiedrank.blom_from_counts(t, 2**30)
+
+
 def test_the_median_of_an_even_row_of_25m_entries():
     n = 25_000_000
     assert quantile_index(n, 0.5) == (12_499_999, 12_500_000, 0.5)
